@@ -1,0 +1,46 @@
+"""Carry a chain design across from its numpy state.
+
+The JAX package's ``FusedChainCF`` holds its design as arrays
+(``_h_filt``, ``_g_env``, ``env_delay``, ``spec_w``, ``filt_w``,
+``env_w``) plus ``rate``, ``nfft``, ``hop`` and ``env_clamp``.  Given
+those as numpy values, :func:`chain_from_arrays` builds the port's module
+with exactly the same coefficients, so both packages compute with one
+design.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .ops.fused import FusedChainCF
+
+__all__ = ["ARRAY_KEYS", "chain_from_arrays"]
+
+#: the state a chain is rebuilt from
+ARRAY_KEYS = ("rate", "nfft", "hop", "env_clamp", "_h_filt", "_g_env",
+              "env_delay", "spec_w", "filt_w", "env_w")
+
+
+def chain_from_arrays(arrays, device=None):
+    """The port's :class:`FusedChainCF` over ``arrays`` (a dict holding
+    :data:`ARRAY_KEYS`; a missing design is ``None``)."""
+    missing = set(ARRAY_KEYS) - set(arrays)
+    if missing:
+        raise KeyError(f"missing chain arrays: {sorted(missing)}")
+
+    def arr(k, dtype):
+        v = arrays[k]
+        return None if v is None else np.asarray(v, dtype)
+
+    return FusedChainCF.from_arrays({
+        "rate": float(arrays["rate"]),
+        "nfft": int(arrays["nfft"]),
+        "hop": int(arrays["hop"]),
+        "env_clamp": bool(arrays["env_clamp"]),
+        "_h_filt": arr("_h_filt", np.float64),
+        "_g_env": arr("_g_env", np.float64),
+        "env_delay": int(arrays["env_delay"]),
+        "spec_w": arr("spec_w", np.float32),
+        "filt_w": arr("filt_w", np.float32),
+        "env_w": arr("env_w", np.float32),
+    }, device=device)

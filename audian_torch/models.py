@@ -1,0 +1,72 @@
+"""Chain presets: the named processing chains of audian, each building
+the matching :class:`audian_torch.ops.fused.FusedChainCF`."""
+
+from __future__ import annotations
+
+import dataclasses
+
+from .ops.design import design_envelope_filter, design_filter
+from .ops.fused import FusedChainCF
+
+__all__ = ["ChainPreset", "PRESETS", "get_preset"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainPreset:
+    """One named processing chain."""
+
+    name: str
+    description: str
+    highpass_cutoff: float = 0.0
+    lowpass_cutoff: float | None = None
+    filter_order: int = 2
+    envelope_cutoff: float | None = None
+    nfft: int = 256
+    overlap_frac: float = 0.5
+
+    def fused(self, rate, eps=1e-7, device=None):
+        """The matching channels-first batch chain on ``device``."""
+        filt = design_filter(rate, self.highpass_cutoff,
+                             self.lowpass_cutoff, self.filter_order)
+        env = (design_envelope_filter(rate, self.envelope_cutoff)
+               if self.envelope_cutoff else None)
+        hop = max(int(round((1 - self.overlap_frac) * self.nfft)), 1)
+        return FusedChainCF(rate, filt_sos=filt, env_sos=env,
+                            nfft=self.nfft, hop=hop, eps=eps, device=device)
+
+
+PRESETS = {
+    "browser": ChainPreset(
+        "browser",
+        "the default interactive chain: full-band filter + NFFT-256 "
+        "spectrogram",
+    ),
+    "browser-envelope": ChainPreset(
+        "browser-envelope",
+        "browser chain plus the 500 Hz rectified envelope trace",
+        envelope_cutoff=500.0,
+    ),
+    "bioacoustics": ChainPreset(
+        "bioacoustics",
+        "2-40 kHz bandpass + envelope + spectrogram (the headline "
+        "benchmark chain)",
+        highpass_cutoff=2000.0, lowpass_cutoff=40000.0,
+        envelope_cutoff=500.0,
+    ),
+    "ultrasound": ChainPreset(
+        "ultrasound",
+        "20-90 kHz bandpass with fine frequency resolution for bat-style "
+        "recordings",
+        highpass_cutoff=20000.0, lowpass_cutoff=90000.0,
+        envelope_cutoff=1000.0, nfft=512,
+    ),
+}
+
+
+def get_preset(name):
+    try:
+        return PRESETS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown preset {name!r}; available: {', '.join(PRESETS)}"
+        ) from None

@@ -1,0 +1,119 @@
+"""Build the CUDA kernels from ``audian_torch/csrc/*.cu`` and load them.
+
+``nvcc`` compiles every source into one shared library with a plain C
+interface for ``sm_90a``, at first use, into
+``build/audian_torch/<source-hash>/libaudian_torch_kernels.so`` beside the
+package.  The hash covers the sources and the flags, so an edit rebuilds
+and an unchanged tree reuses the library.  The library is loaded with
+ctypes; nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["SMEM_LIMIT", "build_dir", "check", "load_library",
+           "ptxas_report"]
+
+#: shared memory one block may use on Hopper (232,448 bytes); above 48 KB
+#: the launchers opt in with cudaFuncSetAttribute
+SMEM_LIMIT = 232448
+
+_PKG = Path(__file__).resolve().parents[2]
+_CSRC = _PKG / "csrc"
+_LIBNAME = "libaudian_torch_kernels.so"
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "audian_cuda_error_string": ([_I], ctypes.c_char_p),
+    "chain_tile": ([], _I),
+    "chain_smem_bytes": ([_I, _I, _I, _I], _LL),
+    "chain_launch": ([_P, _I, _LL, _I, _LL, _P, _I, _P, _I, _I, _I, _I, _I,
+                      _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+                     _I),
+    "window_matmul_smem_bytes": ([_I, _I], _LL),
+    "window_matmul_launch": ([_P, _LL, _I, _P, _I, _I, _I, _I, _I, _I, _P,
+                              _P], _I),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def build_dir():
+    """The directory of the library for the current sources and flags."""
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return _PKG.parent / "build" / "audian_torch" / digest.hexdigest()[:16]
+
+
+def _nvcc():
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _build(out):
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out.parent / "nvcc.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+
+
+def load_library():
+    """The kernel library, built first if needed (thread-safe, once per
+    process)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            out = build_dir() / _LIBNAME
+            if not out.exists():
+                _build(out)
+            lib = ctypes.CDLL(str(out))
+            for name, (args, res) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = res
+            _lib = lib
+        return _lib
+
+
+def ptxas_report():
+    """What ``ptxas -v`` said about each kernel in the last build (registers,
+    shared memory, spills), or '' when the library was built elsewhere."""
+    log = build_dir() / "nvcc.log"
+    return log.read_text() if log.exists() else ""
+
+
+def check(code, what):
+    """Raise if a launcher returned a CUDA error code."""
+    if code != 0:
+        msg = load_library().audian_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

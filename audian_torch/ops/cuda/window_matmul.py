@@ -1,0 +1,112 @@
+"""Strided-window matrix product: ``y[f] = p(x[:, f*S : f*S + K]) @ w``.
+
+The wrapper :func:`window_matmul` launches the CUDA kernel
+(``csrc/window_matmul.cu``, the port of
+``audian_tpu/ops/pallas/window_matmul.py:_kernel``) on a CUDA tensor and
+runs the plain PyTorch version :func:`window_matmul_plain` on a CPU
+tensor; any other device raises.  It serves the per-stage form of the
+fused chain: the Toeplitz filter and envelope banks and the Hann-DFT
+analysis matrix.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..sos import full_fp32
+from ._build import SMEM_LIMIT, check, load_library
+
+__all__ = ["PREMAPS", "window_matmul", "window_matmul_plain"]
+
+#: elementwise maps applied to ``x`` while the windows are built
+PREMAPS = (None, "rectify")
+_LAYOUTS = ("fco", "cf")
+
+
+def _check_args(x, w, stride, nframes, premap, out_layout):
+    if x.ndim != 2 or w.ndim != 2:
+        raise ValueError("x must be (C, n) and w (K, O)")
+    if premap not in PREMAPS:
+        raise ValueError(f"premap must be one of {PREMAPS}, got {premap!r}")
+    if out_layout not in _LAYOUTS:
+        raise ValueError(f"out_layout must be one of {_LAYOUTS}")
+    if int(stride) < 1 or int(nframes) < 0:
+        raise ValueError("stride must be >= 1 and nframes >= 0")
+
+
+def _reshape_out(y, out_layout):
+    """(C, nframes, O) -> the requested layout."""
+    if out_layout == "fco":
+        return y.permute(1, 0, 2).contiguous()
+    return y.reshape(y.shape[0], -1)
+
+
+def window_matmul_plain(x, w, stride, nframes, premap=None, out_layout="fco"):
+    """Plain PyTorch version of :func:`window_matmul`: the frames as an
+    ``unfold`` view of the zero-extended stream, then one ``matmul`` in
+    full float32."""
+    _check_args(x, w, stride, nframes, premap, out_layout)
+    full_fp32()
+    C, n = x.shape
+    K, O = w.shape
+    if nframes == 0:
+        return _reshape_out(x.new_zeros((C, 0, O)), out_layout)
+    need = (nframes - 1) * stride + K
+    if need > n:
+        x = torch.nn.functional.pad(x, (0, need - n))
+    if premap == "rectify":
+        x = (math.pi / 2) * torch.abs(x)
+    frames = x[:, :need].unfold(1, K, stride)               # (C, nf, K)
+    return _reshape_out(frames @ w, out_layout)
+
+
+def window_matmul(x, w, stride, nframes, premap=None, out_layout="fco"):
+    """``y[f, c, :] = p(x[c, f*stride : f*stride + K]) @ w`` for
+    ``f < nframes``, with ``x`` zero-extended past its end.
+
+    x : (C, n) float32, channels-first.  w : (K, O) float32.
+    premap : None or "rectify" ((pi/2)|v|).
+    out_layout : "fco" returns (nframes, C, O); "cf" the channels-first
+        stream (C, nframes*O).
+
+    A CUDA tensor runs the kernel (counted in ``window_matmul.launches``);
+    a CPU tensor runs :func:`window_matmul_plain`.
+    """
+    if x.device.type == "cpu":
+        return window_matmul_plain(x, w, stride, nframes, premap, out_layout)
+    if x.device.type != "cuda":
+        raise ValueError(f"window_matmul runs on cuda or cpu, not {x.device}")
+    _check_args(x, w, stride, nframes, premap, out_layout)
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError("window_matmul takes float32 x and w")
+    if w.device != x.device:
+        raise ValueError("x and w must be on the same device")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("x and w must be contiguous")
+    C, n = x.shape
+    K, O = w.shape
+    S, nframes = int(stride), int(nframes)
+    if C > 65535:
+        raise ValueError(f"at most 65535 channels (one grid row each), "
+                         f"got {C}")
+    y = torch.empty((C, nframes, O) if out_layout == "cf"
+                    else (nframes, C, O), dtype=torch.float32,
+                    device=x.device)
+    if nframes == 0 or C == 0 or O == 0:
+        return y.reshape(C, nframes * O) if out_layout == "cf" else y
+    lib = load_library()
+    if lib.window_matmul_smem_bytes(K, S) > SMEM_LIMIT:
+        raise ValueError(f"window span of K={K}, stride={S} exceeds the "
+                         f"shared memory of one block")
+    code = lib.window_matmul_launch(
+        x.data_ptr(), n, C, w.data_ptr(), K, O, S, nframes,
+        int(premap == "rectify"), _LAYOUTS.index(out_layout), y.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(code, "window_matmul")
+    window_matmul.launches += 1
+    return y.reshape(C, nframes * O) if out_layout == "cf" else y
+
+
+window_matmul.launches = 0

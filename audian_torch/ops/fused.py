@@ -1,0 +1,211 @@
+"""Channels-first fused chain: band-pass FIR, rectified zero-phase
+envelope and Hann PSD spectrogram of a ``(channels, frames)`` stream.
+
+Two forms over one design.  :meth:`FusedChainCF.chain_cf` runs the whole
+chain in one kernel pass per chunk (:mod:`.cuda.chain`); it needs a
+filter and an envelope design, ``hop == 128`` and ``nfft % 128 == 0``.
+The per-stage methods (:meth:`~FusedChainCF.filtered_cf`,
+:meth:`~FusedChainCF.envelope_cf`, :meth:`~FusedChainCF.spectrogram_fc`)
+run every design as strided-window matrix products
+(:mod:`.cuda.window_matmul`) over Toeplitz banks and the windowed DFT.
+
+The spectrogram comes back ``(nframes, channels, nbins)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import design
+from .cuda.chain import ALL_OUTPUTS, ChainKernel, fits
+from .cuda.window_matmul import window_matmul
+from .sos import _toeplitz_bank_np
+from .stft import _dft_matrices, hann_window, one_sided_doubling
+
+__all__ = ["FusedChainCF", "design_arrays"]
+
+
+def design_arrays(rate, filt_sos=None, env_sos=None, env_clamp=True,
+                  nfft=256, hop=128, eps=1e-7, block=128):
+    """The host-side state of a fused chain (numpy), the same arrays the
+    JAX ``FusedChainCF`` computes: the truncated filter response
+    ``_h_filt`` and its Toeplitz bank ``filt_w``, the symmetric envelope
+    kernel ``_g_env`` with its delay and bank ``env_w``, and the analysis
+    matrix ``spec_w`` (periodic Hann, density scale and one-sided doubling
+    folded in)."""
+    rate = float(rate)
+    nfft = int(nfft)
+    a = {"rate": rate, "nfft": nfft, "hop": int(hop),
+         "env_clamp": bool(env_clamp), "_h_filt": None, "filt_w": None,
+         "_g_env": None, "env_w": None, "env_delay": 0}
+    if filt_sos is not None:
+        h = design.impulse_response(
+            filt_sos, design.effective_impulse_length(filt_sos, eps))
+        a["_h_filt"] = h
+        a["filt_w"] = _toeplitz_bank_np(h.astype(np.float32), block).T
+    if env_sos is not None:
+        g, delay = design.filtfilt_sym_kernel(env_sos, eps=eps)
+        a["_g_env"] = g
+        a["env_delay"] = int(delay)
+        a["env_w"] = _toeplitz_bank_np(g.astype(np.float32), block).T
+    nbins = nfft // 2 + 1
+    win = hann_window(nfft, np.float64)
+    W = _dft_matrices(nfft, nbins, np.float64)
+    scale = 1.0 / (rate * float(np.sum(win ** 2)))
+    dbl = one_sided_doubling(nfft)
+    amp = np.sqrt(np.concatenate([dbl * scale, dbl * scale]))
+    a["spec_w"] = ((win[:, None] * W) * amp[None, :]).astype(np.float32)
+    return a
+
+
+def _check_device(device):
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           f"available")
+    return device
+
+
+class FusedChainCF(nn.Module):
+    """Fused chain over a fixed design, on one device.
+
+    Parameters
+    ----------
+    rate : sample rate (Hz).
+    filt_sos / env_sos : SOS cascades (either may be None).
+    env_clamp : clamp the envelope at zero.
+    nfft, hop : spectrogram geometry.
+    eps : FIR truncation tolerance.
+    block : Toeplitz bank width of the per-stage filter and envelope.
+    ifir : the JAX package's interpolated-FIR envelope; not ported.
+    device : where the banks live and the chain runs ("cpu" runs the
+        plain versions; "cuda" the kernels, and raises without CUDA).
+    """
+
+    def __init__(self, rate, filt_sos=None, env_sos=None, env_clamp=True,
+                 nfft=256, hop=128, eps=1e-7, block=128, ifir=False,
+                 device=None):
+        if ifir:
+            raise NotImplementedError("the ifir envelope is not ported")
+        super().__init__()
+        self._setup(design_arrays(rate, filt_sos, env_sos, env_clamp, nfft,
+                                  hop, eps, block), device)
+
+    @classmethod
+    def from_arrays(cls, arrays, device=None):
+        """A chain over precomputed arrays (the keys of
+        :func:`design_arrays`)."""
+        self = cls.__new__(cls)
+        nn.Module.__init__(self)
+        self._setup(arrays, device)
+        return self
+
+    def _setup(self, a, device):
+        device = _check_device(device)
+        self.rate = float(a["rate"])
+        self.nfft = int(a["nfft"])
+        self.hop = int(a["hop"])
+        self.env_clamp = bool(a["env_clamp"])
+        self.nbins = self.nfft // 2 + 1
+        self._h_filt = a["_h_filt"]
+        self._g_env = a["_g_env"]
+        self.env_delay = int(a["env_delay"]) if self._g_env is not None else 0
+
+        def buf(x):
+            if x is None:
+                return None
+            return torch.tensor(np.ascontiguousarray(x, np.float32),
+                                device=device)
+
+        self.register_buffer("filt_w", buf(a["filt_w"]))
+        self.register_buffer("env_w", buf(a["env_w"]))
+        self.register_buffer("spec_w", buf(a["spec_w"]))
+        if self.spec_w.shape != (self.nfft, 2 * self.nbins):
+            raise ValueError("spec_w does not match nfft")
+        self.block = (self.filt_w.shape[1] if self.filt_w is not None
+                      else self.env_w.shape[1] if self.env_w is not None
+                      else 128)
+        self.filt_halo = 0 if self._h_filt is None else len(self._h_filt) - 1
+        self.env_halo = 0 if self._g_env is None else len(self._g_env) - 1
+        self._chain = None
+        # the single-pass gate: both designs, hop 128, whole 128-sample
+        # DFT blocks, and a tile that fits one block (longer kernels run
+        # on the per-stage methods)
+        if (self._h_filt is not None and self._g_env is not None
+                and self.hop == 128 and self.nfft % 128 == 0
+                and fits(len(self._h_filt), len(self._g_env),
+                         self.env_delay, self.nfft)):
+            self._chain = ChainKernel(
+                self.rate, self._h_filt, self._g_env, self.env_delay,
+                a["spec_w"], self.nbins, env_clamp=self.env_clamp,
+                nfft=self.nfft, device=device)
+
+    @property
+    def chain_kernel(self):
+        """The single-pass chain (:class:`ChainKernel`), or ``None`` when
+        the design or geometry does not fit it."""
+        return self._chain
+
+    # -- stages ---------------------------------------------------------------
+
+    def filtered_cf(self, x_cf):
+        """Causal band-pass of a channels-first stream; same length."""
+        if self.filt_w is None:
+            return x_cf
+        n = x_cf.shape[1]
+        B = self.block
+        xp = F.pad(x_cf, (self.filt_halo, 0))
+        y = window_matmul(xp, self.filt_w, B, -(-n // B), out_layout="cf")
+        return y[:, :n]
+
+    def envelope_cf(self, y_cf):
+        """Rectified symmetric-kernel envelope of a (filtered) stream;
+        the rectifier runs inside the window build.  Interior samples
+        match scipy's pi/2-rectified ``sosfiltfilt``."""
+        if self.env_w is None:
+            return torch.zeros_like(y_cf)
+        n = y_cf.shape[1]
+        B = self.block
+        xp = F.pad(y_cf, (self.env_halo, self.env_delay))
+        e = window_matmul(xp, self.env_w, B, -(-(n + self.env_delay) // B),
+                          premap="rectify", out_layout="cf")
+        e = e[:, self.env_delay : self.env_delay + n]
+        return torch.clamp_min(e, 0.0) if self.env_clamp else e
+
+    def spectrogram_fc(self, y_cf, nframes=None):
+        """PSD spectrogram of a channels-first stream: (nf, C, nbins)."""
+        n = y_cf.shape[1]
+        if nframes is None:
+            nframes = max((n - self.nfft) // self.hop + 1, 0)
+        s = window_matmul(y_cf.contiguous(), self.spec_w, self.hop, nframes,
+                          out_layout="fco")
+        re, im = s[..., : self.nbins], s[..., self.nbins:]
+        return re * re + im * im
+
+    def chain_cf(self, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
+        """The whole chain in one kernel pass over an extended stream
+        ``[hb | n | ha...]`` (``hb = chain_kernel.hb``, ``ha >=
+        chain_kernel.ha``), int16 (PCM-16, k/2^15) or float32.  Returns
+        ``(filtered, envelope, psd)``, with a stats dict as a fourth
+        element when ``stats=True``; ``outputs`` masks stages, which then
+        come back as ``None``."""
+        if self._chain is None:
+            raise ValueError(
+                "the single-pass chain kernel needs filter + envelope "
+                "designs and hop == 128; use the per-stage methods")
+        return self._chain(x_ext, n, stats=stats, outputs=outputs)
+
+    def forward(self, x_cf, nspec_frames=None, outputs=ALL_OUTPUTS):
+        """Per-stage chain: a dict with the requested outputs."""
+        y = self.filtered_cf(x_cf)
+        out = {}
+        if "filtered" in outputs:
+            out["filtered"] = y
+        if self.env_w is not None and "envelope" in outputs:
+            out["envelope"] = self.envelope_cf(y)
+        if "spectrogram" in outputs:
+            out["spectrogram"] = self.spectrogram_fc(y, nspec_frames)
+        return out

@@ -1,0 +1,470 @@
+"""Smoke run of audian_torch on one CUDA card: build, check, drive, time.
+
+    python3 chip_smoke.py
+
+Phases (each prints its lines; any failure raises and exits non-zero):
+
+0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+   fails at once without CUDA;
+1. builds the kernels from ``audian_torch/csrc`` into ``build/``;
+2. ``window_matmul`` kernel against its plain version at 16 ch x 2^20
+   samples: the ``bioacoustics`` per-stage filter, rectified envelope and
+   PSD, ``ultrasound`` at 384 kHz, and hop 90;
+3. ``chain`` kernel against its plain version at the headline chunk
+   (16 ch x 2^22 int16, ``bioacoustics``, eps 2e-6, stats), int16 against
+   its float32 dequantization, all 7 output masks, a padded tail, and a
+   24 Hz envelope whose tile needs more than 48 KB of shared memory
+   (held against a float64 evaluation of the same taps);
+4. the main path: a 60 s x 16 ch x 96 kHz PCM-16 WAV read in halo'd
+   2^21-frame chunks through two pinned int16 buffers, each chunk run
+   through ``FusedChainCF.chain_cf`` (stats) and checked against the plain
+   version, chunked against whole, a 2 s slice of one channel against
+   scipy float64; and the per-stage ``ultrasound`` chain over the same
+   file, checked against scipy.  Launch counters are zeroed just before this
+   phase and read just after it;
+5. CUDA-event times (median of 5 after a warm-up) of each kernel and its
+   plain version, and of the 1-hour loop (83 device-resident chunks);
+6. the launch counters of phase 4, each of which must be > 0.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import scipy.io.wavfile
+import scipy.signal as sps
+import torch
+
+RATE = 96000.0
+C = 16
+CHUNK = 1 << 22          # headline chunk (43.7 s at 96 kHz)
+FILE_CHUNK = 1 << 21     # disk -> chain chunk of phase 4
+HOUR_CHUNKS = -(-int(3600 * RATE) // CHUNK)   # 83
+SEED = 0
+
+# tolerances (max abs error at unit-scale PCM input; the scipy 1e-5
+# contract of the JAX package)
+TOL_FILTERED = 1e-5
+TOL_ENVELOPE = 1e-5
+TOL_PSD_DB = 0.013       # bins within 60 dB of the chunk peak
+TOL_STATS_RTOL = 1e-5
+TOL_WINDOW = 1e-5        # times the output scale
+# chunked against whole: the same samples go through the same kernel
+# arithmetic, so the tolerance of tests/test_chunk_equivalence.py holds
+TOL_CHUNKED = 2e-6
+
+
+def require(ok, what):
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, reps=5):
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after a
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def max_abs(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+def psd_db_err(got, want):
+    """Largest |dB difference| over bins within 60 dB of the peak."""
+    got, want = got.double(), want.double()
+    keep = want >= want.max() * 1e-6
+    ratio = got[keep].clamp_min(1e-300) / want[keep]
+    return float((10 * torch.log10(ratio)).abs().max())
+
+
+def int16_chunk(gen, shape, device):
+    """A PCM-16 test chunk: a gated 30 kHz tone plus noise (bench.py's
+    headline signal), made on the host from ``gen``."""
+    t = torch.arange(shape[1], dtype=torch.float64) / RATE
+    tone = torch.sin(2 * math.pi * 30000.0 * t) * (
+        torch.sin(2 * math.pi * 5.0 * t) > 0)
+    x = 0.5 * tone + 0.05 * torch.randn(shape, generator=gen,
+                                        dtype=torch.float64)
+    q = torch.clamp(torch.round(x * 32768.0), -32768, 32767)
+    return q.to(torch.int16).to(device)
+
+
+def chain_f64(ck, q, n):
+    """Filtered and envelope of the chain in float64 (same float32 taps):
+    an oracle for the kernel's arithmetic."""
+    x = q.double() / 32768.0
+    Tf, L = len(ck.h), len(ck.g)
+    seg = x[:, ck.hb - ck.lead - (Tf - 1) : ck.hb + n + ck.tail]
+    h = torch.flip(ck.h.double(), (0,)).reshape(1, 1, -1)
+    y = torch.nn.functional.conv1d(seg[:, None], h)[:, 0]
+    v = (math.pi / 2) * y.abs()
+    a = ck.lead + ck.delay - (L - 1)
+    g = torch.flip(ck.g.double(), (0,)).reshape(1, 1, -1)
+    e = torch.nn.functional.conv1d(v[:, None, a : a + n + L - 1], g)[:, 0]
+    return y[:, ck.lead : ck.lead + n], e.clamp_min(0.0)
+
+
+def check_chain(ck, x_ext, n, label):
+    """Kernel against plain on one chunk; returns (max abs err, outputs)."""
+    from audian_torch.ops.cuda.chain import chain, chain_plain
+
+    got = chain(ck, x_ext, n, stats=True)
+    want = chain_plain(ck, x_ext, n, stats=True)
+    torch.cuda.synchronize()
+    ey, ee = max_abs(got[0], want[0]), max_abs(got[1], want[1])
+    es = psd_db_err(got[2], want[2])
+    require(ey <= TOL_FILTERED, f"{label} filtered {ey}")
+    require(ee <= TOL_ENVELOPE, f"{label} envelope {ee}")
+    require(es <= TOL_PSD_DB, f"{label} psd {es} dB")
+    for key in ("power", "env_sum"):
+        g, w = got[3][key].double(), want[3][key].double()
+        r = float(((g - w).abs() / w.abs()).max())
+        require(r <= TOL_STATS_RTOL, f"{label} {key} rtol {r}")
+    eq = psd_db_err(got[3]["psd_sum"], want[3]["psd_sum"])
+    require(eq <= TOL_PSD_DB, f"{label} psd_sum {eq} dB")
+    # the in-kernel stats equal reductions of the kernel's own outputs
+    for key, val in (("power", (got[0].double() ** 2).sum(1)),
+                     ("env_sum", got[1].double().sum(1))):
+        r = float(((got[3][key].double() - val).abs() / val.abs()).max())
+        require(r <= TOL_STATS_RTOL, f"{label} {key} vs outputs {r}")
+    print(f"  {label}: filtered {ey:.3e}  envelope {ee:.3e}  "
+          f"psd {es:.3e} dB  psd_sum {eq:.3e} dB")
+    return max(ey, ee), got
+
+
+def main():
+    # -- phase 0: the card ---------------------------------------------------
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"phase 0: card {card}")
+    print(f"  torch {torch.__version__}  cuda {torch.version.cuda}  "
+          f"python {sys.version.split()[0]}  device {kind}")
+    dev = torch.device("cuda", 0)
+
+    from audian_torch.data.wavio import read_frames_raw16, wav_info
+    from audian_torch.models import get_preset
+    from audian_torch.ops.cuda import _build
+    from audian_torch.ops.cuda.chain import ALL_OUTPUTS, chain, chain_plain
+    from audian_torch.ops.cuda.window_matmul import (window_matmul,
+                                                     window_matmul_plain)
+    from audian_torch.ops.design import design_envelope_filter, design_filter
+    from audian_torch.ops.fused import FusedChainCF
+    from audian_torch.ops.raw16 import dequant16
+
+    # -- phase 1: build ------------------------------------------------------
+    t0 = time.perf_counter()
+    lib = _build.load_library()
+    print(f"phase 1: built {_build.build_dir()} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for line in _build.ptxas_report().splitlines():
+        if "registers" in line or "spill" in line:
+            print("  " + line.strip())
+
+    # -- phase 2: window_matmul ----------------------------------------------
+    print("phase 2: window_matmul kernel vs plain at 16 ch x 2^20")
+    gen = torch.Generator().manual_seed(SEED)
+    bio = get_preset("bioacoustics").fused(RATE, eps=2e-6, device=dev)
+    bio_sos = design_filter(RATE, 2000.0, 40000.0)
+    us384 = get_preset("ultrasound").fused(384000.0, eps=2e-6, device=dev)
+    n_wm = 1 << 20
+    x_wm = (0.3 * torch.randn((C, n_wm), generator=gen)).to(dev)
+
+    def stage_cases(fc, label):
+        xf = torch.nn.functional.pad(x_wm, (fc.filt_halo, 0))
+        xe = torch.nn.functional.pad(x_wm, (fc.env_halo, fc.env_delay))
+        B = fc.block
+        return [
+            (f"{label} filter", xf, fc.filt_w, B, -(-n_wm // B), None, "cf"),
+            (f"{label} envelope", xe, fc.env_w, B,
+             -(-(n_wm + fc.env_delay) // B), "rectify", "cf"),
+            (f"{label} psd", x_wm, fc.spec_w, fc.hop,
+             (n_wm - fc.nfft) // fc.hop + 1, None, "fco"),
+        ]
+
+    cases = stage_cases(bio, "bioacoustics") + stage_cases(
+        us384, "ultrasound-384k") + [
+        ("hop-90 psd", x_wm, bio.spec_w, 90, (n_wm - 256) // 90 + 1, None,
+         "fco")]
+    wm_err = 0.0
+    wm_times = {}
+    for label, x, w, S, nfr, pm, lay in cases:
+        got = window_matmul(x, w, S, nfr, premap=pm, out_layout=lay)
+        want = window_matmul_plain(x, w, S, nfr, premap=pm, out_layout=lay)
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        scale = float(want.abs().max())
+        require(err <= TOL_WINDOW * scale, f"window_matmul {label} {err}")
+        wm_err = max(wm_err, err)
+        wm_times[label] = (x, w, S, nfr, pm, lay)
+        print(f"  {label}: K={w.shape[0]} O={w.shape[1]} S={S} "
+              f"frames={nfr} max_abs_err {err:.3e} (scale {scale:.3e})")
+
+    # -- phase 3: chain ------------------------------------------------------
+    print("phase 3: chain kernel vs plain at 16 ch x 2^22 int16")
+    ck = bio.chain_kernel
+    require(ck is not None, "bioacoustics takes the single-pass chain")
+    require(lib.chain_smem_bytes(len(ck.h), len(ck.g), ck.lead, ck.tail)
+            == ck.smem_bytes, "shared-memory formula agrees")
+    require(lib.chain_tile() == 2048, "chain tile")
+    q = int16_chunk(gen, (C, ck.hb + CHUNK + ck.ha), dev)
+    chain_err, got_q = check_chain(ck, q, CHUNK, "headline int16")
+    got_f = chain(ck, dequant16(q), CHUNK, stats=True)
+    for a, b, name in zip(got_q[:3], got_f[:3], ALL_OUTPUTS):
+        require(torch.equal(a, b), f"int16 == float32 dequant ({name})")
+    for key in got_q[3]:
+        require(torch.equal(got_q[3][key], got_f[3][key]),
+                f"int16 == float32 dequant ({key})")
+    print("  int16 input gives exactly the float32-dequantized outputs")
+    del got_f
+    n_small = 1 << 18
+    qs = q[:, : ck.hb + n_small + ck.ha].contiguous()
+    full = chain(ck, qs, n_small, stats=True)
+    for r in (1, 2, 3):
+        for outputs in itertools.combinations(ALL_OUTPUTS, r):
+            got = chain(ck, qs, n_small, stats=True, outputs=outputs)
+            for val, ref, name, key in zip(got[:3], full[:3], ALL_OUTPUTS,
+                                           ("power", "env_sum", "psd_sum")):
+                if name in outputs:
+                    require(torch.equal(val, ref), f"mask {outputs} {name}")
+                    require(torch.equal(got[3][key], full[3][key]),
+                            f"mask {outputs} {key}")
+                else:
+                    require(val is None, f"mask {outputs} {name} is None")
+                    require(not bool(got[3][key].any()),
+                            f"mask {outputs} {key} is zero")
+    print("  all 7 output masks give the full chain's values")
+    e_tail, _ = check_chain(ck, qs, n_small - 640, "padded tail n=2^18-640")
+    chain_err = max(chain_err, e_tail)
+    # a 24 Hz envelope (14511 taps): the tile needs about 190 KB of shared
+    # memory, above the 48 KB a launch gets without opting in
+    long_env = FusedChainCF(RATE, filt_sos=bio_sos,
+                            env_sos=design_envelope_filter(RATE, 24.0),
+                            device=dev).chain_kernel
+    require(long_env is not None and long_env.smem_bytes > 48 * 1024,
+            "long-envelope design takes the chain kernel")
+    ql = q[:, : long_env.hb + n_small + long_env.ha].contiguous()
+    # against a float64 evaluation of the same taps: over this many taps
+    # cuDNN's float32 conv1d in the plain version is itself off by several
+    # 1e-6, so the plain version is no oracle at the 1e-5 budget here
+    ref_y, ref_e = chain_f64(long_env, ql, n_small)
+    got = chain(long_env, ql, n_small)
+    want = chain_plain(long_env, ql, n_small)
+    ky, ke = max_abs(got[0], ref_y), max_abs(got[1], ref_e)
+    py, pe = max_abs(want[0], ref_y), max_abs(want[1], ref_e)
+    require(ky <= TOL_FILTERED and ke <= TOL_ENVELOPE,
+            f"long envelope against float64: {ky} {ke}")
+    print(f"  long envelope ({len(long_env.g)} taps, {long_env.smem_bytes} B "
+          f"shared) against float64: kernel filtered {ky:.3e} envelope "
+          f"{ke:.3e}; plain filtered {py:.3e} envelope {pe:.3e}")
+    chain_err = max(chain_err, ky, ke)
+    del got, want, ref_y, ref_e
+
+    # -- phase 4: the main path ----------------------------------------------
+    print("phase 4: 60 s x 16 ch x 96 kHz PCM-16 WAV -> chain_cf")
+    rng = np.random.default_rng(SEED)
+    nfile = int(60 * RATE)
+    t = np.arange(nfile) / RATE
+    freqs = 3000.0 + 2200.0 * np.arange(C)
+    gate = (np.sin(2 * np.pi * 3.0 * t) > 0.3)[:, None]
+    pcm = 0.4 * np.sin(2 * np.pi * t[:, None] * freqs[None, :]) * gate
+    pcm += 0.05 * rng.standard_normal((nfile, C), dtype=np.float32)
+    pcm = np.clip(np.round(pcm * 32768.0), -32768, 32767).astype(np.int16)
+    us = get_preset("ultrasound").fused(RATE, eps=2e-6, device=dev)
+    require(us.chain_kernel is None, "ultrasound takes the per-stage path")
+    hb, ha = ck.hb, ck.ha
+    span = hb + FILE_CHUNK + ha
+    chain.launches = 0
+    window_matmul.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "smoke.wav")
+        scipy.io.wavfile.write(path, int(RATE), pcm)
+        info = wav_info(path)
+        require(info[:4] == (RATE, C, nfile, "PCM_16"), f"wav_info {info}")
+        pinned = [torch.empty((span, C), dtype=torch.int16).pin_memory()
+                  for _ in range(2)]
+        uploaded = [None, None]
+        chunks = []
+        for k in range(-(-nfile // FILE_CHUNK)):
+            buf = pinned[k % 2]
+            if uploaded[k % 2] is not None:
+                # the previous upload from this buffer must be done
+                # before the host overwrites it
+                uploaded[k % 2].synchronize()
+            start = k * FILE_CHUNK - hb
+            host = buf.numpy()
+            host[:] = 0
+            lo = max(start, 0)
+            got_frames = read_frames_raw16(path, lo, span - (lo - start),
+                                           info, host[lo - start:])
+            require(got_frames == min(span - (lo - start), nfile - lo),
+                    f"chunk {k} read {got_frames} frames")
+            dev_raw = buf.to(dev, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            uploaded[k % 2] = ev
+            x_ext = dev_raw.T.contiguous()
+            n = min(FILE_CHUNK, nfile - k * FILE_CHUNK)
+            y, e, s, st = bio.chain_cf(x_ext, n, stats=True)
+            want = chain_plain(ck, x_ext, n, stats=True)
+            ey, ee = max_abs(y, want[0]), max_abs(e, want[1])
+            es = psd_db_err(s, want[2])
+            require(ey <= TOL_FILTERED and ee <= TOL_ENVELOPE
+                    and es <= TOL_PSD_DB, f"chunk {k}: {ey} {ee} {es}")
+            require(all(bool(torch.isfinite(v).all()) for v in (y, e, s)),
+                    f"chunk {k} finite")
+            chain_err = max(chain_err, ey, ee)
+            print(f"  chunk {k}: n={n} filtered {ey:.3e} envelope {ee:.3e} "
+                  f"psd {es:.3e} dB  power[0] {float(st['power'][0]):.6g}")
+            chunks.append((k * FILE_CHUNK, y, e, s))
+        # chunked against whole over the three chunks
+        whole = np.zeros((hb + nfile + ha, C), np.int16)
+        whole[hb : hb + nfile] = pcm
+        xw = torch.from_numpy(whole).to(dev).T.contiguous()
+        yw, ew, sw, _ = bio.chain_cf(xw, nfile, stats=True)
+        dc = 0.0
+        for j0, y, e, s in chunks:
+            n = y.shape[1]
+            f0 = j0 // 128
+            dc = max(dc, max_abs(y, yw[:, j0 : j0 + n]),
+                     max_abs(e, ew[:, j0 : j0 + n]))
+            require(psd_db_err(s, sw[f0 : f0 + s.shape[0]]) <= TOL_PSD_DB,
+                    "chunked psd == whole")
+        require(dc <= TOL_CHUNKED, f"chunked == whole {dc}")
+        print(f"  chunked == whole over {len(chunks)} chunks: max {dc:.3e}")
+        # the per-stage path (ultrasound preset, hop 256) over the file
+        x_file = dequant16(xw[:, hb : hb + nfile].contiguous())
+        us_out = us(x_file)
+        torch.cuda.synchronize()
+    launches = {"chain": chain.launches,
+                "window_matmul": window_matmul.launches}
+
+    # scipy float64 oracles on a 2 s slice of one channel across a chunk
+    # edge
+    a0 = FILE_CHUNK - int(RATE)
+    a1 = a0 + 2 * int(RATE)
+    # channel 0 carries a 3 kHz tone (inside the bioacoustics band),
+    # channel 15 one at 36 kHz (inside the ultrasound preset's 20 kHz
+    # high-pass band at this rate)
+    cu = C - 1
+    chunked0 = [torch.cat([c[i][0] for c in chunks]) for i in (1, 2)]
+    chunked0.append(torch.cat([c[3][:, 0] for c in chunks]))
+    for label, fc, ch, (y0, e0, s0) in (
+            ("bioacoustics chain_cf (chunked)", bio, 0, chunked0),
+            ("ultrasound per-stage", us, cu,
+             (us_out["filtered"][cu], us_out["envelope"][cu],
+              us_out["spectrogram"][:, cu]))):
+        pre = get_preset("bioacoustics" if fc is bio else "ultrasound")
+        sos_f = design_filter(RATE, pre.highpass_cutoff, pre.lowpass_cutoff)
+        sos_e = design_envelope_filter(RATE, pre.envelope_cutoff)
+        ys = sps.sosfilt(sos_f, pcm[:, ch].astype(np.float64) / 32768.0)
+        es_ = np.maximum(sps.sosfiltfilt(sos_e, (np.pi / 2) * np.abs(ys)), 0)
+        ey = float(np.abs(y0[a0:a1].cpu().numpy() - ys[a0:a1]).max())
+        ee = float(np.abs(e0[a0:a1].cpu().numpy() - es_[a0:a1]).max())
+        hop, nfft = fc.hop, fc.nfft
+        f0, f1 = -(-a0 // hop), (a1 - nfft) // hop
+        _, _, sx = sps.spectrogram(
+            ys[f0 * hop : (f1 - 1) * hop + nfft], fs=RATE, window="hann",
+            nperseg=nfft, noverlap=nfft - hop, detrend=False,
+            scaling="density", mode="psd")
+        sdb = psd_db_err(s0[f0:f1].cpu(), torch.from_numpy(sx.T))
+        require(ey <= TOL_FILTERED, f"{label} filtered vs scipy {ey}")
+        require(ee <= TOL_ENVELOPE, f"{label} envelope vs scipy {ee}")
+        require(sdb <= TOL_PSD_DB, f"{label} psd vs scipy {sdb} dB")
+        print(f"  {label} vs scipy float64 (ch {ch}, 2 s): filtered {ey:.3e} "
+              f"envelope {ee:.3e} psd {sdb:.3e} dB")
+    del yw, ew, sw, us_out, chunks, chunked0, x_file, xw, got_q, full
+
+    # -- phase 5: times ------------------------------------------------------
+    print("phase 5: CUDA-event times, median of 5 after a warm-up")
+    wm_ms = wm_plain_ms = 0.0
+    for label, (x, w, S, nfr, pm, lay) in wm_times.items():
+        k_ms = median_ms(lambda: window_matmul(x, w, S, nfr, pm, lay))
+        p_ms = median_ms(lambda: window_matmul_plain(x, w, S, nfr, pm, lay))
+        if label.startswith("bioacoustics"):
+            wm_ms += k_ms
+            wm_plain_ms += p_ms
+        print(f"  window_matmul {label}: kernel {k_ms:.4f} ms  "
+              f"plain {p_ms:.4f} ms  [{card}]")
+    ch_ms = median_ms(lambda: chain(ck, q, CHUNK, stats=True))
+    ch_plain_ms = median_ms(lambda: chain_plain(ck, q, CHUNK, stats=True))
+    print(f"  chain headline chunk 16 x 2^22 int16: kernel {ch_ms:.4f} ms  "
+          f"plain {ch_plain_ms:.4f} ms  [{card}]")
+    # one stage requested at a time (the filter always runs): splits the
+    # kernel's time by phase
+    for outputs in (("filtered",), ("envelope",), ("spectrogram",)):
+        ms = median_ms(lambda: chain(ck, q, CHUNK, stats=True,
+                                     outputs=outputs))
+        print(f"  chain headline chunk, outputs={outputs[0]} only: kernel "
+              f"{ms:.4f} ms  [{card}]")
+    hour = [q] + [int16_chunk(gen, q.shape, dev) for _ in range(3)]
+
+    def hour_loop(fn):
+        out = None
+        for i in range(HOUR_CHUNKS):
+            out = fn(ck, hour[i % len(hour)], CHUNK, stats=True)
+        return out
+
+    hour_ms = median_ms(lambda: hour_loop(chain))
+    hour_plain_ms = median_ms(lambda: hour_loop(chain_plain))
+    print(f"  1-hour loop ({HOUR_CHUNKS} chunks x 16 ch x 2^22 int16, "
+          f"device-resident): kernel {hour_ms:.2f} ms  plain "
+          f"{hour_plain_ms:.2f} ms  [{card}]")
+
+    # -- phase 6: launch counters --------------------------------------------
+    print(f"phase 6: main-path launches {launches}")
+    for name, count in launches.items():
+        require(count > 0, f"{name} launched on the main path")
+    kernels = [
+        {"name": "chain", "route": "cuda",
+         "source": "audian_torch/csrc/chain.cu",
+         "replaces": "audian_tpu/ops/pallas/chain.py:151",
+         "launches": launches["chain"], "max_abs_err": chain_err,
+         "ms": ch_ms, "plain_ms": ch_plain_ms},
+        {"name": "window_matmul", "route": "cuda",
+         "source": "audian_torch/csrc/window_matmul.cu",
+         "replaces": "audian_tpu/ops/pallas/window_matmul.py:41",
+         "launches": launches["window_matmul"], "max_abs_err": wm_err,
+         "ms": wm_ms, "plain_ms": wm_plain_ms},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,135 @@
+"""The port's slice end to end against the JAX package: a PCM-16 WAV read
+in halo'd int16 chunks by audian_torch's reader and run through its
+``chain_cf`` with stats, the ``entry()`` twin, the import boundary (no
+jax), and the no-fallback rules of the kernel wrappers on a CPU-only
+host."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+import __graft_entry__
+from audian_tpu.data import wavio as jwav
+from audian_tpu.ops import design_envelope_filter, design_filter
+from audian_tpu.ops.fused import FusedChainCF as JaxChain
+
+from audian_torch.convert import ARRAY_KEYS, chain_from_arrays
+from audian_torch.data.wavio import read_frames_raw16, wav_info
+from audian_torch.entry import entry as torch_entry
+from audian_torch.models import get_preset
+from audian_torch.ops.cuda.chain import chain
+from audian_torch.ops.cuda.window_matmul import window_matmul
+from audian_torch.ops.fused import FusedChainCF
+
+REPO = Path(__file__).resolve().parents[1]
+RATE = 48000.0
+
+
+def test_wav_chunks_through_chain_match_jax(tmp_path):
+    jc = JaxChain(RATE, filt_sos=design_filter(RATE, 1000.0, 8000.0),
+                  env_sos=design_envelope_filter(RATE, 500.0), nfft=256,
+                  hop=128, eps=1e-8)
+    tc = chain_from_arrays({k: (None if getattr(jc, k) is None
+                                else np.asarray(getattr(jc, k)))
+                            for k in ARRAY_KEYS})
+    ck = tc.chain_kernel
+    rng = np.random.default_rng(8)
+    total, chunk = 10000, 4096
+    t = np.arange(total) / RATE
+    x = 0.4 * np.sin(2 * np.pi * 4000.0 * t)[:, None] * np.ones((1, 2))
+    x += 0.05 * rng.standard_normal((total, 2))
+    path = tmp_path / "slice.wav"
+    jwav.write_audio(path, x, RATE, encoding="PCM_16")
+    info = wav_info(path)
+    assert info[:4] == (RATE, 2, total, "PCM_16")
+    span = ck.hb + chunk + ck.ha
+    power = np.zeros(2)
+    for k in range(-(-total // chunk)):
+        buf = np.zeros((span, 2), np.int16)
+        start = k * chunk - ck.hb
+        lo = max(start, 0)
+        read_frames_raw16(path, lo, span - (lo - start), info,
+                          buf[lo - start:])
+        x_ext = np.ascontiguousarray(buf.T)
+        n = min(chunk, total - k * chunk)
+        got = tc.chain_cf(torch.from_numpy(x_ext), n, stats=True)
+        want = jc.chain_cf(jnp.asarray(x_ext), n, stats=True)
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   atol=2e-6)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   atol=3e-6)
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                                   rtol=1e-4, atol=1e-9)
+        for key in ("power", "env_sum", "psd_sum"):
+            np.testing.assert_allclose(got[3][key].numpy(),
+                                       np.asarray(want[3][key]),
+                                       rtol=1e-5, atol=1e-9)
+        assert all(bool(torch.isfinite(v).all()) for v in got[:3])
+        power += got[3]["power"].numpy()
+    assert np.all(power > 0)
+
+
+def test_entry_twin_matches_graft_entry():
+    fn, args = __graft_entry__.entry()
+    want = jax.jit(fn)(*args)
+    step, targs = torch_entry()
+    np.testing.assert_array_equal(targs[0].numpy(), args[0])
+    got = step(*targs)
+    assert set(got) == set(want)
+    for k in ("filtered", "envelope"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=1e-5)
+    np.testing.assert_allclose(got["spectrogram"].numpy(),
+                               np.asarray(want["spectrogram"]), rtol=1e-4,
+                               atol=1e-12)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import audian_torch\n"
+        "for m in pkgutil.walk_packages(audian_torch.__path__,"
+        " 'audian_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [k for k in sys.modules if k == 'jax' or"
+        " k.startswith(('jax.', 'audian_tpu'))]\n"
+        "assert not bad, bad\n"
+        "print('ok', len([k for k in sys.modules"
+        " if k.startswith('audian_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_launch_counters_stay_zero_on_cpu():
+    fc = get_preset("bioacoustics").fused(96000.0, eps=2e-6)
+    ck = fc.chain_kernel
+    c0, w0 = chain.launches, window_matmul.launches
+    assert (c0, w0) == (0, 0)
+    x = torch.zeros((1, ck.hb + 1024 + ck.ha), dtype=torch.int16)
+    fc.chain_cf(x, 1024, stats=True)
+    fc(torch.zeros((1, 2048)))
+    assert (chain.launches, window_matmul.launches) == (0, 0)
+
+
+def test_no_cpu_fallback_for_other_devices():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FusedChainCF(RATE, filt_sos=design_filter(RATE, 1000.0, 8000.0),
+                     device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_preset("bioacoustics").fused(96000.0, device="cuda")
+    fc = get_preset("bioacoustics").fused(96000.0, eps=2e-6)
+    meta = torch.zeros((1, 4096), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        chain(fc.chain_kernel, meta, 128)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        window_matmul(meta, fc.spec_w.to("meta"), 128, 4)
