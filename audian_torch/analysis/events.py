@@ -1,0 +1,613 @@
+"""Event detection toolbox and the song-detection pipeline.
+
+The port of ``audian_tpu/analysis/events.py``: the reference's
+``songdetector.py`` processing chain (`songdetector.py:36-244,745-767`)
+plus the thunderlab ``eventdetection`` helpers it imports (threshold
+crossings, merge/remove/widen events, peak frequencies).  The dense DSP
+(band-pass, squared envelope, low-pass) runs on the device in fixed-size
+halo'd chunks: the plain torch ops of :mod:`audian_torch.ops.sos` and, on
+the batch path, the decimating envelope (:mod:`audian_torch.ops.envdet`
+and the CUDA kernel of :mod:`audian_torch.ops.cuda.envdet`).  The event
+logic operates on the small decimated envelopes on the host, in numpy,
+as in the JAX package.
+
+Every entry point runs on the CUDA card unless ``device="cpu"`` is given
+(:func:`audian_torch.utils.resolve_device`).  A CUDA error raises; the
+JAX package's host-oracle fallback on device loss is not ported.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import scipy.signal as sps
+import torch
+
+from ..ops.cuda.envdet import EnvDetKernel
+from ..ops.design import FilterDesign
+from ..ops.envdet import EnvDet
+from ..ops.raw16 import dequant16
+from ..ops.sos import sosfiltfilt_fir
+from ..utils import resolve_device
+
+
+def _upload(x, device):
+    """A host window on ``device``: raw PCM-16 stays int16 (dequantized
+    on the device), anything else goes as float32."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if t.dtype == torch.int16:
+        return t.to(device)
+    return t.to(device=device, dtype=torch.float32)
+
+
+def _filtfilt_device(design, x):
+    """Zero-phase filtering on the FIR path (:func:`sosfiltfilt_fir`) of a
+    time-first window on the device."""
+    return sosfiltfilt_fir(design.fir, x, design.zi0, design.padlen, axis=0)
+
+
+def _band_env_device(fdesign, edesign, x):
+    """Band-pass and squared-RMS envelope of one time-first window on the
+    device: ``(filtered, full-rate envelope)``.  ``int16`` input is raw
+    PCM-16 (sample = k/2^15), dequantized here."""
+    if x.dtype == torch.int16:
+        x = dequant16(x)
+    y = _filtfilt_device(fdesign, x)
+    e = 2.0 * _filtfilt_device(edesign, y * y)
+    env = torch.sqrt(torch.clamp_min(e, 0.0)) * math.sqrt(2.0)
+    return y, env
+
+
+#: frames per device chunk for whole-recording batch detection: long
+#: inputs stream through one fixed chunk shape
+_CHUNK = 1 << 21
+
+#: sticky pow2 kernel-length budgets per process (see band_env)
+_KERNEL_BUDGET = {"filt": 0, "env": 0}
+
+
+def _make_envdet(fdesign, edesign, step, halo, device):
+    """The decimating envelope for the chunk geometry: ``(envdet,
+    chunk_frames)`` with ``chunk_frames`` snapped to the decimation grid
+    (interior chunk starts then sit ON the grid, so the single-pass
+    kernel's static-offset contract holds), or ``None`` when neither form
+    covers the kernels (the caller stays on the unfused driver).  Prefers
+    the single-pass kernel (:class:`EnvDetKernel`); the two-stage
+    :class:`EnvDet` takes the geometries it refuses."""
+    chunk = _CHUNK - (_CHUNK % step)
+    if chunk <= 0:
+        return None
+    nout = chunk // step
+    try:
+        ed = EnvDetKernel(fdesign, edesign, step, nout, hb=halo,
+                          device=device)
+    except ValueError:
+        try:
+            ed = EnvDet(fdesign, edesign, step, nout, hb=halo,
+                        device=device)
+        except ValueError:
+            return None
+    if ed.window_need(halo) > _CHUNK + 2 * halo:
+        return None
+    return ed, chunk
+
+
+def detect_halo(fdesign, edesign):
+    """Pow2-bucketed influence halo of the detect chain (forward +
+    backward FIR lengths + scipy pad of both stages)."""
+    halo = int(fdesign.fir.length + edesign.fir.length
+               + fdesign.padlen + edesign.padlen)
+    return 1 << max(halo - 1, 2047).bit_length()
+
+
+def detect_env_oracle(x64, step, fdesign, edesign):
+    """The float64 scipy oracle of the detect envelope on a
+    grid-aligned slice: the exact semantics the chunked driver's edge
+    chunks reproduce."""
+    y = sps.sosfiltfilt(fdesign.sos, x64, axis=0)
+    e = 2.0 * sps.sosfiltfilt(edesign.sos, y * y, axis=0)
+    env = np.sqrt(np.maximum(e, 0.0)[::step]) * np.sqrt(2.0)
+    return y, env
+
+
+def _band_env_chunks(fdesign, edesign, x, step, return_filtered, device,
+                     fused=False):
+    """Chunked driver around :func:`_band_env_device`.
+
+    Interior chunks carry halos covering the full influence length of the
+    truncated FIR kernels (forward + backward + pad), so chunked output
+    equals single-window output to f32 roundoff; at the global head and
+    tail the extension window coincides with the true signal edge, so the
+    scipy odd-extension semantics apply exactly.  Every chunk has the one
+    window shape (windows are slid, never padded).
+
+    With ``fused=True`` and ``return_filtered=False`` interior chunks take
+    the decimating envelope (:func:`_make_envdet`) instead: only the
+    decimated envelope is written on the device and pulled to the host.
+    """
+    n = x.shape[0]
+    # the window geometry does not depend on the decimation step or the
+    # exact kernel lengths (the halo is pow2-bucketed)
+    halo = detect_halo(fdesign, edesign)
+    Lc = _CHUNK
+    W = Lc + 2 * halo
+    if n <= W:
+        # below one window the reference's semantics are host scipy in
+        # float64 (the oracle itself)
+        if x.dtype == np.int16:  # raw PCM-16 (see _band_env_device)
+            x = x.astype(np.float64) / 32768.0
+        elif x.dtype != np.float64:
+            x = x.astype(np.float64)
+        y, env = detect_env_oracle(x, step, fdesign, edesign)
+        return (np.asarray(y) if return_filtered else None,
+                np.ascontiguousarray(env))
+    envdet = None
+    if fused and not return_filtered:
+        envdet = _make_envdet(fdesign, edesign, step, halo, device)
+    Lc_eff = Lc
+    if envdet is not None:
+        # grid-aligned chunk stride: interior chunk starts sit ON the
+        # decimation grid, making the window offset a constant (the
+        # single-pass kernel requires it)
+        envdet, Lc_eff = envdet
+    outs_y, outs_e = [], []
+    for pos in range(0, n, Lc_eff):
+        L = min(Lc_eff, n - pos)
+        if envdet is not None and pos - halo >= 0 and pos - halo + W <= n:
+            # interior chunk on the decimating path.  The first and last
+            # chunks (windows touching the recording edges) stay on the
+            # exact path below: scipy's padlen+zi edge semantics cannot be
+            # expressed as an input extension through the nonlinear
+            # (squared) stage; interiors of both paths agree to kernel
+            # truncation.
+            a = pos - halo
+            g0 = -(-pos // step) * step
+            if g0 < pos + L:
+                cnt = (pos + L - 1 - g0) // step + 1
+                env = envdet(_upload(x[a : a + W], device), g0 - a)
+                outs_e.append(env[:cnt].cpu().numpy())
+            continue
+        a = min(max(pos - halo, 0), n - W)
+        hb = pos - a
+        # global decimation grid points p = k*step with pos <= p < pos+L
+        # (chunk starts are not step-aligned here)
+        g0 = -(-pos // step) * step
+        r = (g0 - a) % step
+        yd, ed = _band_env_device(fdesign, edesign,
+                                  _upload(x[a : a + W], device))
+        if g0 < pos + L:
+            j0 = (g0 - a - r) // step
+            cnt = (pos + L - 1 - g0) // step + 1
+            # decimate on the device (the JAX package gathers with a
+            # traced offset to keep one compiled program; eager torch
+            # slices)
+            outs_e.append(ed[r::step][j0 : j0 + cnt].cpu().numpy())
+        if return_filtered:
+            outs_y.append(yd[hb : hb + L].cpu().numpy())
+    return (np.concatenate(outs_y) if return_filtered else None,
+            np.concatenate(outs_e))
+
+
+__all__ = [
+    "threshold_crossings", "merge_events", "remove_events", "widen_events",
+    "peak_freqs",
+    "bandpass_filter", "lowpass_filter", "square_envelope",
+    "threshold_estimates", "detect_songs", "env_freqs", "clean_env_freqs",
+    "filter_envelopes", "analyse_songs", "band_env", "detect",
+    "detect_env_oracle", "detect_halo",
+]
+
+
+# ---------------------------------------------------------------------------
+# event primitives (thunderlab.eventdetection equivalents)
+# ---------------------------------------------------------------------------
+
+
+def threshold_crossings(data, threshold):
+    """Paired rising/falling threshold crossings: ``onsets[i] <=
+    offsets[i]``; an initial high segment starts at 0, a trailing one ends
+    at ``len(data)``."""
+    above = np.asarray(data) > threshold
+    if len(above) == 0:
+        return np.zeros(0, int), np.zeros(0, int)
+    d = np.diff(above.astype(np.int8))
+    onsets = np.nonzero(d > 0)[0] + 1
+    offsets = np.nonzero(d < 0)[0] + 1
+    if above[0]:
+        onsets = np.insert(onsets, 0, 0)
+    if above[-1]:
+        offsets = np.append(offsets, len(above))
+    return onsets, offsets
+
+
+def merge_events(onsets, offsets, min_gap):
+    """Merge consecutive events separated by fewer than ``min_gap``
+    samples (the envelope may wiggle around the threshold,
+    `songdetector.py:136-138`)."""
+    onsets = np.asarray(onsets)
+    offsets = np.asarray(offsets)
+    if len(onsets) == 0:
+        return onsets, offsets
+    keep_on = [onsets[0]]
+    keep_off = []
+    for k in range(1, len(onsets)):
+        if onsets[k] - offsets[k - 1] >= min_gap:
+            keep_off.append(offsets[k - 1])
+            keep_on.append(onsets[k])
+    keep_off.append(offsets[-1])
+    return np.asarray(keep_on), np.asarray(keep_off)
+
+
+def remove_events(onsets, offsets, min_duration):
+    """Drop events shorter than ``min_duration`` samples."""
+    onsets = np.asarray(onsets)
+    offsets = np.asarray(offsets)
+    sel = (offsets - onsets) >= min_duration
+    return onsets[sel], offsets[sel]
+
+
+def widen_events(onsets, offsets, max_len, width):
+    """Extend each event by ``width`` samples on both sides, clipped to
+    [0, max_len] (event count preserved)."""
+    width = int(width)
+    onsets = np.clip(np.asarray(onsets) - width, 0, max_len)
+    offsets = np.clip(np.asarray(offsets) + width, 0, max_len)
+    return onsets, offsets
+
+
+def peak_freqs(onsets, offsets, data, rate, freq_resolution=1.0,
+               min_nfft=16, thresh=10.0):
+    """Dominant frequency of each event snippet, NaN when no spectral peak
+    rises ``thresh`` dB above the median power."""
+    freqs = np.full(len(onsets), np.nan)
+    for k, (i0, i1) in enumerate(zip(onsets, offsets)):
+        snippet = np.asarray(data[int(i0):int(i1)], np.float64)
+        if len(snippet) < min_nfft:
+            continue
+        nfft = int(2 ** np.ceil(np.log2(rate / freq_resolution)))
+        nfft = max(min(nfft, len(snippet)), min_nfft)
+        f, psd = sps.welch(snippet - np.mean(snippet), fs=rate,
+                           nperseg=nfft, noverlap=nfft // 2)
+        if len(psd) < 3:
+            continue
+        db = 10 * np.log10(np.maximum(psd, 1e-30))
+        i = int(np.argmax(db[1:])) + 1  # skip DC
+        if db[i] - np.median(db) >= thresh:
+            freqs[k] = f[i]
+    return freqs
+
+
+# ---------------------------------------------------------------------------
+# pipeline stages (`songdetector.py:36-244`)
+# ---------------------------------------------------------------------------
+
+
+def _clamp_cutoff(freq, rate):
+    """Keep cutoffs strictly inside (0, Nyquist) — the reference relies on
+    callers for this; we clamp so default configs work at any rate."""
+    return min(max(freq, 1e-6), 0.4999 * rate)
+
+
+def _clamp_band(lowf, highf, rate):
+    """Clamp a band-pass pair keeping ``lowf < highf`` — clamping both
+    edges independently collapses them to the same Nyquist-bound value
+    for low sample rates (scipy then raises 'Wn[0] must be less than
+    Wn[1]')."""
+    highf = _clamp_cutoff(highf, rate)
+    lowf = min(_clamp_cutoff(lowf, rate), 0.99 * highf)
+    return lowf, highf
+
+
+def _filtfilt_chunks(design, x, device):
+    """Chunked fixed-shape zero-phase filtering for the standalone API
+    entry points, with :func:`_band_env_chunks`'s geometry rules: host
+    scipy float64 below one window, sliding fixed-W device windows above
+    it."""
+    x = np.asarray(x)
+    if not np.issubdtype(x.dtype, np.floating):
+        x = x.astype(np.float64)
+    n = x.shape[0]
+    halo = int(design.fir.length + design.padlen)
+    halo = 1 << max(halo - 1, 2047).bit_length()
+    W = _CHUNK + 2 * halo
+    if n <= W:
+        return sps.sosfiltfilt(design.sos, x.astype(np.float64), axis=0)
+    outs = []
+    for pos in range(0, n, _CHUNK):
+        L = min(_CHUNK, n - pos)
+        a = min(max(pos - halo, 0), n - W)
+        yw = _filtfilt_device(design, _upload(x[a : a + W], device))
+        outs.append(yw[pos - a : pos - a + L].cpu().numpy())
+    return np.concatenate(outs)
+
+
+def bandpass_filter(data, rate, lowf=5500.0, highf=7500.0, order=1,
+                    device=None):
+    """Zero-phase Butterworth band-pass (`songdetector.py:36-46`): host
+    scipy under one window, the fixed-shape chunked device path above it
+    (on ``device``, the CUDA card by default)."""
+    device = resolve_device(device)
+    sos = sps.butter(order, _clamp_band(lowf, highf, rate), "bandpass",
+                     fs=rate, output="sos")
+    return _filtfilt_chunks(FilterDesign.from_sos(sos), data, device)
+
+
+def lowpass_filter(data, rate, freq=100.0, order=1):
+    """Zero-phase low-pass (`songdetector.py:49-54`).  Only ever applied
+    to the small decimated envelopes (slow envelope, per-event
+    refinement), whose shapes vary per event: host scipy."""
+    sos = sps.butter(order, _clamp_cutoff(freq, rate), "lowpass", fs=rate,
+                     output="sos")
+    return sps.sosfiltfilt(sos, np.asarray(data), axis=0)
+
+
+def square_envelope(data, rate, freq=100.0, device=None):
+    """Squared-signal envelope, decimated to ~10x the cutoff
+    (`songdetector.py:57-69`): ``sqrt(2 * lowpass(x^2)) * sqrt(2)``,
+    i.e. twice the running RMS (sqrt(2) times the amplitude of a tone);
+    distinct from the browser's pi/2-rectified envelope.  Routed through
+    the chunk driver on ``device`` (the CUDA card by default); the
+    decimation happens on the host."""
+    device = resolve_device(device)
+    sos = sps.butter(1, _clamp_cutoff(freq, rate), "lowpass", fs=rate,
+                     output="sos")
+    x = np.asarray(data)
+    if not np.issubdtype(x.dtype, np.floating):
+        x = x.astype(np.float64)
+    e = 2.0 * _filtfilt_chunks(FilterDesign.from_sos(sos), x * x, device)
+    e = np.maximum(e, 0.0)
+    envrate = min(freq * 10, rate)
+    step = int(np.round(rate / envrate))
+    # strided-view copy: writable (filter_envelopes refines in place)
+    env = np.ascontiguousarray(np.sqrt(e[::step]) * np.sqrt(2.0))
+    return env, rate / step
+
+
+def threshold_estimates(envelopes, fac=10.0):
+    """Histogram-based per-channel detection thresholds
+    (`songdetector.py:86-117`): estimate the noise mode, then place the
+    threshold between noise and signal clusters (or above everything when
+    no signal cluster exists).
+
+    ``fac`` is accepted for config/API parity but UNUSED — the
+    reference's ``mean + fac*std`` rule is commented out there too
+    (`songdetector.py:102`, the author's own "XXX improve ... this");
+    output parity with the reference pipeline is the acceptance
+    criterion for this stage.
+    """
+    envelopes = np.asarray(envelopes)
+    maxe = np.max(envelopes)
+    threshs = []
+    for c in range(envelopes.shape[1]):
+        h, b = np.histogram(envelopes[:, c], bins=np.linspace(0.0, maxe, 50))
+        nz = np.nonzero(h > 0)[0]
+        if maxe <= 0 or not len(nz):
+            # silent/dead channel: any positive threshold finds nothing
+            threshs.append(maxe + 1.0)
+            continue
+        mini = nz[0]
+        maxi = np.argmax(h) + 1
+        maxi = min(maxi + (maxi - mini), len(b) - 1)
+        lower = envelopes[envelopes[:, c] < b[maxi], c]
+        if not len(lower):
+            # constant channel pinned at the global max (clipped /
+            # saturated): an empty slice would make the threshold NaN
+            # and silently drop every event; use the silent sentinel
+            threshs.append(maxe + 1.0)
+            continue
+        mean = np.mean(lower)
+        std = np.std(lower)
+        upper = envelopes[envelopes[:, c] > mean + 3.0 * std, c]
+        uppermean = np.mean(upper) if len(upper) else mean
+        if len(upper) and uppermean > mean + 6.0 * std:
+            threshs.append(0.5 * (mean + uppermean))
+        else:
+            threshs.append(maxe + std)
+    return threshs
+
+
+def detect_songs(envelopes, rate, thresholds, min_duration=0.1):
+    """Per-channel threshold crossings with merge + minimum duration
+    (`songdetector.py:130-143`)."""
+    songonsets, songoffsets = [], []
+    for c in range(envelopes.shape[1]):
+        on, off = threshold_crossings(envelopes[:, c], thresholds[c])
+        on, off = merge_events(on, off, int(min_duration * rate))
+        on, off = remove_events(on, off, int(min_duration * rate))
+        songonsets.append(on)
+        songoffsets.append(off)
+    return songonsets, songoffsets
+
+
+def env_freqs(onsets, offsets, envelopes, rate, freq_resolution=1.0,
+              min_nfft=16, thresh=10.0):
+    """Peak envelope frequency per event (`songdetector.py:146-152`)."""
+    return [
+        peak_freqs(onsets[c], offsets[c], envelopes[:, c], rate,
+                   freq_resolution, min_nfft, thresh)
+        for c in range(envelopes.shape[1])
+    ]
+
+
+def clean_env_freqs(onsets, offsets, freqs, fac=6.0):
+    """Remove songs with undefined or outlier envelope frequencies
+    (`songdetector.py:155-175`)."""
+    ffreqs = np.concatenate(freqs) if freqs else np.zeros(0)
+    if len(ffreqs) == 0:
+        return onsets, offsets, freqs
+    lq, uq = np.percentile(ffreqs[~np.isnan(ffreqs)], [25.0, 75.0]) \
+        if np.any(~np.isnan(ffreqs)) else (0.0, 0.0)
+    cf = ffreqs[(~np.isnan(ffreqs)) & (ffreqs >= lq) & (ffreqs <= uq)]
+    if len(cf):
+        m, s = np.mean(cf), np.std(cf)
+        # deviation from the reference (`songdetector.py:163-166`): with
+        # near-identical songs the inner-quartile std collapses to ~0 and
+        # ANY numeric jitter would mark a song an outlier — a recording
+        # of three identical pulse trains lost its middle song.  Floor
+        # the outlier tolerance at 1% of the mean envelope frequency.
+        s = max(s, 0.01 * abs(m) / fac)
+        for c in range(len(freqs)):
+            bad = (~np.isnan(freqs[c])) & ((freqs[c] < m - fac * s)
+                                           | (freqs[c] > m + fac * s))
+            freqs[c][bad] = np.nan
+    new_on, new_off, new_freqs = [], [], []
+    for c in range(len(onsets)):
+        ok = ~np.isnan(freqs[c])
+        new_on.append(onsets[c][ok])
+        new_off.append(offsets[c][ok])
+        new_freqs.append(freqs[c][ok])
+    return new_on, new_off, new_freqs
+
+
+def filter_envelopes(onsets, offsets, freqs, envelopes, rate,
+                     min_duration=0.1, mode="apply"):
+    """Per-event (or global-average) low-pass refinement of the envelope
+    (`songdetector.py:178-192`); modifies ``envelopes`` in place."""
+    if mode == "apply":
+        for c in range(envelopes.shape[1]):
+            on_w, off_w = widen_events(onsets[c], offsets[c],
+                                       len(envelopes[:, c]),
+                                       2.0 * min_duration * rate)
+            for i0, i1, fc in zip(on_w, off_w, freqs[c]):
+                if not np.isnan(fc):
+                    envelopes[i0:i1, c] = lowpass_filter(
+                        envelopes[i0:i1, c], rate, 4.0 * fc)
+    elif mode == "average":
+        allf = np.concatenate(freqs) if freqs else np.zeros(0)
+        if np.any(~np.isnan(allf)):
+            fc = np.nanmean(allf)
+            envelopes[:, :] = lowpass_filter(envelopes, rate, 4.0 * fc)
+
+
+def analyse_songs(onsets, offsets, envelopes, rate, envfreqs, thresholds,
+                  min_duration=0.1, min_thresh_fac=1.0):
+    """Per-event adaptive re-thresholding on the refined envelope
+    (`songdetector.py:195-244`): estimate a local threshold from the noise
+    just before/after each song and re-detect the song boundaries."""
+    songonsets, songoffsets = [], []
+    w = int(min_duration * rate)
+    for c in range(envelopes.shape[1]):
+        n = len(envelopes[:, c])
+        wide_on, wide_off = widen_events(onsets[c], offsets[c], n, w)
+        noise_on, noise_off = widen_events(onsets[c], offsets[c], n, 2 * w)
+        next_wide = np.hstack((wide_on[1:], [n]))
+        prev_wideoff = 0
+        thresh0 = thresh1 = thresholds[c]
+        new_on, new_off = [], []
+        for (non, won, son, soff, woff, noff, nxt, fc) in zip(
+                noise_on, wide_on, onsets[c], offsets[c], wide_off,
+                noise_off, next_wide, envfreqs[c]):
+            if np.isnan(fc):
+                prev_wideoff = woff
+                continue
+            if won - non < w:
+                non = max(won - w, prev_wideoff)
+            if noff - woff < w:
+                noff = min(woff + w, nxt)
+            if won - non > w / 2:
+                thresh0 = np.max(envelopes[non:won, c]) * 1.2
+            if noff - woff > w / 2:
+                thresh1 = np.max(envelopes[woff:noff, c]) * 1.2
+            thresh = max(max(thresh0, thresh1),
+                         min_thresh_fac * thresholds[c])
+            on, off = threshold_crossings(envelopes[won:woff, c], thresh)
+            if len(on) and len(off):
+                new_on.append(won + on[0])
+                new_off.append(won + off[-1])
+            prev_wideoff = woff
+        songonsets.append(np.asarray(new_on))
+        songoffsets.append(np.asarray(new_off))
+    return songonsets, songoffsets
+
+
+def band_env(data, rate, highpassfreq, lowpassfreq, envelopecutofffreq,
+             return_filtered=True, fused=False, device=None):
+    """Zero-phase band-pass + decimated squared-RMS envelope on the
+    chunked device path: the front half of :func:`detect`.
+
+    Returns ``(filtered_or_None, envelope, envrate)``.
+
+    ``int16`` input is raw PCM-16 (k/2^15): it skips the float64 host
+    copy and crosses to the device at half the bytes, dequantizing there.
+
+    ``fused=True`` (batch jobs; requires ``return_filtered=False``)
+    computes the interior chunks' envelope on the decimating path
+    (:mod:`audian_torch.ops.envdet`, :mod:`audian_torch.ops.cuda.envdet`):
+    only the decimated envelope is written on the device.
+
+    ``device`` is the CUDA card by default ("cpu" runs the plain
+    versions).  Recordings no longer than one chunk window run on host
+    scipy in float64 on any device: that is the reference's semantics.
+    """
+    device = resolve_device(device)
+    data = np.atleast_2d(np.asarray(data))
+    if data.dtype != np.int16 and not np.issubdtype(data.dtype,
+                                                    np.floating):
+        data = data.astype(np.float64)
+    if data.shape[0] < data.shape[1]:
+        data = data.T
+    # sticky pow2 kernel-length budgets: a cutoff scrubbed across a pow2
+    # boundary keeps the longest kernels seen, so the chunk geometry holds
+    fdesign = FilterDesign.from_sos(
+        sps.butter(1, _clamp_band(highpassfreq, lowpassfreq, rate),
+                   "bandpass", fs=rate, output="sos"),
+        pad_to=_KERNEL_BUDGET["filt"] or None)
+    edesign = FilterDesign.from_sos(
+        sps.butter(1, _clamp_cutoff(envelopecutofffreq, rate), "lowpass",
+                   fs=rate, output="sos"),
+        pad_to=_KERNEL_BUDGET["env"] or None)
+    _KERNEL_BUDGET["filt"] = max(_KERNEL_BUDGET["filt"], fdesign.fir.length)
+    _KERNEL_BUDGET["env"] = max(_KERNEL_BUDGET["env"], edesign.fir.length)
+    envrate_t = min(envelopecutofffreq * 10, rate)
+    step = int(np.round(rate / envrate_t))
+    fdata, env = _band_env_chunks(fdesign, edesign, data, step,
+                                  return_filtered, device, fused=fused)
+    return fdata, env, rate / step
+
+
+def detect(data, rate, highpassfreq=1000.0, lowpassfreq=10000.0,
+           envelopecutofffreq=500.0, envelopepeakthresh=10.0,
+           envelopefilter="apply", thresholdfactor=8.0, minthreshfac=1.0,
+           minduration=0.5, verbose=0, return_filtered=True, device=None):
+    """The full songdetector pipeline (`songdetector.py:745-767`).
+
+    Returns a dict with the filtered data, fast and slow envelopes,
+    envelope rate, thresholds, and per-channel song onset/offset times.
+    ``return_filtered=False`` skips pulling the full-rate filtered stream
+    to the host (``result["filtered"] is None``) and runs the envelope on
+    the decimating fused path (see :func:`band_env`).  ``int16`` input is
+    raw PCM-16.  ``device`` is the CUDA card by default.
+    """
+    device = resolve_device(device)
+    log = print if verbose else (lambda *a, **k: None)
+    log("apply bandpass filter + envelope ...")
+    fdata, env, envrate = band_env(data, rate, highpassfreq, lowpassfreq,
+                                   envelopecutofffreq,
+                                   return_filtered=return_filtered,
+                                   fused=not return_filtered, device=device)
+    log("low-pass filter envelope ...")
+    slowenv = lowpass_filter(env, envrate, 1.0 / minduration)
+    log("estimate thresholds ...")
+    threshs = threshold_estimates(slowenv, thresholdfactor)
+    log("detect songs ...")
+    onsets, offsets = detect_songs(slowenv, envrate, threshs, minduration)
+    log("compute envelope frequencies ...")
+    envfreqs = env_freqs(onsets, offsets, env, envrate,
+                         thresh=envelopepeakthresh)
+    log("clean envelope frequencies ...")
+    onsets, offsets, envfreqs = clean_env_freqs(onsets, offsets, envfreqs)
+    if envelopefilter in ("apply", "average"):
+        log(f"filter envelope ({envelopefilter}) ...")
+        filter_envelopes(onsets, offsets, envfreqs, env, envrate,
+                         minduration, envelopefilter)
+    log("analyse songs ...")
+    onsets, offsets = analyse_songs(onsets, offsets, env, envrate, envfreqs,
+                                    threshs, minduration, minthreshfac)
+    return dict(
+        filtered=fdata, envelope=env, slow_envelope=slowenv,
+        envrate=envrate, thresholds=threshs,
+        onsets=[o / envrate for o in onsets],
+        offsets=[o / envrate for o in offsets],
+        onset_indices=onsets, offset_indices=offsets,
+    )

@@ -1,0 +1,202 @@
+"""``audian-songdetector`` on the port: batch song detection in recordings.
+
+The port of ``audian_tpu/cli/songdetector.py``: the same options, the same
+ConfigFile-driven parameters (cascade-loaded from the data directories,
+dumpable with ``-c/--save-config``), the same pipeline (band-pass ->
+squared envelope -> histogram thresholds -> detection -> per-event
+envelope-frequency refinement) with the dense DSP on the CUDA card, and
+the same CSV table.
+
+    python -m audian_torch.cli.songdetector recording.wav [-o songs.csv]
+
+Recordings are read as raw PCM-16 (WAV, RF64, W64) through
+:mod:`audian_torch.data.wavio`.  Other encodings and containers need the
+``AudioLoader``, which the port does not have yet; so do the interactive
+viewer (``-p``, ``--plot-png``), ``-j`` and ``--mesh``, which stop with a
+message (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+import numpy as np
+
+from .. import __version__
+from ..analysis.events import detect
+from ..analysis.table import ResultTable
+from ..config import ConfigFile
+from ..data.wavio import WavError, read_frames_raw16, wav_info
+from ..utils import resolve_device
+
+
+def default_config():
+    """The reference's configuration (`songdetector.py:703-731`)."""
+    cfg = ConfigFile()
+    cfg.add_section("Plotting:")
+    cfg.add("maxpixel", 50000, "", "Either maximum number of data points to"
+            " be plotted or zero for plotting all data points.")
+    cfg.add_section("Filter:")
+    cfg.add("highpassfreq", 1000.0, "Hz", "Cutoff frequency of the high-pass"
+            " filter applied to the signal.")
+    cfg.add("lowpassfreq", 10000.0, "Hz", "Cutoff frequency of the low-pass"
+            " filter applied to the signal.")
+    cfg.add_section("Envelope:")
+    cfg.add("envelopecutofffreq", 500.0, "Hz", "Cutoff frequency of the"
+            " low-pass filter used for computing the envelope from the"
+            " squared signal.")
+    cfg.add("envelopepeakthresh", 10.0, "dB", "Minimum required height of"
+            " peak in envelope.")
+    cfg.add("envelopefilter", "apply", "", "Apply lowpass filter to envelope"
+            " with cutoff determined from main peak in envelope spectrum for"
+            " each event (apply), filter envelopes with the average peak"
+            " frequency (average), or do not filter envelope (none).")
+    cfg.add_section("Thresholds:")
+    cfg.add("thresholdfactor", 8.0, "", "Factor that multiplies the standard"
+            " deviation of the whole envelope.")
+    cfg.add("minthreshfac", 1.0, "", "In the final analysis the local"
+            " threshold must be larger than this factor times the global"
+            " threshold.")
+    cfg.add_section("Detection:")
+    cfg.add("minduration", 0.5, "s", "Minimum duration of an detected song.")
+    return cfg
+
+
+def read_pcm16(path):
+    """``(int16 frames (n, channels), rate)`` of a PCM-16 WAV/RF64/W64
+    file.  Anything else raises :class:`WavError` naming the missing
+    loader."""
+    try:
+        info = wav_info(path)
+    except WavError as e:
+        raise WavError(f"{e}; other containers need the AudioLoader, which "
+                       f"audian_torch has not ported yet") from None
+    rate, channels, frames, enc, _ = info
+    if enc != "PCM_16":
+        raise WavError(f"{path}: {enc} needs the AudioLoader, which "
+                       f"audian_torch has not ported yet (it reads PCM-16 "
+                       f"WAV, RF64 and W64)")
+    data = np.empty((frames, channels), np.int16)
+    got = read_frames_raw16(path, 0, frames, info, data)
+    return data[:got], rate
+
+
+def main(cargs=None, device=None):
+    """Run the CLI on ``cargs`` (``sys.argv[1:]`` by default) with the
+    dense DSP on ``device`` (the CUDA card by default; "cpu" runs the
+    plain versions).  Returns the exit status."""
+    prog = Path(sys.argv[0]).stem or "songdetector"
+    cfgfile = prog + ".cfg"
+    parser = argparse.ArgumentParser(
+        description="Detect songs in multitrace time series data.",
+        epilog=f"audian_torch {__version__}",
+    )
+    parser.add_argument("--version", action="version", version=__version__)
+    parser.add_argument("-v", action="count", dest="verbose", default=0,
+                        help="print debug information")
+    parser.add_argument("-c", "--save-config", nargs="?", default="",
+                        const=cfgfile, type=str, metavar="cfgfile",
+                        help="save configuration to file cfgfile "
+                        f"(defaults to {cfgfile})")
+    parser.add_argument("-o", dest="output", default=None, type=str,
+                        help="write detected events to this CSV file "
+                        "(default: <file>-songs.csv)")
+    parser.add_argument("-p", "--plot", action="store_true",
+                        help="open the interactive viewer (not ported yet)")
+    parser.add_argument("--plot-png", dest="plot_png", default=None,
+                        metavar="FILE", type=str,
+                        help="render the viewer to a PNG (not ported yet)")
+    parser.add_argument("-j", dest="jobs", default=1, type=int,
+                        metavar="N",
+                        help="process files data-parallel across devices "
+                        "(not ported yet)")
+    parser.add_argument("--mesh", dest="mesh", default=1, type=int,
+                        metavar="N",
+                        help="shard each recording's time axis over N "
+                        "devices (not ported yet)")
+    parser.add_argument("files", nargs="*", default=[], type=str,
+                        help="files with the time series data")
+    args = parser.parse_args(cargs)
+    device = resolve_device(device)
+
+    cfg = default_config()
+    if args.files:
+        cfg.load_files(cfgfile, args.files[0], 3, args.verbose)
+    if args.save_config:
+        if not args.save_config.endswith(".cfg"):
+            print("configuration file name must have .cfg as extension!")
+            return 1
+        print(f"write configuration to {args.save_config} ...")
+        cfg.dump(args.save_config)
+        return 0
+    if not args.files:
+        parser.error("no input files")
+    for flag, used in (("-p/--plot", args.plot),
+                       ("--plot-png", args.plot_png is not None),
+                       ("-j", args.jobs != 1), ("--mesh", args.mesh != 1)):
+        if used:
+            parser.error(f"{flag} is not ported to audian_torch yet "
+                         f"(ROADMAP.md, Queue 1)")
+    if args.output and len(args.files) > 1:
+        parser.error("-o names ONE output file but multiple inputs were "
+                     "given (each would overwrite it); drop -o to get "
+                     "per-file <stem>-songs.csv tables")
+
+    def process(path):
+        """Detect songs in one file; returns (path, nsongs, out) or the
+        error message of a file that could not be read."""
+        try:
+            data, rate = read_pcm16(path)
+        except (OSError, WavError) as e:
+            return f"{path}: {e}"
+        if args.verbose:
+            print(f"loaded {path} ({data.shape[0]} frames @ {rate:.0f} Hz)",
+                  flush=True)
+        result = detect(
+            data, rate,
+            highpassfreq=cfg.value("highpassfreq"),
+            lowpassfreq=cfg.value("lowpassfreq"),
+            envelopecutofffreq=cfg.value("envelopecutofffreq"),
+            envelopepeakthresh=cfg.value("envelopepeakthresh"),
+            envelopefilter=cfg.value("envelopefilter"),
+            thresholdfactor=cfg.value("thresholdfactor"),
+            minthreshfac=cfg.value("minthreshfac"),
+            minduration=cfg.value("minduration"),
+            verbose=args.verbose,
+            return_filtered=False,
+            device=device,
+        )
+        table = ResultTable()
+        table.append("channel", "", "%.0f")
+        table.append("tstart", "s", "%.4f")
+        table.append("tend", "s", "%.4f")
+        table.append("duration", "s", "%.4f")
+        nsongs = 0
+        for c, (ons, offs) in enumerate(zip(result["onsets"],
+                                            result["offsets"])):
+            for t0, t1 in zip(ons, offs):
+                table.add([c, t0, t1, t1 - t0])
+                nsongs += 1
+        out = args.output or Path(path).with_suffix("").as_posix() + "-songs.csv"
+        table.write(out)
+        return (path, nsongs, out)
+
+    status = 0
+    for r in map(process, args.files):
+        if isinstance(r, str):
+            print(f"error: {r}", file=sys.stderr)
+            status = 1
+        else:
+            path, nsongs, out = r
+            print(f"{path}: {nsongs} songs -> {out}")
+    return status
+
+
+def run():
+    return main(sys.argv[1:])
+
+
+if __name__ == "__main__":
+    sys.exit(run())

@@ -5,25 +5,36 @@ The JAX package's ``FusedChainCF`` holds its design as arrays
 ``env_w``) plus ``rate``, ``nfft``, ``hop`` and ``env_clamp``.  Given
 those as numpy values, :func:`chain_from_arrays` builds the port's module
 with exactly the same coefficients, so both packages compute with one
-design.
+design.  :func:`envdet_from_arrays` does the same for the song-detection
+envelope from its symmetric kernels and geometry.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .ops.cuda.envdet import EnvDetKernel
+from .ops.envdet import EnvDet
 from .ops.fused import FusedChainCF
 
-__all__ = ["ARRAY_KEYS", "chain_from_arrays"]
+__all__ = ["ARRAY_KEYS", "ENVDET_KEYS", "chain_from_arrays",
+           "envdet_from_arrays"]
 
 #: the state a chain is rebuilt from
 ARRAY_KEYS = ("rate", "nfft", "hop", "env_clamp", "_h_filt", "_g_env",
               "env_delay", "spec_w", "filt_w", "env_w")
 
+#: the state a song-detection envelope is rebuilt from: the symmetric
+#: band-pass and envelope kernels with their delays (the JAX package's
+#: ``filtfilt_sym_kernel(design.sos, pad_to=design.fir.length)``), the
+#: decimation step, outputs per window and the window headroom
+ENVDET_KEYS = ("g_bp", "d_bp", "g_lp", "d_lp", "step", "nout", "hb")
+
 
 def chain_from_arrays(arrays, device=None):
     """The port's :class:`FusedChainCF` over ``arrays`` (a dict holding
-    :data:`ARRAY_KEYS`; a missing design is ``None``)."""
+    :data:`ARRAY_KEYS`; a missing design is ``None``) on ``device`` (the
+    CUDA card by default)."""
     missing = set(ARRAY_KEYS) - set(arrays)
     if missing:
         raise KeyError(f"missing chain arrays: {sorted(missing)}")
@@ -44,3 +55,18 @@ def chain_from_arrays(arrays, device=None):
         "filt_w": arr("filt_w", np.float32),
         "env_w": arr("env_w", np.float32),
     }, device=device)
+
+
+def envdet_from_arrays(arrays, kernel=True, device=None):
+    """The port's single-pass :class:`EnvDetKernel` (``kernel=True``) or
+    two-stage :class:`EnvDet` over ``arrays`` (a dict holding
+    :data:`ENVDET_KEYS`) on ``device`` (the CUDA card by default)."""
+    missing = set(ENVDET_KEYS) - set(arrays)
+    if missing:
+        raise KeyError(f"missing envdet arrays: {sorted(missing)}")
+    cls = EnvDetKernel if kernel else EnvDet
+    return cls.from_kernels(
+        np.asarray(arrays["g_bp"], np.float64), int(arrays["d_bp"]),
+        np.asarray(arrays["g_lp"], np.float64), int(arrays["d_lp"]),
+        int(arrays["step"]), int(arrays["nout"]), int(arrays["hb"]),
+        device=device)

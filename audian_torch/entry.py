@@ -17,6 +17,7 @@ import torch
 from .ops.design import FilterDesign, design_envelope_filter, design_filter
 from .ops.sos import sosfilt_fir, sosfiltfilt_fir
 from .ops.stft import hann_window, spectrogram
+from .utils import resolve_device
 
 __all__ = ["RATE", "entry"]
 
@@ -29,9 +30,11 @@ def _designs():
     return filt, env
 
 
-def entry():
+def entry(device=None):
     """(fn, example_args) — the forward step and a 2-channel 30 kHz tone
-    of 2^15 samples."""
+    of 2^15 samples on ``device`` (the CUDA card by default; "cpu" runs
+    on the host)."""
+    device = resolve_device(device)
     nfft, hop = 256, 128
     window = hann_window(nfft)
 
@@ -47,5 +50,5 @@ def entry():
     n = 1 << 15
     t = np.arange(n, dtype=np.float32) / RATE
     x = np.stack([np.sin(2 * np.pi * 30000.0 * t)] * 2, axis=1)
-    x = torch.from_numpy(x.astype(np.float32))
+    x = torch.from_numpy(x.astype(np.float32)).to(device)
     return step, (x, filt, env)

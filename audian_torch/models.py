@@ -25,7 +25,8 @@ class ChainPreset:
     overlap_frac: float = 0.5
 
     def fused(self, rate, eps=1e-7, device=None):
-        """The matching channels-first batch chain on ``device``."""
+        """The matching channels-first batch chain on ``device`` (the CUDA
+        card by default; "cpu" runs the plain versions)."""
         filt = design_filter(rate, self.highpass_cutoff,
                              self.lowpass_cutoff, self.filter_order)
         env = (design_envelope_filter(rate, self.envelope_cutoff)

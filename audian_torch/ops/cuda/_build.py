@@ -1,7 +1,8 @@
 """Build the CUDA kernels from ``audian_torch/csrc/*.cu`` and load them.
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface for ``sm_90a``, at first use, into
+``nvcc`` compiles each source for ``sm_90a`` (one process a source, all
+started together) and links the objects into one shared library with a
+plain C interface, at first use, into
 ``build/audian_torch/<source-hash>/libaudian_torch_kernels.so`` beside the
 package.  The hash covers the sources and the flags, so an edit rebuilds
 and an unchanged tree reuses the library.  The library is loaded with
@@ -29,7 +30,7 @@ _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
 _LIBNAME = "libaudian_torch_kernels.so"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,9 +42,13 @@ _SIGNATURES = {
     "chain_launch": ([_P, _I, _LL, _I, _LL, _P, _I, _P, _I, _I, _I, _I, _I,
                       _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
                      _I),
+    "window_matmul_frames_per_block": ([_I, _I], _I),
     "window_matmul_smem_bytes": ([_I, _I], _LL),
-    "window_matmul_launch": ([_P, _LL, _I, _P, _I, _I, _I, _I, _I, _I, _P,
-                              _P], _I),
+    "window_matmul_launch": ([_P, _I, _LL, _I, _P, _I, _I, _I, _I, _I, _I,
+                              _P, _P], _I),
+    "envdet_smem_bytes": ([_I, _I, _I, _I], _LL),
+    "envdet_launch": ([_P, _I, _LL, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I,
+                       _I, _P, _P], _I),
 }
 
 _lock = threading.Lock()
@@ -73,18 +78,35 @@ def _nvcc():
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run(cmds, log):
+    """Run the commands at once, appending each one's output to ``log``;
+    raise if any fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log.extend(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+    for proc, o in zip(procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{o}")
+
+
 def _build(out):
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in _sources()]
+    tmp = out.with_name(f"{out.name}.{tag}")
+    log = []
+    try:
+        _run([[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(_sources(), objs)], log)
+        _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]], log)
+        os.replace(tmp, out)
+    finally:
+        (out.parent / "nvcc.log").write_text("".join(log))
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
 
 
 def load_library():

@@ -21,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from ...utils import round_up
+from ...utils import resolve_device, round_up
 from ..raw16 import dequant16
 from ..sos import _fir_valid_cf, full_fp32
 from ..stft import frame_signal
@@ -107,7 +107,8 @@ class ChainKernel:
     Inputs are extended streams ``[hb | n | ha...]`` (channels-first,
     int16 or float32) with ``hb = self.hb``; columns past the stream's end
     read as zero.  Raises ValueError when the design does not fit one
-    kernel block's shared memory (:func:`fits`).
+    kernel block's shared memory (:func:`fits`).  ``device`` defaults to
+    the CUDA card (see :func:`audian_torch.utils.resolve_device`).
     """
 
     def __init__(self, rate, h_filt, g_env, env_delay, spec_w, nbins,
@@ -150,6 +151,8 @@ class ChainKernel:
                 f"chain kernel tile needs {self.smem_bytes} B of shared "
                 f"memory (filter {Tf} + envelope {L} taps); the per-stage "
                 f"methods handle this design")
+
+        device = resolve_device(device)
 
         def dev(a):
             return torch.tensor(np.ascontiguousarray(a, np.float32),

@@ -5,8 +5,10 @@ The wrapper :func:`window_matmul` launches the CUDA kernel
 ``audian_tpu/ops/pallas/window_matmul.py:_kernel``) on a CUDA tensor and
 runs the plain PyTorch version :func:`window_matmul_plain` on a CPU
 tensor; any other device raises.  It serves the per-stage form of the
-fused chain: the Toeplitz filter and envelope banks and the Hann-DFT
-analysis matrix.
+fused chain (the Toeplitz filter and envelope banks and the Hann-DFT
+analysis matrix) and the two stages of the song-detection
+:class:`audian_torch.ops.envdet.EnvDet` (int16 PCM through the
+``"dequant"`` premap, the decimating envelope bank through ``"square"``).
 """
 
 from __future__ import annotations
@@ -15,13 +17,16 @@ import math
 
 import torch
 
+from ..raw16 import dequant16
 from ..sos import full_fp32
 from ._build import SMEM_LIMIT, check, load_library
 
 __all__ = ["PREMAPS", "window_matmul", "window_matmul_plain"]
 
-#: elementwise maps applied to ``x`` while the windows are built
-PREMAPS = (None, "rectify")
+#: elementwise maps applied to ``x`` while the windows are built: the
+#: identity, (pi/2)|v|, the PCM-16 dequantizer (k/2^15 on int16 input,
+#: the identity on float32) and v*v
+PREMAPS = (None, "rectify", "dequant", "square")
 _LAYOUTS = ("fco", "cf")
 
 
@@ -34,6 +39,8 @@ def _check_args(x, w, stride, nframes, premap, out_layout):
         raise ValueError(f"out_layout must be one of {_LAYOUTS}")
     if int(stride) < 1 or int(nframes) < 0:
         raise ValueError("stride must be >= 1 and nframes >= 0")
+    if x.dtype == torch.int16 and premap != "dequant":
+        raise TypeError("int16 x (PCM-16) takes premap='dequant'")
 
 
 def _reshape_out(y, out_layout):
@@ -52,12 +59,16 @@ def window_matmul_plain(x, w, stride, nframes, premap=None, out_layout="fco"):
     C, n = x.shape
     K, O = w.shape
     if nframes == 0:
-        return _reshape_out(x.new_zeros((C, 0, O)), out_layout)
+        return _reshape_out(w.new_zeros((C, 0, O)), out_layout)
     need = (nframes - 1) * stride + K
     if need > n:
         x = torch.nn.functional.pad(x, (0, need - n))
-    if premap == "rectify":
+    if premap == "dequant" and x.dtype == torch.int16:
+        x = dequant16(x)
+    elif premap == "rectify":
         x = (math.pi / 2) * torch.abs(x)
+    elif premap == "square":
+        x = x * x
     frames = x[:, :need].unfold(1, K, stride)               # (C, nf, K)
     return _reshape_out(frames @ w, out_layout)
 
@@ -66,8 +77,9 @@ def window_matmul(x, w, stride, nframes, premap=None, out_layout="fco"):
     """``y[f, c, :] = p(x[c, f*stride : f*stride + K]) @ w`` for
     ``f < nframes``, with ``x`` zero-extended past its end.
 
-    x : (C, n) float32, channels-first.  w : (K, O) float32.
-    premap : None or "rectify" ((pi/2)|v|).
+    x : (C, n) float32, or int16 PCM-16 with ``premap="dequant"``;
+        channels-first.  w : (K, O) float32.
+    premap : one of :data:`PREMAPS`.
     out_layout : "fco" returns (nframes, C, O); "cf" the channels-first
         stream (C, nframes*O).
 
@@ -79,8 +91,9 @@ def window_matmul(x, w, stride, nframes, premap=None, out_layout="fco"):
     if x.device.type != "cuda":
         raise ValueError(f"window_matmul runs on cuda or cpu, not {x.device}")
     _check_args(x, w, stride, nframes, premap, out_layout)
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError("window_matmul takes float32 x and w")
+    if x.dtype not in (torch.float32, torch.int16) or w.dtype != torch.float32:
+        raise TypeError("window_matmul takes float32 (or int16) x and "
+                        "float32 w")
     if w.device != x.device:
         raise ValueError("x and w must be on the same device")
     if not (x.is_contiguous() and w.is_contiguous()):
@@ -99,11 +112,11 @@ def window_matmul(x, w, stride, nframes, premap=None, out_layout="fco"):
     lib = load_library()
     if lib.window_matmul_smem_bytes(K, S) > SMEM_LIMIT:
         raise ValueError(f"window span of K={K}, stride={S} exceeds the "
-                         f"shared memory of one block")
+                         f"shared memory of one block even at one frame")
     code = lib.window_matmul_launch(
-        x.data_ptr(), n, C, w.data_ptr(), K, O, S, nframes,
-        int(premap == "rectify"), _LAYOUTS.index(out_layout), y.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), int(x.dtype == torch.int16), n, C, w.data_ptr(), K, O,
+        S, nframes, PREMAPS.index(premap), _LAYOUTS.index(out_layout),
+        y.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     check(code, "window_matmul")
     window_matmul.launches += 1
     return y.reshape(C, nframes * O) if out_layout == "cf" else y

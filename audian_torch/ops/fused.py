@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import resolve_device
 from . import design
 from .cuda.chain import ALL_OUTPUTS, ChainKernel, fits
 from .cuda.window_matmul import window_matmul
@@ -61,14 +62,6 @@ def design_arrays(rate, filt_sos=None, env_sos=None, env_clamp=True,
     return a
 
 
-def _check_device(device):
-    device = torch.device("cpu" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not "
-                           f"available")
-    return device
-
-
 class FusedChainCF(nn.Module):
     """Fused chain over a fixed design, on one device.
 
@@ -81,8 +74,9 @@ class FusedChainCF(nn.Module):
     eps : FIR truncation tolerance.
     block : Toeplitz bank width of the per-stage filter and envelope.
     ifir : the JAX package's interpolated-FIR envelope; not ported.
-    device : where the banks live and the chain runs ("cpu" runs the
-        plain versions; "cuda" the kernels, and raises without CUDA).
+    device : where the banks live and the chain runs: the CUDA card by
+        default (the kernels; raises without CUDA), or "cpu" (the plain
+        versions).
     """
 
     def __init__(self, rate, filt_sos=None, env_sos=None, env_clamp=True,
@@ -104,7 +98,7 @@ class FusedChainCF(nn.Module):
         return self
 
     def _setup(self, a, device):
-        device = _check_device(device)
+        device = resolve_device(device)
         self.rate = float(a["rate"])
         self.nfft = int(a["nfft"])
         self.hop = int(a["hop"])

@@ -6,7 +6,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
    fails at once without CUDA;
-1. builds the kernels from ``audian_torch/csrc`` into ``build/``;
+1. builds the kernels from ``audian_torch/csrc`` into ``build/`` (one
+   ``nvcc`` a source, all started together);
 2. ``window_matmul`` kernel against its plain version at 16 ch x 2^20
    samples: the ``bioacoustics`` per-stage filter, rectified envelope and
    PSD, ``ultrasound`` at 384 kHz, and hop 90;
@@ -15,19 +16,41 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    its float32 dequantization, all 7 output masks, a padded tail, and a
    24 Hz envelope whose tile needs more than 48 KB of shared memory
    (held against a float64 evaluation of the same taps);
-4. the main path: a 60 s x 16 ch x 96 kHz PCM-16 WAV read in halo'd
-   2^21-frame chunks through two pinned int16 buffers, each chunk run
-   through ``FusedChainCF.chain_cf`` (stats) and checked against the plain
-   version, chunked against whole, a 2 s slice of one channel against
-   scipy float64; and the per-stage ``ultrasound`` chain over the same
-   file, checked against scipy.  Launch counters are zeroed just before this
-   phase and read just after it;
-5. CUDA-event times (median of 5 after a warm-up) of each kernel and its
-   plain version, and of the 1-hour loop (83 device-resident chunks);
-6. the launch counters of phase 4, each of which must be > 0.
+4. the chain's main path: a 60 s x 16 ch x 96 kHz PCM-16 WAV read in
+   halo'd 2^21-frame chunks through two pinned int16 buffers, each chunk
+   run through ``FusedChainCF.chain_cf`` (stats) and checked against the
+   plain version, chunked against whole, a 2 s slice of one channel
+   against scipy float64; and the per-stage ``ultrasound`` chain over the
+   same file, checked against scipy.  Launch counters are zeroed just
+   before this phase and read just after it;
+5. CUDA-event times (median of 5 after a warm-up) of the chain and
+   window_matmul kernels and their plain versions, and of the chain's
+   1-hour loop (83 device-resident chunks);
+6. the launch counters of phase 4, each of which must be > 0;
+7. the ``envdet`` kernel against its plain version at the song detector's
+   headline chunk (16 ch x 2,101,248 int16 frames, the CLI's default
+   design at 96 kHz: 1-10 kHz band-pass, 500 Hz envelope, step 19) and
+   against a float64 evaluation of the same taps; the two-stage ``EnvDet``
+   on ``window_matmul`` with the ``dequant`` and ``square`` premaps, each
+   stage against its plain version at these shapes;
+8. the song detector's main path: ``audian_torch.cli.songdetector.main``
+   on a 90 s x 16 ch x 96 kHz PCM-16 WAV with planted songs (five chunks,
+   three interior).  Launch counters are zeroed just before and read just
+   after the run: ``envdet`` must run once per interior chunk.  Every
+   planted song must be found on every channel with its onset within
+   0.1 s; ``band_env`` on two channels is held against the scipy float64
+   oracle;
+9. CUDA-event times of the envdet kernel, its plain version and the
+   two-stage ``EnvDet`` per headline chunk, and the 1-hour detect loop
+   (165 device-resident chunks, seconds per recording hour).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel: its
+launches on its main path (phase 4 for chain and window_matmul, phase 8
+for envdet), its largest error, its time and its plain version's, the
+least time the card could take for the same work (``bound_ms``: fp32 at
+67 TFLOP/s or 3.35 TB/s of device memory, whichever is larger) and the
+time of one PyTorch call computing the same function where there is one.
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -52,6 +75,15 @@ CHUNK = 1 << 22          # headline chunk (43.7 s at 96 kHz)
 FILE_CHUNK = 1 << 21     # disk -> chain chunk of phase 4
 HOUR_CHUNKS = -(-int(3600 * RATE) // CHUNK)   # 83
 SEED = 0
+# the least time of a kernel: published peaks of one H100 SXM (fp32
+# outside the tensor cores, HBM3)
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# the song detector's default design (cli/songdetector.py) at 96 kHz
+DETECT_BAND = (1000.0, 10000.0)
+DETECT_ENV = 500.0
+DETECT_SECONDS = 90
+SONG_STARTS = (5.0, 21.0, 38.0, 50.5, 65.0, 80.0, 87.8)   # s, 1.5 s each
 
 # tolerances (max abs error at unit-scale PCM input; the scipy 1e-5
 # contract of the JAX package)
@@ -63,6 +95,12 @@ TOL_WINDOW = 1e-5        # times the output scale
 # chunked against whole: the same samples go through the same kernel
 # arithmetic, so the tolerance of tests/test_chunk_equivalence.py holds
 TOL_CHUNKED = 2e-6
+# the detect envelope: 1e-5 of its scale against the plain version and
+# float64 (fp32 sums in another order), 2e-5 of the scale end to end
+# against scipy float64 (the JAX package's chunk-equivalence budget)
+TOL_DETECT = 1e-5
+TOL_DETECT_ORACLE = 2e-5
+TOL_ONSET_S = 0.1        # tests/test_songdetector.py identical songs
 
 
 def require(ok, what):
@@ -97,6 +135,92 @@ def median_ms(fn, reps=5):
 
 def max_abs(a, b):
     return float((a.double() - b.double()).abs().max())
+
+
+def bound(flop, nbytes):
+    """``(least ms, what bounds it)`` for ``flop`` fp32 operations that
+    read and write ``nbytes`` of device memory."""
+    t_op, t_mem = 1e3 * flop / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES
+    return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+
+def chain_work(ck, x_ext, n):
+    """Operations and bytes of one chain call: the filter and envelope
+    taps and the lane-packed DFT per frame; int16 in, filtered, envelope
+    and PSD out."""
+    C = x_ext.shape[0]
+    nf = n // 128
+    flop = (2 * C * n * (len(ck.h) + len(ck.g))
+            + nf * C * (2 * ck.nfft * ck.nfft + 3 * ck.nbins))
+    nbytes = x_ext.numel() * x_ext.element_size() + 8 * C * n \
+        + 4 * nf * C * ck.nbins
+    return flop, nbytes
+
+
+def window_matmul_work(x, w, S, nfr):
+    """Operations and bytes of one window_matmul call."""
+    C = x.shape[0]
+    K, O = w.shape
+    read = min(x.shape[1], (nfr - 1) * S + K) * C * x.element_size()
+    return 2 * K * O * nfr * C, read + 4 * w.numel() + 4 * nfr * C * O
+
+
+def envdet_work(ed, xw):
+    """Operations and bytes of one envdet call: the band-pass over the
+    stream the outputs need, its square, the decimated envelope taps; the
+    window in, the envelope out."""
+    C = xw.shape[1]
+    ny = (ed.nout - 1) * ed.step + ed.ll
+    flop = C * (ny * (2 * ed.lb + 1) + 2 * ed.nout * ed.ll)
+    return flop, xw.numel() * xw.element_size() + 4 * C * ed.nout
+
+
+def envdet_f64(ed, xw):
+    """The envdet envelope in float64 over the same float32 taps (cuDNN
+    off): an oracle for the kernel's arithmetic."""
+    x = xw.double().T / 32768.0
+    s0, s1 = ed.hb - ed.lead2, ed.hb + (ed.nout - 1) * ed.step + ed.d_lp
+    x0, x1 = s0 + ed.d_bp - (ed.lb - 1), s1 + ed.d_bp + 1
+    seg = torch.nn.functional.pad(x[:, x0:x1], (0, max(0, x1 - x.shape[1])))
+    with torch.backends.cudnn.flags(enabled=False):
+        g = torch.flip(ed.g_bp.double(), (0,)).reshape(1, 1, -1)
+        y = torch.nn.functional.conv1d(seg[:, None], g)[:, 0]
+        g = torch.flip(ed.g_lp.double(), (0,)).reshape(1, 1, -1)
+        e = torch.nn.functional.conv1d((y * y)[:, None], g,
+                                       stride=ed.step)[:, 0]
+    return (2.0 * torch.sqrt(e.clamp_min(0.0))).T
+
+
+def detect_chunk(gen, W, device):
+    """A PCM-16 detect window (W, C): a 6.5 kHz tone gated at 1 Hz plus
+    noise (bench.py:bench_detect's signal), made on the host from
+    ``gen``."""
+    t = (torch.arange(W, dtype=torch.float64) / RATE)[:, None]
+    tone = torch.sin(2 * math.pi * 6500.0 * t) * (
+        torch.sin(2 * math.pi * 1.0 * t) > 0)
+    x = 0.4 * tone + 0.05 * torch.randn((W, C), generator=gen,
+                                        dtype=torch.float64)
+    q = torch.clamp(torch.round(x * 32768.0), -32768, 32767)
+    return q.to(torch.int16).to(device)
+
+
+def song_recording(rng, seconds):
+    """PCM-16 (n, C) with songs planted at :data:`SONG_STARTS` on every
+    channel: 1.5 s of a channel's carrier (2-8.75 kHz) amplitude-modulated
+    at 100 Hz, over noise.  (The detector drops songs whose envelope
+    frequency strays more than 1 % from the mean, and Welch's bins are
+    about 0.7 Hz apart here: at 30 Hz a song can read 0.5 Hz off and be
+    dropped, at 100 Hz the 1 Hz margin holds.)"""
+    n = int(seconds * RATE)
+    x = 0.02 * rng.standard_normal((n, C), dtype=np.float32)
+    carriers = 2000.0 + 450.0 * np.arange(C)
+    for s0 in SONG_STARTS:
+        i0, i1 = int(s0 * RATE), int((s0 + 1.5) * RATE)
+        t = np.arange(i0, i1)[:, None] / RATE
+        am = 0.5 * (1 + np.sin(2 * np.pi * 100.0 * t))
+        x[i0:i1] += (0.5 * am * np.sin(2 * np.pi * carriers * t)).astype(
+            np.float32)
+    return np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
 
 
 def psd_db_err(got, want):
@@ -174,13 +298,21 @@ def main():
           f"python {sys.version.split()[0]}  device {kind}")
     dev = torch.device("cuda", 0)
 
+    from audian_torch.analysis import events
+    from audian_torch.cli import songdetector
     from audian_torch.data.wavio import read_frames_raw16, wav_info
     from audian_torch.models import get_preset
     from audian_torch.ops.cuda import _build
     from audian_torch.ops.cuda.chain import ALL_OUTPUTS, chain, chain_plain
+    from audian_torch.ops.cuda.envdet import (EnvDetKernel, envdet,
+                                              envdet_plain)
+    from audian_torch.ops.cuda.envdet import smem_bytes as envdet_smem_bytes
     from audian_torch.ops.cuda.window_matmul import (window_matmul,
                                                      window_matmul_plain)
-    from audian_torch.ops.design import design_envelope_filter, design_filter
+    from audian_torch.ops.design import (FilterDesign,
+                                         design_envelope_filter,
+                                         design_filter)
+    from audian_torch.ops.envdet import EnvDet
     from audian_torch.ops.fused import FusedChainCF
     from audian_torch.ops.raw16 import dequant16
 
@@ -409,19 +541,34 @@ def main():
 
     # -- phase 5: times ------------------------------------------------------
     print("phase 5: CUDA-event times, median of 5 after a warm-up")
-    wm_ms = wm_plain_ms = 0.0
+    # window_matmul's figures sum the three bioacoustics stages; the
+    # library call is the unfold view times w in one matmul (cuBLAS)
+    wm_ms = wm_plain_ms = wm_lib_ms = wm_flop = wm_bytes = 0.0
     for label, (x, w, S, nfr, pm, lay) in wm_times.items():
         k_ms = median_ms(lambda: window_matmul(x, w, S, nfr, pm, lay))
         p_ms = median_ms(lambda: window_matmul_plain(x, w, S, nfr, pm, lay))
+        need = (nfr - 1) * S + w.shape[0]
+        xl = torch.nn.functional.pad(x, (0, max(0, need - x.shape[1])))
+        if pm == "rectify":
+            xl = (math.pi / 2) * xl.abs()
+        l_ms = median_ms(lambda: torch.matmul(
+            xl[:, :need].unfold(1, w.shape[0], S), w))
+        del xl
         if label.startswith("bioacoustics"):
             wm_ms += k_ms
             wm_plain_ms += p_ms
+            wm_lib_ms += l_ms
+            f, b = window_matmul_work(x, w, S, nfr)
+            wm_flop += f
+            wm_bytes += b
         print(f"  window_matmul {label}: kernel {k_ms:.4f} ms  "
-              f"plain {p_ms:.4f} ms  [{card}]")
+              f"plain {p_ms:.4f} ms  unfold+matmul {l_ms:.4f} ms  [{card}]")
     ch_ms = median_ms(lambda: chain(ck, q, CHUNK, stats=True))
     ch_plain_ms = median_ms(lambda: chain_plain(ck, q, CHUNK, stats=True))
+    ch_bound = bound(*chain_work(ck, q, CHUNK))
     print(f"  chain headline chunk 16 x 2^22 int16: kernel {ch_ms:.4f} ms  "
-          f"plain {ch_plain_ms:.4f} ms  [{card}]")
+          f"plain {ch_plain_ms:.4f} ms  bound {ch_bound[0]:.4f} ms "
+          f"({ch_bound[1]})  [{card}]")
     # one stage requested at a time (the filter always runs): splits the
     # kernel's time by phase
     for outputs in (("filtered",), ("envelope",), ("spectrogram",)):
@@ -447,17 +594,211 @@ def main():
     print(f"phase 6: main-path launches {launches}")
     for name, count in launches.items():
         require(count > 0, f"{name} launched on the main path")
+    del hour, q, qs, ql
+
+    # -- phase 7: envdet -----------------------------------------------------
+    print("phase 7: envdet kernel vs plain at the headline detect chunk")
+    fdet = FilterDesign.from_sos(sps.butter(1, DETECT_BAND, "bandpass",
+                                            fs=RATE, output="sos"))
+    edet = FilterDesign.from_sos(sps.butter(1, DETECT_ENV, "lowpass",
+                                            fs=RATE, output="sos"))
+    step = int(np.round(RATE / (10 * DETECT_ENV)))
+    halo = events.detect_halo(fdet, edet)
+    ed, det_chunk = events._make_envdet(fdet, edet, step, halo, dev)
+    W = events._CHUNK + 2 * halo
+    require(isinstance(ed, EnvDetKernel), "the CLI design takes the kernel")
+    require(lib.envdet_smem_bytes(ed.lb, ed.ll, step, ed.tile)
+            == envdet_smem_bytes(ed.lb, ed.ll, step, ed.tile),
+            "shared-memory formula agrees")
+    print(f"  step {step}  halo {halo}  chunk {det_chunk}  W {W}  "
+          f"nout {ed.nout}  taps {ed.lb} + {ed.ll}  tile {ed.tile}  "
+          f"shared {lib.envdet_smem_bytes(ed.lb, ed.ll, step, ed.tile)} B")
+    qd = detect_chunk(gen, W, dev)
+    got = envdet(ed, qd)
+    want = envdet_plain(ed, qd)
+    ref = envdet_f64(ed, qd)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    ep, ef, pf = max_abs(got, want), max_abs(got, ref), max_abs(want, ref)
+    require(ep <= TOL_DETECT * scale, f"envdet vs plain {ep}")
+    require(ef <= TOL_DETECT * scale, f"envdet vs float64 {ef}")
+    require(bool(torch.isfinite(got).all()), "envdet finite")
+    env_err = max(ep, ef)
+    print(f"  kernel vs plain {ep:.3e}, vs float64 {ef:.3e}; plain vs "
+          f"float64 {pf:.3e} (scale {scale:.4f})")
+    # the two-stage EnvDet on window_matmul, stage by stage
+    two = EnvDet(fdet, edet, step, ed.nout, hb=halo, device=dev)
+    got2 = two(qd, halo)
+    e2 = max_abs(got2, ref)
+    require(e2 <= TOL_DETECT * scale, f"EnvDet vs float64 {e2}")
+    base = two.hb + two.d_bp - two.lead2
+    n_y = two.lead2 + (two.nout - 1) * step + two.d_lp + 1
+    xp = torch.nn.functional.pad(qd.T[:, : base + n_y], (two.lb - 1, 0))
+
+    def check_stage(label, x, w, S, nfr, pm, lay):
+        got = window_matmul(x, w, S, nfr, premap=pm, out_layout=lay)
+        want = window_matmul_plain(x, w, S, nfr, premap=pm, out_layout=lay)
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        wscale = float(want.abs().max())
+        require(err <= TOL_WINDOW * wscale, f"window_matmul {label} {err}")
+        print(f"  window_matmul {label}: K={w.shape[0]} S={S} frames={nfr} "
+              f"({lib.window_matmul_frames_per_block(w.shape[0], S)} a "
+              f"block) max_abs_err {err:.3e} (scale {wscale:.3e})")
+        return err, want
+
+    e_bp, caus = check_stage("EnvDet band-pass, dequant", xp, two.w_bp, 128,
+                             -(-(base + n_y) // 128), "dequant", "cf")
+    y_ext = caus[:, base : base + n_y].contiguous()
+    e_env, _ = check_stage("EnvDet decimating envelope, square", y_ext,
+                           two.b2, 128 * step, -(-two.nout // 128), "square",
+                           "fco")
+    wm_err = max(wm_err, e_bp, e_env)
+    print(f"  EnvDet (two window_matmul stages) vs float64 {e2:.3e}")
+    del got, want, ref, got2, xp, caus, y_ext
+
+    # -- phase 8: the song detector's main path ------------------------------
+    print(f"phase 8: audian-songdetector on a {DETECT_SECONDS} s x {C} ch x "
+          f"96 kHz PCM-16 WAV")
+    pcm = song_recording(rng, DETECT_SECONDS)
+    nrec = pcm.shape[0]
+    interior = sum(1 for pos in range(0, nrec, det_chunk)
+                   if pos - halo >= 0 and pos - halo + W <= nrec)
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "songs.wav")
+        out_csv = os.path.join(tmp, "songs.csv")
+        scipy.io.wavfile.write(wav, int(RATE), pcm)
+        chain.launches = window_matmul.launches = envdet.launches = 0
+        t0 = time.perf_counter()
+        rc = songdetector.main([wav, "-o", out_csv])
+        torch.cuda.synchronize()
+        detect_wall = time.perf_counter() - t0
+        det_launches = {"chain": chain.launches,
+                        "window_matmul": window_matmul.launches,
+                        "envdet": envdet.launches}
+        require(rc == 0, f"songdetector exit status {rc}")
+        with open(out_csv) as f:
+            rows = [line.strip().split(",") for line in f if line.strip()]
+        # where the CLI's wall goes: the WAV read, the envelope (uploads,
+        # exact edge chunks, envdet on the interior ones) and, as the rest
+        # of detect(), the host event logic
+        t0 = time.perf_counter()
+        data, _ = songdetector.read_pcm16(wav)
+        t1 = time.perf_counter()
+        events.band_env(data, RATE, *DETECT_BAND, DETECT_ENV,
+                        return_filtered=False, fused=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        events.detect(data, RATE, *DETECT_BAND, DETECT_ENV,
+                      return_filtered=False)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        split = {"read_s": t1 - t0, "band_env_s": t2 - t1,
+                 "events_s": (t3 - t2) - (t2 - t1)}
+        # the device's busy share of band_env, from a profiler trace
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            events.band_env(data, RATE, *DETECT_BAND, DETECT_ENV,
+                            return_filtered=False, fused=True)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        # device-side events only: an aten op's device time repeats that
+        # of the kernels and copies it launched
+        by_kernel = sorted(
+            ((e.self_device_time_total, e.key) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.self_device_time_total > 0), reverse=True)
+        busy_s = sum(t for t, _ in by_kernel) / 1e6
+        del data
+    require(rows[0] == ["channel", "tstart/s", "tend/s", "duration/s"],
+            f"CSV header {rows[0]}")
+    found = {}
+    for row in rows[1:]:
+        found.setdefault(int(row[0]), []).append(float(row[1]))
+    counts = [len(found.get(c, [])) for c in range(C)]
+    require(counts == [len(SONG_STARTS)] * C,
+            f"songs per channel {counts}, planted {len(SONG_STARTS)} each")
+    worst = max(float(np.abs(np.sort(found[c]) - SONG_STARTS).max())
+                for c in range(C))
+    require(worst <= TOL_ONSET_S, f"onsets off by {worst} s")
+    print(f"  {len(rows) - 1} songs in the CSV, every planted song on every "
+          f"channel, onsets within {worst:.4f} s; wall {detect_wall:.2f} s "
+          f"for {DETECT_SECONDS} s of recording")
+    print(f"  launches {det_launches}; interior chunks {interior} of "
+          f"{-(-nrec // det_chunk)}")
+    print("  wall split (host clock, s): " + "  ".join(
+        f"{k} {v:.4f}" for k, v in split.items()))
+    if busy_s > 0:
+        print(f"  band_env under the profiler: wall {prof_wall:.4f} s, "
+              f"device busy {busy_s:.4f} s ({100 * busy_s / prof_wall:.1f} "
+              f"%); by kernel (ms):")
+        for t, key in by_kernel[:6]:
+            print(f"    {t / 1e3:10.4f}  {key[:90]}")
+    else:
+        print("  band_env device busy share: not measured (the profiler "
+              "recorded no device time)")
+    require(det_launches["envdet"] == interior > 0,
+            "envdet launched once per interior chunk")
+    # band_env on two channels against the scipy float64 oracle
+    _, env2, _ = events.band_env(pcm[:, :2], RATE, *DETECT_BAND, DETECT_ENV,
+                                 return_filtered=False, fused=True)
+    _, env64 = events.detect_env_oracle(
+        pcm[:, :2].astype(np.float64) / 32768.0, step, fdet, edet)
+    scale = float(np.abs(env64).max())
+    eo = float(np.abs(env2 - env64).max())
+    require(env2.shape == env64.shape and np.isfinite(env2).all(),
+            f"band_env shape {env2.shape}")
+    require(eo <= TOL_DETECT_ORACLE * scale, f"band_env vs scipy {eo}")
+    print(f"  band_env (2 ch) vs scipy float64: {eo:.3e} (scale "
+          f"{scale:.4f})")
+    del pcm, env2, env64
+
+    # -- phase 9: detect times -----------------------------------------------
+    print("phase 9: detect times, CUDA-event medians")
+    env_ms = median_ms(lambda: envdet(ed, qd))
+    env_plain_ms = median_ms(lambda: envdet_plain(ed, qd))
+    two_ms = median_ms(lambda: two(qd, halo))
+    env_bound = bound(*envdet_work(ed, qd))
+    print(f"  envdet headline chunk ({C} x {W} int16): kernel {env_ms:.4f} ms"
+          f"  plain {env_plain_ms:.4f} ms  two-stage EnvDet {two_ms:.4f} ms"
+          f"  bound {env_bound[0]:.4f} ms ({env_bound[1]})  [{card}]")
+    det_hour = [qd] + [detect_chunk(gen, W, dev) for _ in range(2)]
+    nhour = -(-int(3600 * RATE) // det_chunk)
+
+    def detect_hour(fn):
+        out = None
+        for i in range(nhour):
+            out = fn(ed, det_hour[i % len(det_hour)])
+        return out
+
+    hour_det_ms = median_ms(lambda: detect_hour(envdet), reps=3)
+    hour_det_plain_ms = median_ms(lambda: detect_hour(envdet_plain), reps=3)
+    print(f"  1-hour detect loop ({nhour} chunks x {C} ch, device-resident): "
+          f"kernel {hour_det_ms / 1e3:.4f} s per recording hour  plain "
+          f"{hour_det_plain_ms / 1e3:.4f} s  [{card}]")
+
+    wm_bound = bound(wm_flop, wm_bytes)
     kernels = [
         {"name": "chain", "route": "cuda",
          "source": "audian_torch/csrc/chain.cu",
          "replaces": "audian_tpu/ops/pallas/chain.py:151",
          "launches": launches["chain"], "max_abs_err": chain_err,
-         "ms": ch_ms, "plain_ms": ch_plain_ms},
+         "ms": ch_ms, "plain_ms": ch_plain_ms, "bound_ms": ch_bound[0],
+         "bound_by": ch_bound[1], "library_ms": None},
         {"name": "window_matmul", "route": "cuda",
          "source": "audian_torch/csrc/window_matmul.cu",
          "replaces": "audian_tpu/ops/pallas/window_matmul.py:41",
          "launches": launches["window_matmul"], "max_abs_err": wm_err,
-         "ms": wm_ms, "plain_ms": wm_plain_ms},
+         "ms": wm_ms, "plain_ms": wm_plain_ms, "bound_ms": wm_bound[0],
+         "bound_by": wm_bound[1], "library_ms": wm_lib_ms},
+        {"name": "envdet", "route": "cuda",
+         "source": "audian_torch/csrc/envdet.cu",
+         "replaces": "audian_tpu/ops/pallas/envdet.py:64",
+         "launches": det_launches["envdet"], "max_abs_err": env_err,
+         "ms": env_ms, "plain_ms": env_plain_ms, "bound_ms": env_bound[0],
+         "bound_by": env_bound[1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

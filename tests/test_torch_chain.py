@@ -32,7 +32,7 @@ def chains():
                   eps=1e-8)
     arrays = {k: (None if getattr(jc, k) is None
                   else np.asarray(getattr(jc, k))) for k in ARRAY_KEYS}
-    return jc, chain_from_arrays(arrays)
+    return jc, chain_from_arrays(arrays, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -85,9 +85,9 @@ def test_design_arrays_match(name, rate):
     # the port's own design from SOS equals the JAX chain's state, and
     # chain_from_arrays carries that state across unchanged
     jfc = jp.fused(rate)
-    tfc = tp.fused(rate)
+    tfc = tp.fused(rate, device="cpu")
     ja = jax_arrays(jfc)
-    for fc in (tfc, chain_from_arrays(ja)):
+    for fc in (tfc, chain_from_arrays(ja, device="cpu")):
         same(fc._h_filt, ja["_h_filt"])
         same(fc._g_env, ja["_g_env"])
         assert fc.env_delay == ja["env_delay"]

@@ -31,7 +31,7 @@ def _arrays(jc):
 def chains():
     jc = JaxChain(RATE, filt_sos=SOS_F, env_sos=SOS_E, nfft=256, hop=128,
                   eps=1e-8)
-    return jc, chain_from_arrays(_arrays(jc))
+    return jc, chain_from_arrays(_arrays(jc), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +102,7 @@ def test_ultrasound_per_stage(signal):
     run the per-stage path; outputs agree, and match scipy."""
     rate = 96000.0
     jc = jax_preset("ultrasound").fused(rate)
-    tc = get_preset("ultrasound").fused(rate)
+    tc = get_preset("ultrasound").fused(rate, device="cpu")
     assert jc.chain_kernel is None and tc.chain_kernel is None
     assert (tc.hop, tc.nfft) == (256, 512)
     with pytest.raises(ValueError, match="per-stage"):
@@ -132,7 +132,7 @@ def test_chain_cf_chunked_equals_whole():
     rate = 48000.0
     chain = FusedChainCF(rate, filt_sos=design_filter(rate, 1000.0, 8000.0),
                          env_sos=design_envelope_filter(rate, 500.0),
-                         nfft=256, hop=128, eps=1e-6)
+                         nfft=256, hop=128, eps=1e-6, device="cpu")
     ck = chain.chain_kernel
     n, chunk = 8192, 4096
     x = np.random.default_rng(9).standard_normal(
@@ -156,10 +156,12 @@ def test_chain_gate_follows_shared_memory():
     still run."""
     filt = design_filter(RATE, 1000.0, 8000.0)
     env = design_envelope_filter(RATE, 24.0)
-    fit = FusedChainCF(RATE, filt_sos=filt, env_sos=env, eps=1e-7)
+    fit = FusedChainCF(RATE, filt_sos=filt, env_sos=env, eps=1e-7,
+                       device="cpu")
     assert fit.chain_kernel is not None
     assert 48 * 1024 < fit.chain_kernel.smem_bytes <= 232448
-    big = FusedChainCF(RATE, filt_sos=filt, env_sos=env, eps=1e-10)
+    big = FusedChainCF(RATE, filt_sos=filt, env_sos=env, eps=1e-10,
+                       device="cpu")
     assert big.chain_kernel is None
     with pytest.raises(ValueError, match="per-stage"):
         big.chain_cf(torch.zeros((1, 1024)), 128)

@@ -1,8 +1,9 @@
 """The port's slice end to end against the JAX package: a PCM-16 WAV read
 in halo'd int16 chunks by audian_torch's reader and run through its
 ``chain_cf`` with stats, the ``entry()`` twin, the import boundary (no
-jax), and the no-fallback rules of the kernel wrappers on a CPU-only
-host."""
+jax), the no-fallback rules of the kernel wrappers on a CPU-only host,
+and the default device of every entry point (the CUDA card: without it a
+call that does not name the CPU raises)."""
 
 import subprocess
 import sys
@@ -10,6 +11,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import scipy.signal as sps
 import torch
 import jax
 import jax.numpy as jnp
@@ -19,13 +21,19 @@ from audian_tpu.data import wavio as jwav
 from audian_tpu.ops import design_envelope_filter, design_filter
 from audian_tpu.ops.fused import FusedChainCF as JaxChain
 
-from audian_torch.convert import ARRAY_KEYS, chain_from_arrays
+from audian_torch.analysis import events
+from audian_torch.cli import songdetector
+from audian_torch.convert import (ARRAY_KEYS, chain_from_arrays,
+                                  envdet_from_arrays)
 from audian_torch.data.wavio import read_frames_raw16, wav_info
 from audian_torch.entry import entry as torch_entry
 from audian_torch.models import get_preset
-from audian_torch.ops.cuda.chain import chain
+from audian_torch.ops.cuda.chain import ChainKernel, chain
+from audian_torch.ops.cuda.envdet import EnvDetKernel
 from audian_torch.ops.cuda.window_matmul import window_matmul
-from audian_torch.ops.fused import FusedChainCF
+from audian_torch.ops.design import FilterDesign, filtfilt_sym_kernel
+from audian_torch.ops.envdet import EnvDet
+from audian_torch.ops.fused import FusedChainCF, design_arrays
 
 REPO = Path(__file__).resolve().parents[1]
 RATE = 48000.0
@@ -37,7 +45,7 @@ def test_wav_chunks_through_chain_match_jax(tmp_path):
                   hop=128, eps=1e-8)
     tc = chain_from_arrays({k: (None if getattr(jc, k) is None
                                 else np.asarray(getattr(jc, k)))
-                            for k in ARRAY_KEYS})
+                            for k in ARRAY_KEYS}, device="cpu")
     ck = tc.chain_kernel
     rng = np.random.default_rng(8)
     total, chunk = 10000, 4096
@@ -78,7 +86,7 @@ def test_wav_chunks_through_chain_match_jax(tmp_path):
 def test_entry_twin_matches_graft_entry():
     fn, args = __graft_entry__.entry()
     want = jax.jit(fn)(*args)
-    step, targs = torch_entry()
+    step, targs = torch_entry(device="cpu")
     np.testing.assert_array_equal(targs[0].numpy(), args[0])
     got = step(*targs)
     assert set(got) == set(want)
@@ -109,7 +117,7 @@ def test_port_imports_no_jax():
 
 
 def test_launch_counters_stay_zero_on_cpu():
-    fc = get_preset("bioacoustics").fused(96000.0, eps=2e-6)
+    fc = get_preset("bioacoustics").fused(96000.0, eps=2e-6, device="cpu")
     ck = fc.chain_kernel
     c0, w0 = chain.launches, window_matmul.launches
     assert (c0, w0) == (0, 0)
@@ -127,9 +135,83 @@ def test_no_cpu_fallback_for_other_devices():
                      device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         get_preset("bioacoustics").fused(96000.0, device="cuda")
-    fc = get_preset("bioacoustics").fused(96000.0, eps=2e-6)
+    fc = get_preset("bioacoustics").fused(96000.0, eps=2e-6, device="cpu")
     meta = torch.zeros((1, 4096), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         chain(fc.chain_kernel, meta, 128)
     with pytest.raises(ValueError, match="cuda or cpu"):
         window_matmul(meta, fc.spec_w.to("meta"), 128, 4)
+
+
+def _chain_arrays():
+    return design_arrays(RATE, design_filter(RATE, 1000.0, 8000.0),
+                         design_envelope_filter(RATE, 500.0))
+
+
+def _envdet_designs():
+    return (FilterDesign.from_sos(sps.butter(1, (1500.0, 3000.0), "bandpass",
+                                             fs=8000.0, output="sos")),
+            FilterDesign.from_sos(sps.butter(1, 900.0, "lowpass", fs=8000.0,
+                                             output="sos")))
+
+
+def _envdet_arrays():
+    fd, ed = _envdet_designs()
+    g_bp, d_bp = filtfilt_sym_kernel(fd.sos, pad_to=fd.fir.length)
+    g_lp, d_lp = filtfilt_sym_kernel(ed.sos, pad_to=ed.fir.length)
+    return dict(g_bp=g_bp, d_bp=d_bp, g_lp=g_lp, d_lp=d_lp, step=4,
+                nout=64, hb=2048)
+
+
+def _chain_kernel(device=None):
+    a = _chain_arrays()
+    return ChainKernel(RATE, a["_h_filt"], a["_g_env"], a["env_delay"],
+                       a["spec_w"], 129, device=device)
+
+
+_SIGNAL = np.zeros((20000, 1), np.float32)
+
+#: every entry point of the port, each called as ``fn(device)``
+ENTRY_POINTS = {
+    "FusedChainCF": lambda d: FusedChainCF(
+        RATE, filt_sos=design_filter(RATE, 1000.0, 8000.0), device=d),
+    "FusedChainCF.from_arrays": lambda d: FusedChainCF.from_arrays(
+        _chain_arrays(), device=d),
+    "ChainPreset.fused": lambda d: get_preset("bioacoustics").fused(
+        96000.0, eps=2e-6, device=d),
+    "chain_from_arrays": lambda d: chain_from_arrays(
+        {k: _chain_arrays()[k] for k in ARRAY_KEYS}, device=d),
+    "ChainKernel": _chain_kernel,
+    "entry": lambda d: torch_entry(device=d),
+    "EnvDet": lambda d: EnvDet(*_envdet_designs(), 4, 64, 2048, device=d),
+    "EnvDetKernel": lambda d: EnvDetKernel(*_envdet_designs(), 4, 64, 2048,
+                                           device=d),
+    "envdet_from_arrays": lambda d: envdet_from_arrays(_envdet_arrays(),
+                                                       device=d),
+    "band_env": lambda d: events.band_env(_SIGNAL, 8000.0, 1500.0, 3000.0,
+                                          100.0, device=d),
+    "detect": lambda d: events.detect(_SIGNAL, 8000.0, device=d),
+    "bandpass_filter": lambda d: events.bandpass_filter(_SIGNAL, 8000.0,
+                                                        device=d),
+    "square_envelope": lambda d: events.square_envelope(_SIGNAL, 8000.0,
+                                                        device=d),
+    "songdetector.main": lambda d: songdetector.main(["--mesh", "1"],
+                                                     device=d),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_points_default_to_cuda(name):
+    """Called without a device, an entry point runs on the CUDA card; a
+    host without CUDA raises RuntimeError naming CUDA and never carries on
+    on the CPU.  Naming the CPU runs the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    fn = ENTRY_POINTS[name]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(None)
+    if name == "songdetector.main":
+        with pytest.raises(SystemExit):     # no input files
+            fn("cpu")
+    else:
+        fn("cpu")

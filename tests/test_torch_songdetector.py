@@ -1,0 +1,119 @@
+"""audian_torch's ``audian-songdetector`` against the JAX package's CLI on
+the CPU: the same PCM-16 recording gives the same CSV table (both with the
+same small ``_CHUNK``, so interior chunks take the decimating envelope),
+``-c`` writes the same configuration, malformed config values warn and
+keep the defaults, and what the port cannot read or run yet stops with a
+message that names it."""
+
+import numpy as np
+import pytest
+
+from audian_tpu.analysis import events as jev
+from audian_tpu.cli import songdetector as jcli
+from audian_tpu.data import wavio as jwav
+
+from audian_torch.analysis import events as tev
+from audian_torch.cli import songdetector as tcli
+
+RATE = 24000.0
+
+
+def _recording(nsongs=3, seed=12):
+    """Chirpy songs (6.5 kHz carrier, 30 Hz AM) over noise on 2 channels,
+    as the JAX package's song-detector tests make them."""
+    rng = np.random.default_rng(seed)
+    n = int((2.0 + 3.3 * nsongs) * RATE)
+    t = np.arange(n) / RATE
+    x = 0.02 * rng.standard_normal(n)
+    for k in range(nsongs):
+        sel = (t >= 2.0 + 3.3 * k) & (t < 3.2 + 3.3 * k)
+        x[sel] += 0.6 * 0.5 * (1 + np.sin(2 * np.pi * 30.0 * t[sel])) \
+            * np.sin(2 * np.pi * 6500.0 * t[sel])
+    return np.stack([x, 0.5 * x], axis=1)
+
+
+@pytest.fixture
+def small_chunks(monkeypatch):
+    for mod in (jev, tev):
+        monkeypatch.setattr(mod, "_CHUNK", 1 << 15)
+        monkeypatch.setattr(mod, "_KERNEL_BUDGET", {"filt": 0, "env": 0})
+
+
+def test_cli_writes_the_same_table_as_jax(tmp_path, small_chunks):
+    path = tmp_path / "songs16.wav"
+    jwav.write_audio(path, _recording(), RATE, encoding="PCM_16")
+    want, got = tmp_path / "jax.csv", tmp_path / "torch.csv"
+    assert jcli.main(["-o", str(want), str(path)]) == 0
+    assert tcli.main(["-o", str(got), str(path)], device="cpu") == 0
+    lines = got.read_text().strip().splitlines()
+    assert lines[0] == "channel,tstart/s,tend/s,duration/s"
+    assert len(lines) == 1 + 2 * 3          # 3 songs x 2 channels
+    assert got.read_text() == want.read_text()
+
+
+def test_cli_default_output_name(tmp_path, small_chunks, capsys):
+    path = tmp_path / "rec.wav"
+    jwav.write_audio(path, _recording(nsongs=1), RATE, encoding="PCM_16")
+    assert tcli.main([str(path)], device="cpu") == 0
+    out = tmp_path / "rec-songs.csv"
+    assert len(out.read_text().strip().splitlines()) == 1 + 2
+    assert f"{path}: 2 songs -> {tmp_path / 'rec'}-songs.csv" in \
+        capsys.readouterr().out
+
+
+def test_save_config_equals_jax(tmp_path):
+    a, b = tmp_path / "jax.cfg", tmp_path / "torch.cfg"
+    assert jcli.main(["-c", str(a)]) == 0
+    assert tcli.main(["-c", str(b)], device="cpu") == 0
+    assert b.read_text() == a.read_text()
+    assert "highpassfreq: 1000.0Hz" in b.read_text()
+    assert tcli.main(["-c", str(tmp_path / "bad.txt")], device="cpu") == 1
+
+
+def test_config_tolerates_bad_values(tmp_path, capsys):
+    cfg = tcli.default_config()
+    want = cfg.value("minduration")
+    bad = tmp_path / "songdetector.cfg"
+    bad.write_text("minduration: abc\n"
+                   "highpassfreq:\n"
+                   "lowpassfreq: 9000Hz # inline comment\n")
+    cfg.load(bad)
+    err = capsys.readouterr().err
+    assert "minduration" in err and "highpassfreq" in err
+    assert cfg.value("minduration") == want
+    assert cfg.value("lowpassfreq") == 9000.0
+    # the cascade: the deepest directory wins
+    d = tmp_path / "a" / "b"
+    d.mkdir(parents=True)
+    (tmp_path / "a" / "x.cfg").write_text("minduration: 0.3s\n")
+    (d / "x.cfg").write_text("minduration: 0.2s\n")
+    cfg = tcli.default_config()
+    cfg.load_files("x.cfg", d / "data.wav", 3)
+    assert cfg.value("minduration") == 0.2
+
+
+@pytest.mark.parametrize("kind", ["float", "flac", "missing"])
+def test_unreadable_input_names_the_loader(tmp_path, capsys, kind):
+    path = tmp_path / "rec.wav"
+    if kind == "float":
+        jwav.write_audio(path, _recording(nsongs=1), RATE, encoding="FLOAT")
+    elif kind == "flac":
+        path = tmp_path / "rec.flac"
+        path.write_bytes(b"fLaC" + bytes(60))
+    assert tcli.main([str(path)], device="cpu") == 1
+    err = capsys.readouterr().err
+    assert err.startswith("error: ") and str(path) in err
+    if kind != "missing":
+        assert "AudioLoader" in err
+
+
+@pytest.mark.parametrize("args", [["-j", "2"], ["--mesh", "4"], ["-p"],
+                                  ["--plot-png", "x.png"]])
+def test_unported_options_stop_with_a_message(tmp_path, capsys, args):
+    path = tmp_path / "rec.wav"
+    jwav.write_audio(path, _recording(nsongs=1), RATE, encoding="PCM_16")
+    with pytest.raises(SystemExit) as e:
+        tcli.main([*args, str(path)], device="cpu")
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "not ported to audian_torch yet" in err and "ROADMAP" in err
