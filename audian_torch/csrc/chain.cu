@@ -1,6 +1,6 @@
-// Single-pass fused chain on CUDA cores (sm_90a): int16 or float32 PCM ->
-// causal FIR band-pass -> pi/2-rectified symmetric envelope -> Hann PSD
-// at hop 128, with per-tile chunk statistics.
+// Single-pass fused chain on Hopper's tensor cores (sm_90a, 3xTF32):
+// int16 or float32 PCM -> causal FIR band-pass -> pi/2-rectified symmetric
+// envelope -> Hann PSD at hop 128, with per-tile chunk statistics.
 //
 // Replaces audian_tpu/ops/pallas/chain.py:_chain_kernel (via _chain_call).
 // In chunk coordinates, with x = x_ext dequantized (k / 2^15 for int16):
@@ -9,36 +9,95 @@
 //   e[c, j] = max(0, sum_{k<L} g[k] (pi/2)|y[c, j + delay - k]|)   j in [0, n)
 //   psd[f, c, b] = |sum_{k<nfft} y[c, 128 f + k] ws[k, .]|^2        f < n / 128
 //
-// ws is the lane-packed analysis matrix of the host setup (window, density
-// scale and one-sided doubling folded in): columns [0, half] hold the real
-// parts of bins 0..half, columns (half, nfft) the imaginary parts of bins
-// 1..half-1.
+// ws here is the host's pair-interleaved analysis matrix (ChainKernel
+// .ws_pairs): column 2b holds the real part of bin b and column 2b+1 its
+// imaginary part for 0 < b < nfft/2; columns 0 and 1 hold the real parts of
+// bin 0 and of the Nyquist bin (whose imaginary parts are zero).
 //
 // What bounds it on the H100: arithmetic.  A sample of one channel costs
-// Tf + L + 2 nfft multiply-adds (about 1.8 k at the headline design)
-// against about 14 bytes of device-memory traffic, some 255 FLOP per byte.
-// So the design reads x once (plus its halo), keeps the filtered stream of
-// a tile in shared memory for the envelope and the PSD, convolves with the
-// true taps (not the TPU kernel's zero-padded 128-row banks), and writes
-// only the requested outputs and one stat partial per tile.  Tile sums are
-// reduced in a fixed order in shared memory (no atomics: the results are
-// deterministic), and the partials are summed by the caller.  Plain fp32
-// FMA on CUDA cores; the products run from shared memory with 8 outputs
-// per thread sharing each tap load, summed in blocks of 128 taps.
+// Tf + L + 2 nfft true multiply-adds (about 1.8 k at the headline design)
+// against about 14 bytes of device-memory traffic.  The fp32 FMA form of
+// this kernel needed one shared-memory load per multiply-add, and an SM
+// loads a quarter as fast as it multiplies: it stopped near a quarter of
+// the fp32 peak.  Here every product runs on the tensor cores as three
+// TF32 passes (tf32x3.cuh), which keeps the fp32 precision of the sums,
+// and the design keeps the instructions around each MMA few.
+//
+// Design.  A block owns TJ = 2048 output samples of one channel.  It
+// stages its input span in shared memory, runs the filter over the span
+// plus the envelope's look-back and the consumers' look-ahead, keeps the
+// filtered span in shared memory, and runs the envelope and the PSD from
+// it; only the requested outputs and one stat partial per tile leave the
+// block.  Each convolution out[i] = sum_m taps[m] src[i + D - m] runs as
+// Toeplitz-block MMAs, the TPU's _conv at the MMA's own tile size:
+//
+//   out[16 U + n] = sum_v sum_{k<8} A_v[n, k] src[16 U + 8 v + k]
+//   A_v[n, k] = taps[n - k + D - 8 v]        (16 x 8, n < 16)
+//
+// so the B operand (8 x 8: k by eight 16-sample rows U) is a row-offset
+// view of the staged stream and the A operand a Toeplitz slice of the
+// taps, gathered by index from the host's pre-split tap vectors (a few KB,
+// served by L1): no bank is materialised.  The streams a convolution reads
+// (the input span, then the rectified filtered span) are split into TF32
+// hi and lo once, as they are written to shared memory, so one ldmatrix
+// brings a B fragment's four registers.  v runs over the steps whose
+// slices hold a true tap, so the all-zero sub-blocks of the TPU's 128-row
+// banks (ChainKernel.act_f / act_e) never run, and the zero corners of the
+// slices cost 22/T of the work.  Sums run in blocks of 16 steps (128 taps),
+// each block's partial added to the total in fp32 (the rounding then grows
+// with T/128 terms, which keeps a 14511-tap envelope inside 1e-5).  The
+// envelope's steps are shared by two halves of the block, each warp
+// taking four 128-sample tiles, so one tap fragment serves four MMAs; the
+// halves' sums meet in shared memory.  The PSD is a plain 3xTF32 product
+// of the tile's 16 frames (split once into the input's buffer, free by
+// then) with ws_pairs, read from L2; each lane then holds the real and
+// imaginary parts of a bin side by side, so |.|^2 and the per-bin sums
+// finish in registers.  Every warp runs the three passes of its tiles'
+// MMAs pass by pass (tf32x3::mma3_pass), so that consecutive MMAs do not
+// wait on each other.
+//
+// The streams are swizzled in shared memory (XOR of word bits 2-4, within
+// each 32-word line) so that the fragment loads meet no bank conflict: the
+// convolution reads 8 rows 16 words apart, the PSD 8 frames 128 apart.
+// Tile sums are reduced in a fixed order (no atomics: deterministic
+// results, whatever stages are masked), and the partials are summed by
+// the caller.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int TJ = 2048;     // output samples per tile (16 PSD frames)
+using tf32x3::FragA;
+using tf32x3::FragB;
+
+constexpr int TJ = 2048;     // output samples per tile
 constexpr int HOP = 128;     // PSD hop the chain is built for
-constexpr int FTILE = TJ / HOP;
 constexpr int NT = 256;      // threads per block
-constexpr int R = 8;         // outputs per thread sharing one tap load
-constexpr int KB = 128;      // taps per partial sum (see dot_taps)
+constexpr int NWARP = NT / 32;
+constexpr int TPAD = 24;     // zero taps each side of a host tap vector
+constexpr int SLACK = 32;    // zeros past a staged stream
+constexpr int VB = 16;       // 8-tap steps per partial sum (128 taps)
+constexpr int J_ENV = 4;     // envelope tiles a warp (TJ / 128 over half
+                             // the warps)
 constexpr float HALF_PI = 1.57079632679489661923f;
 constexpr float RAW16_SCALE = 1.0f / 32768.0f;
+static_assert(TJ / 128 == J_ENV * NWARP / 2, "envelope tiles a warp");
+static_assert(TJ / HOP == 16, "a tile's PSD frames fill the MMA's 16 rows");
+
+// word of logical index i: the convolution streams (x, then the rectified
+// y; rows 16 apart land in 8 distinct 4-bank groups) and the filtered
+// stream read by the PSD (rows 128 apart)
+__device__ __forceinline__ int sw_conv(int i) {
+  return i ^ (((i >> 4) & 7) << 2);
+}
+__device__ __forceinline__ int sw_psd(int i) {
+  return i ^ (((i >> 7) & 7) << 2);
+}
+
+__host__ __device__ constexpr int round32(int v) { return (v + 31) & ~31; }
 
 struct Geometry {
   int Tf, L, delay, lead, tail, hb, nfft;
@@ -56,50 +115,124 @@ __device__ float block_sum(float v, float* red) {
   return out;
 }
 
-// acc[r] = sum_{m<T} taps[m] src[base[r] - m] for R outputs that share
-// each tap load.  The sum runs in blocks of KB taps, each block's partial
-// added to the total: the fp32 rounding error then grows with T/KB terms
-// instead of T, which keeps long envelope kernels (thousands of taps)
-// inside the 1e-5 contract.
-__device__ __forceinline__ void dot_taps(const float* src, const float* taps,
-                                         int T, const int (&base)[R],
-                                         float (&acc)[R]) {
+// value v split into TF32 parts at logical index i of a split stream
+// [hi | lo], each `words` long, in the sw_conv layout
+__device__ __forceinline__ void put_split(uint32_t* buf, int words, int i,
+                                          float v) {
+  tf32x3::split_tf32(v, buf[sw_conv(i)], buf[words + sw_conv(i)]);
+}
+
+// out[i] = sum_{m<T} taps[m] src[i + D - m] for i < 128 * ntiles, with src
+// split into [hi | lo], each `words` long, in the sw_conv layout; calls
+// epi(i, value) once per output.  The warps form SPLIT groups that share
+// the steps v (in whole blocks of VB); warp w of a group takes J
+// consecutive tiles of 128 outputs (eight 16-sample rows each) at a time.
+// With SPLIT == 2 each warp makes one pass (ntiles == J NWARP / 2) and the
+// second group's sums reach the first through red (128 ntiles floats).  tp
+// holds [hi | lo] of the taps, each T + 2 TPAD long with TPAD zeros in
+// front.  The host geometry keeps D - T >= -1, so v starts at 0 and src is
+// read on [0, 128 ntiles + D + 15).
+template <int J, int SPLIT, class Epi>
+__device__ __forceinline__ void conv_mma(const uint32_t* src, int words,
+                                         const float* __restrict__ tp, int T,
+                                         int D, int ntiles, float* red,
+                                         Epi epi) {
+  constexpr int GW = NWARP / SPLIT;      // warps a group
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int grp = warp / GW;
+  const int g = lane >> 2, t = lane & 3;
+  const int x = D - T - 6;               // 8 v_lo >= x: the slice meets a tap
+  const int v_lo = x > 0 ? (x + 7) / 8 : 0;
+  const int v_hi = (D + 15) / 8;         // the last slice that meets a tap
+  const int per = ((v_hi - v_lo + VB) / VB + SPLIT - 1) / SPLIT * VB;
+  const int v0 = min(v_lo + grp * per, v_hi + 1);
+  const int v1 = min(v0 + per, v_hi + 1);
+  const float* thi = tp + TPAD + D + g - t;
+  const float* tlo = thi + T + 2 * TPAD;
+  // this lane's ldmatrix row: matrices hi b0, hi b1, lo b0, lo b1, each
+  // eight rows 16 samples apart, b1 four samples after b0
+  const int row = 16 * (lane & 7) + 4 * ((lane >> 3) & 1);
+  const uint32_t* part_src = src + (lane >> 4) * words;
+  for (int tile0 = (warp % GW) * J; tile0 < ntiles; tile0 += GW * J) {
+    float acc[J][4];
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-  for (int m0 = 0; m0 < T; m0 += KB) {
-    const int m1 = min(m0 + KB, T);
-    float part[R];
+    for (int j = 0; j < J; ++j)
 #pragma unroll
-    for (int r = 0; r < R; ++r) part[r] = 0.0f;
-    for (int m = m0; m < m1; ++m) {
-      const float t = taps[m];
+      for (int r = 0; r < 4; ++r) acc[j][r] = 0.0f;
+    for (int vb = v0; vb < v1; vb += VB) {
+      const int ve = min(vb + VB, v1);
+      float part[J][4];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        part[r] = fmaf(t, src[base[r] - m], part[r]);
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) part[j][r] = 0.0f;
+      for (int v = vb; v < ve; ++v) {
+        const int o = -8 * v;
+        FragA a;
+        a.hi[0] = __float_as_uint(__ldg(thi + o));
+        a.hi[1] = __float_as_uint(__ldg(thi + o + 8));
+        a.hi[2] = __float_as_uint(__ldg(thi + o - 4));
+        a.hi[3] = __float_as_uint(__ldg(thi + o + 4));
+        a.lo[0] = __float_as_uint(__ldg(tlo + o));
+        a.lo[1] = __float_as_uint(__ldg(tlo + o + 8));
+        a.lo[2] = __float_as_uint(__ldg(tlo + o - 4));
+        a.lo[3] = __float_as_uint(__ldg(tlo + o + 4));
+        FragB b[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          uint32_t r[4];
+          tf32x3::ldsm_x4(
+              r, part_src + sw_conv(128 * min(tile0 + j, ntiles - 1) +
+                                    8 * v + row));
+          b[j] = FragB{{r[0], r[1]}, {r[2], r[3]}};
+        }
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+            if (tile0 + j < ntiles) tf32x3::mma3_pass(p, part[j], a, b[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[j][r] += part[j][r];
+    }
+    if (SPLIT == 2) {
+      // the second group's sums, added to the first's in a fixed order
+      const int i0 = 128 * tile0 + 32 * t + g;
+      if (grp == 1) {
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            red[i0 + 128 * j + 16 * (r & 1) + 8 * (r >> 1)] = acc[j][r];
+      }
+      __syncthreads();
+      if (grp == 1) continue;
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          acc[j][r] += red[i0 + 128 * j + 16 * (r & 1) + 8 * (r >> 1)];
     }
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] += part[r];
+    for (int j = 0; j < J; ++j) {
+      if (tile0 + j < ntiles) {
+        const int i0 = 128 * (tile0 + j) + 32 * t + g;
+        epi(i0, acc[j][0]);
+        epi(i0 + 16, acc[j][1]);
+        epi(i0 + 8, acc[j][2]);
+        epi(i0 + 24, acc[j][3]);
+      }
+    }
   }
 }
 
-// dst[i] = sum_{m<T} taps[m] src[i + off - m] for i < count; each thread
-// owns the outputs i0 + r*NT, r < R.  Reads past count are clamped to a
-// valid slot and never stored.
-__device__ void conv_rows(const float* src, const float* taps, int T,
-                          int off, int count, float* dst) {
-  for (int i0 = threadIdx.x; i0 < count; i0 += R * NT) {
-    float acc[R];
-    int base[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) base[r] = min(i0 + r * NT, count - 1) + off;
-    dot_taps(src, taps, T, base, acc);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (i0 + r * NT < count) dst[i0 + r * NT] = acc[r];
-  }
-}
-
-__global__ void __launch_bounds__(NT)
+// three blocks an SM (the headline tile takes 50 KB of shared memory):
+// at most 85 registers a thread, which cost a few spilled bytes but
+// measured faster than two blocks of 128
+__global__ void __launch_bounds__(NT, 3)
 chain_kernel(const void* __restrict__ xv, int x_i16, long long xlen,
              long long n, int C, Geometry geo,
              const float* __restrict__ h, const float* __restrict__ g,
@@ -109,129 +242,194 @@ chain_kernel(const void* __restrict__ xv, int x_i16, long long xlen,
              float* __restrict__ pp, float* __restrict__ gp,
              float* __restrict__ qp) {
   const int ylen = TJ + geo.lead + geo.tail;
-  const int xlen_tile = ylen + geo.Tf - 1;
-  extern __shared__ float smem[];
-  float* xs = smem;                 // x, then (pi/2)|y| for the envelope
-  float* ys = xs + xlen_tile;       // y over [j0 - lead, j0 + TJ + tail)
-  float* hs = ys + ylen;
-  float* gs = hs + geo.Tf;
-  float* red = gs + geo.L;
+  const int xspan = ylen + geo.Tf - 1;
+  const int xwords = round32(xspan + SLACK);
+  const int rwords = round32(ylen + SLACK);
+  extern __shared__ __align__(16) float smem[];
+  // x, then (pi/2)|y|, each split [hi | lo] (sw_conv layout)
+  uint32_t* xs = reinterpret_cast<uint32_t*>(smem);
+  float* ys = smem + 2 * xwords;    // y over [j0 - lead, j0 + TJ + tail)
+                                    // (sw_psd layout)
+  float* es = ys + ylen;            // the envelope halves' meeting point
+  float* red = es + TJ;
 
   const int tile = blockIdx.x;
   const int ntiles = gridDim.x;
   const int c = blockIdx.y;
   const long long j0 = (long long)tile * TJ;
   const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int nbins = geo.nfft / 2 + 1;
   const int half = nbins - 1;
   const long long nf = n / HOP;
 
-  // stage the taps and the input span (dequantized) in shared memory;
-  // base >= 0 because hb >= lead + Tf - 1 (host geometry)
-  for (int m = tid; m < geo.Tf; m += NT) hs[m] = h[m];
-  if (want_e)
-    for (int k = tid; k < geo.L; k += NT) gs[k] = g[k];
+  // stage the input span (dequantized) and its zero slack; base >= 0
+  // because hb >= lead + Tf - 1 (host geometry)
   const long long base = geo.hb + j0 - geo.lead - (geo.Tf - 1);
   const long long row = (long long)c * xlen;
   if (x_i16) {
     const int16_t* x = static_cast<const int16_t*>(xv) + row;
-    for (int i = tid; i < xlen_tile; i += NT) {
+    for (int i = tid; i < xwords; i += NT) {
       const long long col = base + i;
-      xs[i] = col < xlen ? (float)x[col] * RAW16_SCALE : 0.0f;
+      put_split(xs, xwords, i, i < xspan && col < xlen
+                ? (float)x[col] * RAW16_SCALE : 0.0f);
     }
   } else {
     const float* x = static_cast<const float*>(xv) + row;
-    for (int i = tid; i < xlen_tile; i += NT) {
+    for (int i = tid; i < xwords; i += NT) {
       const long long col = base + i;
-      xs[i] = col < xlen ? x[col] : 0.0f;
+      put_split(xs, xwords, i, i < xspan && col < xlen ? x[col] : 0.0f);
     }
   }
   __syncthreads();
 
-  // stage 1: filtered stream with the envelope's look-back and the
-  // consumers' look-ahead
-  conv_rows(xs, hs, geo.Tf, geo.Tf - 1, ylen, ys);
-  __syncthreads();
-
+  // stage 1: the filtered span, y[j0 - lead + i] = ys[i]
   float psum = 0.0f;
-  if (want_f) {
-    for (int jl = tid; jl < TJ; jl += NT) {
-      const long long j = j0 + jl;
-      if (j < n) {
-        const float v = ys[geo.lead + jl];
-        y[(long long)c * n + j] = v;
-        psum = fmaf(v, v, psum);
-      }
-    }
-  }
-  psum = block_sum(psum, red);
+  const long long yrow = (long long)c * n;
+  conv_mma<4, 1>(xs, xwords, h, geo.Tf, geo.Tf - 1, ylen / 128, nullptr,
+                 [&](int i, float v) {
+                   ys[sw_psd(i)] = v;
+                   const int jl = i - geo.lead;
+                   if (want_f && jl >= 0 && jl < TJ && j0 + jl < n) {
+                     y[yrow + j0 + jl] = v;
+                     psum = fmaf(v, v, psum);
+                   }
+                 });
+  __syncthreads();
 
   // stage 2: rectified zero-phase envelope from the tile's y
   float esum = 0.0f;
   if (want_e) {
-    for (int i = tid; i < ylen; i += NT) xs[i] = HALF_PI * fabsf(ys[i]);
+    for (int i = tid; i < rwords; i += NT)
+      put_split(xs, rwords, i,
+                i < ylen ? HALF_PI * fabsf(ys[sw_psd(i)]) : 0.0f);
     __syncthreads();
-    for (int i0 = tid; i0 < TJ; i0 += R * NT) {
-      float acc[R];
-      int base[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) base[r] = i0 + r * NT + geo.lead + geo.delay;
-      dot_taps(xs, gs, geo.L, base, acc);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const long long j = j0 + i0 + r * NT;
-        if (j < n) {
-          const float v = env_clamp ? fmaxf(acc[r], 0.0f) : acc[r];
-          e[(long long)c * n + j] = v;
-          esum += v;
-        }
-      }
-    }
+    conv_mma<J_ENV, 2>(xs, rwords, g, geo.L, geo.lead + geo.delay,
+                       TJ / 128, es, [&](int i, float v) {
+                         if (j0 + i < n) {
+                           v = env_clamp ? fmaxf(v, 0.0f) : v;
+                           e[yrow + j0 + i] = v;
+                           esum += v;
+                         }
+                       });
   }
-  esum = block_sum(esum, red);
 
-  // stage 3: Hann-DFT PSD frames of this tile; one thread per bin
-  for (int b = tid; b < nbins; b += NT) {
-    float qsum = 0.0f;
-    if (want_s) {
-      float re[FTILE], im[FTILE];
+  // stage 3: the tile's 16 PSD frames times ws_pairs; warp w takes column
+  // tiles 4w .. 4w+3 (bins 16w .. 16w+15) at a time
+  const long long qrow = ((long long)c * ntiles + tile) * nbins;
+  if (want_s) {
+    // the frames' samples split into TF32 parts once, as words of ys from
+    // lead: [hi | lo], each nwords long, in xs (free after stage 2)
+    const int nwords = TJ + geo.nfft - HOP;
+    __syncthreads();
+    for (int i = tid; i < nwords; i += NT)
+      tf32x3::split_tf32(ys[geo.lead + i], xs[i], xs[nwords + i]);
+    __syncthreads();
+    const int gq = lane >> 2, t = lane & 3;
+    const int nct = geo.nfft / 8;
+    // frames gq and gq + 8, taps 8 ks + t (+ 4), as words from lead:
+    // sw_psd keeps the +1024 and, as the tap index has bit 2 clear, turns
+    // + 4 into ^ 4 (lead, a multiple of 128, moves no bit it swizzles)
+    const int yi = geo.lead + 128 * gq + t;
+    for (int nt0 = warp * 4; nt0 < nct; nt0 += NWARP * 4) {
+      float acc[4][4];
 #pragma unroll
-      for (int f = 0; f < FTILE; ++f) re[f] = im[f] = 0.0f;
-      const bool has_im = b >= 1 && b < half;
-      const int ci = has_im ? half + b : b;
-      for (int k = 0; k < geo.nfft; ++k) {
-        const float wr = __ldg(ws + (long long)k * geo.nfft + b);
-        const float wi = has_im ? __ldg(ws + (long long)k * geo.nfft + ci)
-                                : 0.0f;
-        const float* yk = ys + geo.lead + k;
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int f = 0; f < FTILE; ++f) {
-          const float v = yk[f * HOP];
-          re[f] = fmaf(v, wr, re[f]);
-          im[f] = fmaf(v, wi, im[f]);
+        for (int r = 0; r < 4; ++r) acc[j][r] = 0.0f;
+      for (int kb = 0; kb < nct; kb += VB) {
+        float part[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) part[j][r] = 0.0f;
+        for (int ks = kb; ks < kb + VB; ++ks) {
+          const float* wk = ws + (long long)(8 * ks + t) * geo.nfft + gq;
+          FragB fb[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int nt = min(nt0 + j, nct - 1);
+            fb[j] = tf32x3::split_b(__ldg(wk + 8 * nt),
+                                    __ldg(wk + 4 * geo.nfft + 8 * nt));
+          }
+          const int p = sw_psd(yi + 8 * ks) - geo.lead;
+          FragA fa;
+          fa.hi[0] = xs[p];
+          fa.hi[1] = xs[p + 1024];
+          fa.hi[2] = xs[p ^ 4];
+          fa.hi[3] = xs[(p ^ 4) + 1024];
+          fa.lo[0] = xs[nwords + p];
+          fa.lo[1] = xs[nwords + p + 1024];
+          fa.lo[2] = xs[nwords + (p ^ 4)];
+          fa.lo[3] = xs[nwords + (p ^ 4) + 1024];
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (nt0 + j < nct) tf32x3::mma3_pass(pass, part[j], fa, fb[j]);
         }
-      }
 #pragma unroll
-      for (int f = 0; f < FTILE; ++f) {
-        const long long fr = j0 / HOP + f;
-        if (fr < nf) {
-          const float p = re[f] * re[f] + im[f] * im[f];
-          s[(fr * C + c) * nbins + b] = p;
-          qsum += p;
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[j][r] += part[j][r];
+      }
+      // lane (g, t) holds frames g and g+8 of the pair 4 nt + t: real part
+      // in d0/d2, imaginary part in d1/d3 (pair 0: bin 0 and Nyquist)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int slot = 4 * (nt0 + j) + t;
+        if (nt0 + j >= nct) continue;
+        float qa = 0.0f, qb = 0.0f;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float re = acc[j][2 * hf], im = acc[j][2 * hf + 1];
+          const long long fr = j0 / HOP + gq + 8 * hf;
+          if (fr >= nf) continue;
+          float* srow = s + (fr * C + c) * nbins;
+          if (slot == 0) {
+            const float p0 = re * re, p1 = im * im;
+            srow[0] = p0;
+            srow[half] = p1;
+            qa += p0;
+            qb += p1;
+          } else {
+            const float p = re * re + im * im;
+            srow[slot] = p;
+            qa += p;
+          }
+        }
+        // sum over the eight lanes of this pair (g = 0..7), fixed order
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          qa += __shfl_xor_sync(0xffffffffu, qa, m);
+          qb += __shfl_xor_sync(0xffffffffu, qb, m);
+        }
+        if (gq == 0) {
+          qp[qrow + slot] = qa;
+          if (slot == 0) qp[qrow + half] = qb;
         }
       }
     }
-    qp[((long long)c * ntiles + tile) * nbins + b] = qsum;
+  } else {
+    for (int b = tid; b < nbins; b += NT) qp[qrow + b] = 0.0f;
   }
+
+  psum = block_sum(psum, red);
+  esum = block_sum(esum, red);
   if (tid == 0) {
     pp[(long long)c * ntiles + tile] = psum;
     gp[(long long)c * ntiles + tile] = esum;
   }
 }
 
+// the split input span (which the split rectified span, never longer,
+// reuses), the filtered span, the envelope halves' meeting point and the
+// reduction buffer
 long long smem_bytes(int Tf, int L, int lead, int tail) {
-  const long long ylen = TJ + lead + tail;
-  return (2 * ylen + Tf - 1 + Tf + L + NT) * (long long)sizeof(float);
+  (void)L;
+  const int ylen = TJ + lead + tail;
+  return (long long)(2 * round32(ylen + Tf - 1 + SLACK) + ylen + TJ + NT) *
+         (long long)sizeof(float);
 }
 
 }  // namespace
@@ -244,10 +442,15 @@ const char* audian_cuda_error_string(int code) {
 
 int chain_tile() { return TJ; }
 
+int chain_tap_pad() { return TPAD; }
+
 long long chain_smem_bytes(int Tf, int L, int lead, int tail) {
   return smem_bytes(Tf, L, lead, tail);
 }
 
+// h and g point at the host's split tap vectors [hi | lo], each half
+// T + 2 TPAD long with TPAD zeros in front (ChainKernel.h_split / g_split);
+// ws at the pair-interleaved analysis matrix (ChainKernel.ws_pairs)
 int chain_launch(const void* x, int x_i16, long long xlen, int C,
                  long long n, const float* h, int Tf, const float* g, int L,
                  int delay, int lead, int tail, int hb, const float* ws,

@@ -1,11 +1,12 @@
 """Build the CUDA kernels from ``audian_torch/csrc/*.cu`` and load them.
 
 ``nvcc`` compiles each source for ``sm_90a`` (one process a source, all
-started together) and links the objects into one shared library with a
-plain C interface, at first use, into
-``build/audian_torch/<source-hash>/libaudian_torch_kernels.so`` beside the
-package.  The hash covers the sources and the flags, so an edit rebuilds
-and an unchanged tree reuses the library.  The library is loaded with
+started together, with ``csrc/`` on the include path) and links the
+objects into one shared library with a plain C interface, at first use,
+into ``build/audian_torch/<source-hash>/libaudian_torch_kernels.so`` beside
+the package.  The hash covers the sources, the shared headers
+(``csrc/*.cuh``) and the flags, so an edit to any of them rebuilds and an
+unchanged tree reuses the library.  The library is loaded with
 ctypes; nothing here runs at import time.
 """
 
@@ -38,14 +39,14 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "audian_cuda_error_string": ([_I], ctypes.c_char_p),
     "chain_tile": ([], _I),
+    "chain_tap_pad": ([], _I),
     "chain_smem_bytes": ([_I, _I, _I, _I], _LL),
     "chain_launch": ([_P, _I, _LL, _I, _LL, _P, _I, _P, _I, _I, _I, _I, _I,
                       _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
                      _I),
-    "window_matmul_frames_per_block": ([_I, _I], _I),
-    "window_matmul_smem_bytes": ([_I, _I], _LL),
-    "window_matmul_launch": ([_P, _I, _LL, _I, _P, _I, _I, _I, _I, _I, _I,
-                              _P, _P], _I),
+    "window_matmul_scratch_words": ([_I, _I], _LL),
+    "window_matmul_launch": ([_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                              _P, _P, _P], _I),
     "envdet_smem_bytes": ([_I, _I, _I, _I], _LL),
     "envdet_launch": ([_P, _I, _LL, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I,
                        _I, _P, _P], _I),
@@ -60,9 +61,10 @@ def _sources():
 
 
 def build_dir():
-    """The directory of the library for the current sources and flags."""
+    """The directory of the library for the current sources, headers and
+    flags."""
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return _PKG.parent / "build" / "audian_torch" / digest.hexdigest()[:16]
@@ -99,7 +101,8 @@ def _build(out):
     tmp = out.with_name(f"{out.name}.{tag}")
     log = []
     try:
-        _run([[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+        _run([[nvcc, *_FLAGS, "-I", str(_CSRC), "-c", "-o", str(obj),
+               str(src)]
               for src, obj in zip(_sources(), objs)], log)
         _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]], log)
         os.replace(tmp, out)

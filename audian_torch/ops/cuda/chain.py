@@ -6,8 +6,11 @@
 (``hb``, ``ha``, ``lead``, ``tail``, ``offe``), the lane-packed analysis
 matrix ``ws``, and the TPU kernel's generalized Toeplitz banks with their
 sub-block classification (``wf``/``we``, ``act_f``/``act_e``).  The CUDA
-kernel (``csrc/chain.cu``) convolves with the true taps and reads ``ws``;
-the banks are kept for a tensor-core form of the kernel.
+kernel (``csrc/chain.cu``) runs each convolution as Toeplitz-block
+products on the tensor cores (3xTF32), gathering the blocks from the
+taps split on the host (``h_split``/``g_split``, :func:`split_tf32`); its
+steps cover exactly the true taps, which are the rows of the active
+sub-blocks.  The PSD reads the pair-interleaved ``ws_pairs``.
 
 :func:`chain` launches the kernel on a CUDA tensor and runs the plain
 PyTorch version :func:`chain_plain` on a CPU tensor; any other device
@@ -27,7 +30,8 @@ from ..sos import _fir_valid_cf, full_fp32
 from ..stft import frame_signal
 from ._build import SMEM_LIMIT, check, load_library
 
-__all__ = ["ALL_OUTPUTS", "ChainKernel", "chain", "chain_plain"]
+__all__ = ["ALL_OUTPUTS", "ChainKernel", "chain", "chain_plain",
+           "split_tf32"]
 
 #: the full output set (and the default ``outputs`` mask)
 ALL_OUTPUTS = ("filtered", "envelope", "spectrogram")
@@ -36,6 +40,43 @@ ALL_OUTPUTS = ("filtered", "envelope", "spectrogram")
 TILE = 2048
 #: threads per kernel block (``NT`` in csrc/chain.cu)
 _THREADS = 256
+#: zero taps each side of a split tap vector (``TPAD`` in csrc/chain.cu)
+TAP_PAD = 24
+#: zeros past a staged stream (``SLACK`` in csrc/chain.cu)
+_SLACK = 32
+
+
+def split_tf32(a):
+    """``(hi, lo)`` float32 arrays with ``a = hi + lo`` up to 2^-22 of |a|:
+    each part rounded to TF32 (10 explicit mantissa bits, to nearest, ties
+    away from zero), as ``cvt.rna.tf32.f32`` rounds it."""
+    a = np.ascontiguousarray(a, np.float32)
+
+    def rna(v):
+        u = v.view(np.uint32)
+        return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+            np.float32)
+
+    hi = rna(a)
+    return hi, rna(a - hi)
+
+
+def _split_taps(taps):
+    """The kernel's tap operand: ``[hi | lo]``, each ``T + 2 TAP_PAD`` long
+    with :data:`TAP_PAD` zeros on either side."""
+    hi, lo = split_tf32(taps)
+    return np.concatenate([np.pad(p, TAP_PAD) for p in (hi, lo)])
+
+
+def _pair_columns(ws):
+    """The lane-packed analysis matrix with each bin's real and imaginary
+    columns side by side: ``[re 0, re Nyquist, re 1, im 1, re 2, im 2,
+    ...]`` (the kernel's PSD then squares and sums a bin in registers)."""
+    half = ws.shape[1] // 2
+    order = [0, half]
+    for b in range(1, half):
+        order += [b, half + b]
+    return ws[:, order]
 
 
 def _shift_bank(h, D, off, block=128):
@@ -89,10 +130,13 @@ def geometry(Tf, L, delay, nfft):
 
 def smem_bytes(Tf, L, lead, tail):
     """Shared memory of one chain block (``smem_bytes`` in csrc/chain.cu):
-    the input span, the filtered span, both tap vectors and the reduction
-    buffer."""
+    the input span with its slack split into TF32 hi and lo (the split
+    rectified span reuses it), the filtered span, the envelope halves'
+    meeting point and the reduction buffer; the taps are read through L1,
+    so ``L`` does not count."""
     ylen = TILE + lead + tail
-    return 4 * (2 * ylen + Tf - 1 + Tf + L + _THREADS)
+    return 4 * (2 * round_up(ylen + Tf - 1 + _SLACK, 32) + ylen + TILE
+                + _THREADS)
 
 
 def fits(Tf, L, delay, nfft):
@@ -162,6 +206,9 @@ class ChainKernel:
         self.g = dev(g_env)
         self.ws = dev(ws)
         self.spec_w = dev(spec_w)
+        self.h_split = dev(_split_taps(h_filt))
+        self.g_split = dev(_split_taps(g_env))
+        self.ws_pairs = dev(_pair_columns(ws))
 
     def __call__(self, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
         """Run the chain over ``x_ext = [hb | n | ha...]``.
@@ -273,8 +320,8 @@ def chain(ck, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
     lib = load_library()
     code = lib.chain_launch(
         x_ext.data_ptr(), int(x_ext.dtype == torch.int16), xlen, C, n,
-        ck.h.data_ptr(), len(ck.h), ck.g.data_ptr(), len(ck.g), ck.delay,
-        ck.lead, ck.tail, ck.hb, ck.ws.data_ptr(), ck.nfft,
+        ck.h_split.data_ptr(), len(ck.h), ck.g_split.data_ptr(), len(ck.g),
+        ck.delay, ck.lead, ck.tail, ck.hb, ck.ws_pairs.data_ptr(), ck.nfft,
         int(ck.env_clamp), int(want_f), int(want_e), int(want_s),
         0 if y is None else y.data_ptr(), 0 if e is None else e.data_ptr(),
         0 if s is None else s.data_ptr(), pp.data_ptr(), gp.data_ptr(),

@@ -4,7 +4,10 @@ The wrapper :func:`window_matmul` launches the CUDA kernel
 (``csrc/window_matmul.cu``, the port of
 ``audian_tpu/ops/pallas/window_matmul.py:_kernel``) on a CUDA tensor and
 runs the plain PyTorch version :func:`window_matmul_plain` on a CPU
-tensor; any other device raises.  It serves the per-stage form of the
+tensor; any other device raises.  The kernel is an implicit GEMM on the
+tensor cores (3xTF32) that stages A and w per slice of K, so any K and
+stride fit one block; each call first splits w into its TF32 parts in a
+scratch buffer the wrapper allocates.  It serves the per-stage form of the
 fused chain (the Toeplitz filter and envelope banks and the Hann-DFT
 analysis matrix) and the two stages of the song-detection
 :class:`audian_torch.ops.envdet.EnvDet` (int16 PCM through the
@@ -19,7 +22,7 @@ import torch
 
 from ..raw16 import dequant16
 from ..sos import full_fp32
-from ._build import SMEM_LIMIT, check, load_library
+from ._build import check, load_library
 
 __all__ = ["PREMAPS", "window_matmul", "window_matmul_plain"]
 
@@ -109,14 +112,19 @@ def window_matmul(x, w, stride, nframes, premap=None, out_layout="fco"):
                     device=x.device)
     if nframes == 0 or C == 0 or O == 0:
         return y.reshape(C, nframes * O) if out_layout == "cf" else y
+    if (nframes + 64) * S + K >= 2**31 or n >= 2**31:
+        raise ValueError("window_matmul indexes a channel with 32-bit "
+                         "offsets: (nframes + 64) * stride + K and n must "
+                         "stay below 2^31")
     lib = load_library()
-    if lib.window_matmul_smem_bytes(K, S) > SMEM_LIMIT:
-        raise ValueError(f"window span of K={K}, stride={S} exceeds the "
-                         f"shared memory of one block even at one frame")
+    # w split into its TF32 parts, padded, for this call
+    scratch = torch.empty(lib.window_matmul_scratch_words(K, O),
+                          dtype=torch.int32, device=x.device)
     code = lib.window_matmul_launch(
         x.data_ptr(), int(x.dtype == torch.int16), n, C, w.data_ptr(), K, O,
         S, nframes, PREMAPS.index(premap), _LAYOUTS.index(out_layout),
-        y.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+        y.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
     check(code, "window_matmul")
     window_matmul.launches += 1
     return y.reshape(C, nframes * O) if out_layout == "cf" else y

@@ -50,6 +50,9 @@ for envdet), its largest error, its time and its plain version's, the
 least time the card could take for the same work (``bound_ms``: fp32 at
 67 TFLOP/s or 3.35 TB/s of device memory, whichever is larger) and the
 time of one PyTorch call computing the same function where there is one.
+The two tensor-core kernels (chain, window_matmul) also carry
+``bound_tc_ms``: the same true-tap operations in three TF32 passes at
+495 TFLOP/s, or the bytes at 3.35 TB/s, whichever is larger.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -59,6 +62,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -79,6 +83,9 @@ SEED = 0
 # outside the tensor cores, HBM3)
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# dense TF32 on the tensor cores; the 3xTF32 kernels take three passes
+PEAK_TF32 = 495e12
+TF32_PASSES = 3
 # the song detector's default design (cli/songdetector.py) at 96 kHz
 DETECT_BAND = (1000.0, 10000.0)
 DETECT_ENV = 500.0
@@ -137,11 +144,37 @@ def max_abs(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-def bound(flop, nbytes):
-    """``(least ms, what bounds it)`` for ``flop`` fp32 operations that
-    read and write ``nbytes`` of device memory."""
-    t_op, t_mem = 1e3 * flop / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES
+def bound(flop, nbytes, peak=PEAK_FLOPS):
+    """``(least ms, what bounds it)`` for ``flop`` operations at ``peak``
+    (fp32 by default) that read and write ``nbytes`` of device memory."""
+    t_op, t_mem = 1e3 * flop / peak, 1e3 * nbytes / PEAK_BYTES
     return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+
+def bound_tc(flop, nbytes):
+    """The least ms of the same true-tap work in three TF32 passes on the
+    tensor cores."""
+    return bound(TF32_PASSES * flop, nbytes, PEAK_TF32)[0]
+
+
+def kernel_resources(report):
+    """``ptxas -v``'s register and spill lines, each labelled with its
+    kernel (and template argument: window_matmul's block columns)."""
+    out, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            mangled = m.group(1)
+            name = next((k for k in ("chain_kernel", "window_matmul_kernel",
+                                     "split_w_kernel", "envdet_kernel")
+                         if k in mangled), mangled[:40])
+            arg = re.search(r"ILi(\d+)E", mangled)
+            if arg:
+                name += f"<{arg.group(1)}>"
+        elif name and ("registers" in line or "spill" in line):
+            out.append(f"{name}: {line.strip()}")
+    return out
 
 
 def chain_work(ck, x_ext, n):
@@ -303,7 +336,8 @@ def main():
     from audian_torch.data.wavio import read_frames_raw16, wav_info
     from audian_torch.models import get_preset
     from audian_torch.ops.cuda import _build
-    from audian_torch.ops.cuda.chain import ALL_OUTPUTS, chain, chain_plain
+    from audian_torch.ops.cuda.chain import (ALL_OUTPUTS, TAP_PAD, chain,
+                                             chain_plain)
     from audian_torch.ops.cuda.envdet import (EnvDetKernel, envdet,
                                               envdet_plain)
     from audian_torch.ops.cuda.envdet import smem_bytes as envdet_smem_bytes
@@ -321,9 +355,8 @@ def main():
     lib = _build.load_library()
     print(f"phase 1: built {_build.build_dir()} in "
           f"{time.perf_counter() - t0:.2f} s")
-    for line in _build.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    for line in kernel_resources(_build.ptxas_report()):
+        print("  " + line)
 
     # -- phase 2: window_matmul ----------------------------------------------
     print("phase 2: window_matmul kernel vs plain at 16 ch x 2^20")
@@ -371,6 +404,7 @@ def main():
     require(lib.chain_smem_bytes(len(ck.h), len(ck.g), ck.lead, ck.tail)
             == ck.smem_bytes, "shared-memory formula agrees")
     require(lib.chain_tile() == 2048, "chain tile")
+    require(lib.chain_tap_pad() == TAP_PAD, "chain tap padding")
     q = int16_chunk(gen, (C, ck.hb + CHUNK + ck.ha), dev)
     chain_err, got_q = check_chain(ck, q, CHUNK, "headline int16")
     got_f = chain(ck, dequant16(q), CHUNK, stats=True)
@@ -566,9 +600,10 @@ def main():
     ch_ms = median_ms(lambda: chain(ck, q, CHUNK, stats=True))
     ch_plain_ms = median_ms(lambda: chain_plain(ck, q, CHUNK, stats=True))
     ch_bound = bound(*chain_work(ck, q, CHUNK))
+    ch_bound_tc = bound_tc(*chain_work(ck, q, CHUNK))
     print(f"  chain headline chunk 16 x 2^22 int16: kernel {ch_ms:.4f} ms  "
           f"plain {ch_plain_ms:.4f} ms  bound {ch_bound[0]:.4f} ms "
-          f"({ch_bound[1]})  [{card}]")
+          f"({ch_bound[1]})  bound_tc {ch_bound_tc:.4f} ms  [{card}]")
     # one stage requested at a time (the filter always runs): splits the
     # kernel's time by phase
     for outputs in (("filtered",), ("envelope",), ("spectrogram",)):
@@ -643,8 +678,7 @@ def main():
         wscale = float(want.abs().max())
         require(err <= TOL_WINDOW * wscale, f"window_matmul {label} {err}")
         print(f"  window_matmul {label}: K={w.shape[0]} S={S} frames={nfr} "
-              f"({lib.window_matmul_frames_per_block(w.shape[0], S)} a "
-              f"block) max_abs_err {err:.3e} (scale {wscale:.3e})")
+              f"max_abs_err {err:.3e} (scale {wscale:.3e})")
         return err, want
 
     e_bp, caus = check_stage("EnvDet band-pass, dequant", xp, two.w_bp, 128,
@@ -780,19 +814,25 @@ def main():
           f"{hour_det_plain_ms / 1e3:.4f} s  [{card}]")
 
     wm_bound = bound(wm_flop, wm_bytes)
+    wm_bound_tc = bound_tc(wm_flop, wm_bytes)
+    print(f"  window_matmul, three bioacoustics stages: kernel {wm_ms:.4f} ms"
+          f"  unfold+matmul {wm_lib_ms:.4f} ms  bound {wm_bound[0]:.4f} ms  "
+          f"bound_tc {wm_bound_tc:.4f} ms  [{card}]")
     kernels = [
         {"name": "chain", "route": "cuda",
          "source": "audian_torch/csrc/chain.cu",
          "replaces": "audian_tpu/ops/pallas/chain.py:151",
          "launches": launches["chain"], "max_abs_err": chain_err,
          "ms": ch_ms, "plain_ms": ch_plain_ms, "bound_ms": ch_bound[0],
-         "bound_by": ch_bound[1], "library_ms": None},
+         "bound_by": ch_bound[1], "bound_tc_ms": ch_bound_tc,
+         "library_ms": None},
         {"name": "window_matmul", "route": "cuda",
          "source": "audian_torch/csrc/window_matmul.cu",
          "replaces": "audian_tpu/ops/pallas/window_matmul.py:41",
          "launches": launches["window_matmul"], "max_abs_err": wm_err,
          "ms": wm_ms, "plain_ms": wm_plain_ms, "bound_ms": wm_bound[0],
-         "bound_by": wm_bound[1], "library_ms": wm_lib_ms},
+         "bound_by": wm_bound[1], "bound_tc_ms": wm_bound_tc,
+         "library_ms": wm_lib_ms},
         {"name": "envdet", "route": "cuda",
          "source": "audian_torch/csrc/envdet.cu",
          "replaces": "audian_tpu/ops/pallas/envdet.py:64",
