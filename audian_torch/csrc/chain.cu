@@ -28,29 +28,19 @@
 // plus the envelope's look-back and the consumers' look-ahead, keeps the
 // filtered span in shared memory, and runs the envelope and the PSD from
 // it; only the requested outputs and one stat partial per tile leave the
-// block.  Each convolution out[i] = sum_m taps[m] src[i + D - m] runs as
-// Toeplitz-block MMAs, the TPU's _conv at the MMA's own tile size:
-//
-//   out[16 U + n] = sum_v sum_{k<8} A_v[n, k] src[16 U + 8 v + k]
-//   A_v[n, k] = taps[n - k + D - 8 v]        (16 x 8, n < 16)
-//
-// so the B operand (8 x 8: k by eight 16-sample rows U) is a row-offset
-// view of the staged stream and the A operand a Toeplitz slice of the
-// taps, gathered by index from the host's pre-split tap vectors (a few KB,
-// served by L1): no bank is materialised.  The streams a convolution reads
-// (the input span, then the rectified filtered span) are split into TF32
-// hi and lo once, as they are written to shared memory, so one ldmatrix
-// brings a B fragment's four registers.  v runs over the steps whose
-// slices hold a true tap, so the all-zero sub-blocks of the TPU's 128-row
-// banks (ChainKernel.act_f / act_e) never run, and the zero corners of the
-// slices cost 22/T of the work.  Sums run in blocks of 16 steps (128 taps),
-// each block's partial added to the total in fp32 (the rounding then grows
-// with T/128 terms, which keeps a 14511-tap envelope inside 1e-5).  The
-// envelope's steps are shared by two halves of the block, each warp
-// taking four 128-sample tiles, so one tap fragment serves four MMAs; the
-// halves' sums meet in shared memory.  The PSD is a plain 3xTF32 product
-// of the tile's 16 frames (split once into the input's buffer, free by
-// then) with ws_pairs, read from L2; each lane then holds the real and
+// block.  Each convolution runs as Toeplitz-block MMAs, the TPU's _conv
+// at the MMA's own tile size (toeplitz_mma.cuh: conv_mma), over a stream
+// split into TF32 hi and lo once, as it is written to shared memory (the
+// input span, then the rectified filtered span).  The steps cover the
+// true taps, so the all-zero sub-blocks of the TPU's 128-row banks
+// (ChainKernel.act_f / act_e) never run, and the zero corners of the
+// slices cost 22/T of the work.  Sums run in blocks of 16 steps (128
+// taps), which keeps a 14511-tap envelope inside 1e-5.  The envelope's
+// steps are shared by two halves of the block, each warp taking four
+// 128-sample tiles, so one tap fragment serves four MMAs; the halves'
+// sums meet in shared memory.  The PSD is a plain 3xTF32 product of the
+// tile's 16 frames (split once into the input's buffer, free by then)
+// with ws_pairs, read from L2; each lane then holds the real and
 // imaginary parts of a bin side by side, so |.|^2 and the per-bin sums
 // finish in registers.  Every warp runs the three passes of its tiles'
 // MMAs pass by pass (tf32x3::mma3_pass), so that consecutive MMAs do not
@@ -58,7 +48,8 @@
 //
 // The streams are swizzled in shared memory (XOR of word bits 2-4, within
 // each 32-word line) so that the fragment loads meet no bank conflict: the
-// convolution reads 8 rows 16 words apart, the PSD 8 frames 128 apart.
+// convolution reads 8 rows 16 words apart (toeplitz::sw_conv), the PSD 8
+// frames 128 apart (sw_psd).
 // Tile sums are reduced in a fixed order (no atomics: deterministic
 // results, whatever stages are masked), and the partials are summed by
 // the caller.
@@ -67,19 +58,23 @@
 #include <stdint.h>
 
 #include "tf32x3.cuh"
+#include "toeplitz_mma.cuh"
 
 namespace {
 
 using tf32x3::FragA;
 using tf32x3::FragB;
+using toeplitz::conv_mma;
+using toeplitz::put_split;
+using toeplitz::round32;
+using toeplitz::SLACK;
+using toeplitz::TPAD;
+using toeplitz::VB;
 
 constexpr int TJ = 2048;     // output samples per tile
 constexpr int HOP = 128;     // PSD hop the chain is built for
 constexpr int NT = 256;      // threads per block
 constexpr int NWARP = NT / 32;
-constexpr int TPAD = 24;     // zero taps each side of a host tap vector
-constexpr int SLACK = 32;    // zeros past a staged stream
-constexpr int VB = 16;       // 8-tap steps per partial sum (128 taps)
 constexpr int J_ENV = 4;     // envelope tiles a warp (TJ / 128 over half
                              // the warps)
 constexpr float HALF_PI = 1.57079632679489661923f;
@@ -87,17 +82,11 @@ constexpr float RAW16_SCALE = 1.0f / 32768.0f;
 static_assert(TJ / 128 == J_ENV * NWARP / 2, "envelope tiles a warp");
 static_assert(TJ / HOP == 16, "a tile's PSD frames fill the MMA's 16 rows");
 
-// word of logical index i: the convolution streams (x, then the rectified
-// y; rows 16 apart land in 8 distinct 4-bank groups) and the filtered
-// stream read by the PSD (rows 128 apart)
-__device__ __forceinline__ int sw_conv(int i) {
-  return i ^ (((i >> 4) & 7) << 2);
-}
+// word of logical index i of the filtered stream read by the PSD (rows
+// 128 apart; the convolution streams use toeplitz::sw_conv)
 __device__ __forceinline__ int sw_psd(int i) {
   return i ^ (((i >> 7) & 7) << 2);
 }
-
-__host__ __device__ constexpr int round32(int v) { return (v + 31) & ~31; }
 
 struct Geometry {
   int Tf, L, delay, lead, tail, hb, nfft;
@@ -113,120 +102,6 @@ __device__ float block_sum(float v, float* red) {
   float out = red[0];
   __syncthreads();
   return out;
-}
-
-// value v split into TF32 parts at logical index i of a split stream
-// [hi | lo], each `words` long, in the sw_conv layout
-__device__ __forceinline__ void put_split(uint32_t* buf, int words, int i,
-                                          float v) {
-  tf32x3::split_tf32(v, buf[sw_conv(i)], buf[words + sw_conv(i)]);
-}
-
-// out[i] = sum_{m<T} taps[m] src[i + D - m] for i < 128 * ntiles, with src
-// split into [hi | lo], each `words` long, in the sw_conv layout; calls
-// epi(i, value) once per output.  The warps form SPLIT groups that share
-// the steps v (in whole blocks of VB); warp w of a group takes J
-// consecutive tiles of 128 outputs (eight 16-sample rows each) at a time.
-// With SPLIT == 2 each warp makes one pass (ntiles == J NWARP / 2) and the
-// second group's sums reach the first through red (128 ntiles floats).  tp
-// holds [hi | lo] of the taps, each T + 2 TPAD long with TPAD zeros in
-// front.  The host geometry keeps D - T >= -1, so v starts at 0 and src is
-// read on [0, 128 ntiles + D + 15).
-template <int J, int SPLIT, class Epi>
-__device__ __forceinline__ void conv_mma(const uint32_t* src, int words,
-                                         const float* __restrict__ tp, int T,
-                                         int D, int ntiles, float* red,
-                                         Epi epi) {
-  constexpr int GW = NWARP / SPLIT;      // warps a group
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int grp = warp / GW;
-  const int g = lane >> 2, t = lane & 3;
-  const int x = D - T - 6;               // 8 v_lo >= x: the slice meets a tap
-  const int v_lo = x > 0 ? (x + 7) / 8 : 0;
-  const int v_hi = (D + 15) / 8;         // the last slice that meets a tap
-  const int per = ((v_hi - v_lo + VB) / VB + SPLIT - 1) / SPLIT * VB;
-  const int v0 = min(v_lo + grp * per, v_hi + 1);
-  const int v1 = min(v0 + per, v_hi + 1);
-  const float* thi = tp + TPAD + D + g - t;
-  const float* tlo = thi + T + 2 * TPAD;
-  // this lane's ldmatrix row: matrices hi b0, hi b1, lo b0, lo b1, each
-  // eight rows 16 samples apart, b1 four samples after b0
-  const int row = 16 * (lane & 7) + 4 * ((lane >> 3) & 1);
-  const uint32_t* part_src = src + (lane >> 4) * words;
-  for (int tile0 = (warp % GW) * J; tile0 < ntiles; tile0 += GW * J) {
-    float acc[J][4];
-#pragma unroll
-    for (int j = 0; j < J; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[j][r] = 0.0f;
-    for (int vb = v0; vb < v1; vb += VB) {
-      const int ve = min(vb + VB, v1);
-      float part[J][4];
-#pragma unroll
-      for (int j = 0; j < J; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) part[j][r] = 0.0f;
-      for (int v = vb; v < ve; ++v) {
-        const int o = -8 * v;
-        FragA a;
-        a.hi[0] = __float_as_uint(__ldg(thi + o));
-        a.hi[1] = __float_as_uint(__ldg(thi + o + 8));
-        a.hi[2] = __float_as_uint(__ldg(thi + o - 4));
-        a.hi[3] = __float_as_uint(__ldg(thi + o + 4));
-        a.lo[0] = __float_as_uint(__ldg(tlo + o));
-        a.lo[1] = __float_as_uint(__ldg(tlo + o + 8));
-        a.lo[2] = __float_as_uint(__ldg(tlo + o - 4));
-        a.lo[3] = __float_as_uint(__ldg(tlo + o + 4));
-        FragB b[J];
-#pragma unroll
-        for (int j = 0; j < J; ++j) {
-          uint32_t r[4];
-          tf32x3::ldsm_x4(
-              r, part_src + sw_conv(128 * min(tile0 + j, ntiles - 1) +
-                                    8 * v + row));
-          b[j] = FragB{{r[0], r[1]}, {r[2], r[3]}};
-        }
-#pragma unroll
-        for (int p = 0; p < 3; ++p)
-#pragma unroll
-          for (int j = 0; j < J; ++j)
-            if (tile0 + j < ntiles) tf32x3::mma3_pass(p, part[j], a, b[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < J; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[j][r] += part[j][r];
-    }
-    if (SPLIT == 2) {
-      // the second group's sums, added to the first's in a fixed order
-      const int i0 = 128 * tile0 + 32 * t + g;
-      if (grp == 1) {
-#pragma unroll
-        for (int j = 0; j < J; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            red[i0 + 128 * j + 16 * (r & 1) + 8 * (r >> 1)] = acc[j][r];
-      }
-      __syncthreads();
-      if (grp == 1) continue;
-#pragma unroll
-      for (int j = 0; j < J; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          acc[j][r] += red[i0 + 128 * j + 16 * (r & 1) + 8 * (r >> 1)];
-    }
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      if (tile0 + j < ntiles) {
-        const int i0 = 128 * (tile0 + j) + 32 * t + g;
-        epi(i0, acc[j][0]);
-        epi(i0 + 16, acc[j][1]);
-        epi(i0 + 8, acc[j][2]);
-        epi(i0 + 24, acc[j][3]);
-      }
-    }
-  }
 }
 
 // three blocks an SM (the headline tile takes 50 KB of shared memory):
@@ -286,15 +161,15 @@ chain_kernel(const void* __restrict__ xv, int x_i16, long long xlen,
   // stage 1: the filtered span, y[j0 - lead + i] = ys[i]
   float psum = 0.0f;
   const long long yrow = (long long)c * n;
-  conv_mma<4, 1>(xs, xwords, h, geo.Tf, geo.Tf - 1, ylen / 128, nullptr,
-                 [&](int i, float v) {
-                   ys[sw_psd(i)] = v;
-                   const int jl = i - geo.lead;
-                   if (want_f && jl >= 0 && jl < TJ && j0 + jl < n) {
-                     y[yrow + j0 + jl] = v;
-                     psum = fmaf(v, v, psum);
-                   }
-                 });
+  conv_mma<NWARP, 4, 1>(xs, xwords, h, geo.Tf, geo.Tf - 1, ylen / 128,
+                        nullptr, [&](int i, float v) {
+                          ys[sw_psd(i)] = v;
+                          const int jl = i - geo.lead;
+                          if (want_f && jl >= 0 && jl < TJ && j0 + jl < n) {
+                            y[yrow + j0 + jl] = v;
+                            psum = fmaf(v, v, psum);
+                          }
+                        });
   __syncthreads();
 
   // stage 2: rectified zero-phase envelope from the tile's y
@@ -304,14 +179,14 @@ chain_kernel(const void* __restrict__ xv, int x_i16, long long xlen,
       put_split(xs, rwords, i,
                 i < ylen ? HALF_PI * fabsf(ys[sw_psd(i)]) : 0.0f);
     __syncthreads();
-    conv_mma<J_ENV, 2>(xs, rwords, g, geo.L, geo.lead + geo.delay,
-                       TJ / 128, es, [&](int i, float v) {
-                         if (j0 + i < n) {
-                           v = env_clamp ? fmaxf(v, 0.0f) : v;
-                           e[yrow + j0 + i] = v;
-                           esum += v;
-                         }
-                       });
+    conv_mma<NWARP, J_ENV, 2>(xs, rwords, g, geo.L, geo.lead + geo.delay,
+                              TJ / 128, es, [&](int i, float v) {
+                                if (j0 + i < n) {
+                                  v = env_clamp ? fmaxf(v, 0.0f) : v;
+                                  e[yrow + j0 + i] = v;
+                                  esum += v;
+                                }
+                              });
   }
 
   // stage 3: the tile's 16 PSD frames times ws_pairs; warp w takes column

@@ -72,17 +72,21 @@ __device__ __forceinline__ void mma3_pass(int p, float (&d)[4],
 }
 
 // Four 8-row x 4-word matrices of pre-split words from shared memory in
-// one instruction: lane l gives the (16-byte aligned) address of row l % 8
-// of matrix l / 8, and r[j] receives word lane % 4 of row lane / 4 of
-// matrix j.  With rows along M and words along K that is an A fragment
-// (matrices: rows 0-7 and 8-15 at k 0-3, then both at k 4-7); with rows
-// along N, the B fragments of two 8-column tiles.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// one instruction: lane l gives the (16-byte aligned) shared-memory
+// address of row l % 8 of matrix l / 8, and r[j] receives word lane % 4
+// of row lane / 4 of matrix j.  With rows along M and words along K that
+// is an A fragment (matrices: rows 0-7 and 8-15 at k 0-3, then both at
+// k 4-7); with rows along N, the B fragments of two 8-column tiles.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
+}
+
+// the same from a generic pointer into shared memory
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  ldsm_x4(r, static_cast<uint32_t>(__cvta_generic_to_shared(p)));
 }
 
 }  // namespace tf32x3

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "window_matmul_scratch_words": ([_I, _I], _LL),
     "window_matmul_launch": ([_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                               _P, _P, _P], _I),
+    "envdet_tile_max": ([], _I),
     "envdet_smem_bytes": ([_I, _I, _I, _I], _LL),
     "envdet_launch": ([_P, _I, _LL, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I,
                        _I, _P, _P], _I),

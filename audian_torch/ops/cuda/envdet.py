@@ -4,13 +4,22 @@ band-pass -> square -> decimating envelope low-pass -> ``2 sqrt(max(e, 0))``.
 :class:`EnvDetKernel` is the port of
 ``audian_tpu/ops/pallas/envdet.py:EnvDetKernel``: the same constructor,
 ``window_need`` and static contract (the window's first output sits at
-exactly ``hb``).  :func:`envdet` launches the CUDA kernel
-(``csrc/envdet.cu``) on a CUDA tensor and runs the plain PyTorch version
-:func:`envdet_plain` on a CPU tensor; any other device raises.
+exactly ``hb``).  The CUDA kernel (``csrc/envdet.cu``) reads the
+time-first window as it is and runs both filters on the tensor cores
+(3xTF32): the band-pass as Toeplitz-block products against the taps split
+on the host (``bp_split``, as the chain's), the decimating envelope as a
+sum over ``step`` polyphase streams of correlations with ``q =
+ceil(ll / step)`` taps each (:func:`phase_taps`, split into ``lp_split``).
+:func:`geometry` is the block geometry the kernel computes.
+
+:func:`envdet` launches the kernel on a CUDA tensor and runs the plain
+PyTorch version :func:`envdet_plain` on a CPU tensor; any other device
+raises.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -19,23 +28,54 @@ from ..envdet import EnvDetDesign, _float_window
 from ..raw16 import dequant16
 from ..sos import _fir_valid_cf, full_fp32
 from ._build import SMEM_LIMIT, check, load_library
+from .chain import _split_taps
 
-__all__ = ["EnvDetKernel", "envdet", "envdet_plain", "smem_bytes"]
+__all__ = ["EnvDetKernel", "envdet", "envdet_plain", "geometry",
+           "phase_taps", "smem_bytes"]
 
-#: decimated outputs per kernel block at most (``T`` in csrc/envdet.cu)
-TILE_MAX = 512
-#: stage-1 samples per thread (``R1`` in csrc/envdet.cu)
-_R1 = 9
+#: decimated outputs per kernel block at most (``TILE_MAX`` in
+#: csrc/envdet.cu: two 128-output tiles of stage 2 a warp)
+TILE_MAX = 256
+#: warps of a kernel block (``NWARP`` in csrc/envdet.cu)
+_NWARP = 12
+#: zeros past a staged stream (``SLACK`` in csrc/toeplitz_mma.cuh)
+_SLACK = 32
+
+
+def geometry(lb, ll, step, tile):
+    """The kernel's block geometry (``geometry`` in csrc/envdet.cu) for
+    ``tile`` outputs: ``(q, ny, nt1, nt2, xwords, zs)`` -- the taps of a
+    phase of stage 2, the band-passed samples of a tile, the 128-wide
+    tiles of each stage, the words of each part of the split input span
+    and of each phase of the split polyphase y²."""
+    q = -(-ll // step)
+    ny = (tile - 1) * step + ll
+    nt1, nt2 = -(-ny // 128), -(-tile // 128)
+    xwords = round_up(128 * nt1 + lb - 1 + _SLACK, 32)
+    zs = round_up(128 * nt2 + q - 1 + _SLACK, 32)
+    return q, ny, nt1, nt2, xwords, zs
 
 
 def smem_bytes(lb, ll, step, tile):
-    """Shared memory of one envdet block (``smem_bytes`` in
-    csrc/envdet.cu): the staged input, the squared band-passed stream and
-    both tap vectors."""
-    lb_pad = round_up(lb, _R1)
-    ny = (tile - 1) * step + ll
-    nx = ny + lb_pad + _R1 - 1
-    return 4 * (nx + ny + lb_pad + ll)
+    """Shared memory of one envdet block (``envdet_smem_bytes`` in
+    csrc/envdet.cu): the split input span (which the stage-2 warps'
+    meeting point reuses, where that is not larger) and the split
+    polyphase y²; the taps are read through L1."""
+    q, ny, nt1, nt2, xwords, zs = geometry(lb, ll, step, tile)
+    return 4 * (max(2 * xwords, (_NWARP - 1) * 128 * nt2) + 2 * step * zs)
+
+
+def phase_taps(g_lp, step):
+    """``(step, q)`` float32 taps of the polyphase envelope: row ``p``
+    holds ``t_p[m] = g_r[step (q-1-m) + p]`` with ``g_r`` the reversed
+    ``g_lp`` (zero past its end), so that ``e[j] = sum_m g_lp[m]
+    u[j step + ll-1 - m] = sum_p sum_m t_p[m] z_p[j + q-1 - m]`` with
+    ``z_p[n] = u[step n + p]``."""
+    g = np.asarray(g_lp, np.float32)[::-1]
+    ll = len(g)
+    q = -(-ll // step)
+    k = step * (q - 1 - np.arange(q))[None, :] + np.arange(step)[:, None]
+    return np.where(k < ll, g[np.minimum(k, ll - 1)], 0.0).astype(np.float32)
 
 
 class EnvDetKernel(EnvDetDesign):
@@ -49,9 +89,9 @@ class EnvDetKernel(EnvDetDesign):
         if self.hb < self.lead2 + self.lb - 1 - self.d_bp:
             raise ValueError("window headroom smaller than the combined "
                              "filter look-back")
-        # the widest tile whose span fits one block: 512 outputs at the
-        # song detector's design (94 KB, 10 % of the stream recomputed as
-        # halo); longer kernels or larger steps halve it
+        # the widest tile whose span fits one block: 256 outputs at the
+        # song detector's design (105 KB, two blocks an SM); longer
+        # kernels or larger steps halve it
         tile = TILE_MAX
         while tile > 1 and smem_bytes(self.lb, self.ll, self.step,
                                       tile) > SMEM_LIMIT:
@@ -63,6 +103,9 @@ class EnvDetKernel(EnvDetDesign):
         self.tile = tile
         self.g_bp = self._tensor(self.g_bp_np)
         self.g_lp = self._tensor(self.g_lp_np)
+        self.bp_split = self._tensor(_split_taps(self.g_bp_np))
+        self.lp_split = self._tensor(np.concatenate(
+            [_split_taps(t) for t in phase_taps(self.g_lp_np, self.step)]))
 
     def __call__(self, xw, off0):
         """Envelope of one window ``xw (W, C)`` (float32 or raw int16) with
@@ -76,8 +119,16 @@ class EnvDetKernel(EnvDetDesign):
 
 
 def _check_window(xw):
+    """The window rules of both forms: a contiguous time-first ``(W, C)``
+    tensor, raw int16 or floating."""
     if xw.ndim != 2:
         raise ValueError(f"xw must be a (W, C) window, got {tuple(xw.shape)}")
+    if xw.dtype != torch.int16 and not torch.is_floating_point(xw):
+        raise TypeError(f"xw must be int16 or floating, not {xw.dtype}")
+    if not xw.is_contiguous():
+        raise ValueError(
+            f"xw must be a contiguous (W, C) window (time-first, the "
+            f"channels of a sample adjacent), got strides {xw.stride()}")
 
 
 def envdet_plain(ed, xw):
@@ -106,8 +157,10 @@ def envdet(ed, xw):
     """The envelope of ``ed`` (an :class:`EnvDetKernel`) over one window
     ``xw (W, C)``, first output at ``ed.hb``: ``(nout, C)`` float32.
 
-    A CUDA tensor runs the kernel (counted in ``envdet.launches``); a CPU
-    tensor runs :func:`envdet_plain`.
+    ``xw`` must be contiguous; the kernel reads it as it lies (float
+    types other than float32 are converted first).  A CUDA tensor runs
+    the kernel (counted in ``envdet.launches``); a CPU tensor runs
+    :func:`envdet_plain`.
     """
     if xw.device.type == "cpu":
         return envdet_plain(ed, xw)
@@ -117,21 +170,15 @@ def envdet(ed, xw):
     if xw.device != ed.g_bp.device:
         raise ValueError(f"xw is on {xw.device}, the envelope's design on "
                          f"{ed.g_bp.device}")
-    if xw.dtype != torch.int16 and not torch.is_floating_point(xw):
-        raise TypeError(f"xw must be int16 or floating, not {xw.dtype}")
-    # channels-first for the kernel: one transposing copy, as the JAX call
-    x_cf = _float_window(xw).T.contiguous()
-    C, W = x_cf.shape
-    if C > 65535:
-        raise ValueError(f"at most 65535 channels (one grid row each), "
-                         f"got {C}")
+    x = _float_window(xw)
+    W, C = x.shape
     env = torch.empty((C, ed.nout), dtype=torch.float32, device=xw.device)
     if C == 0:
         return env.T
     code = load_library().envdet_launch(
-        x_cf.data_ptr(), int(x_cf.dtype == torch.int16), W, C,
-        ed.g_bp.data_ptr(), ed.lb, ed.d_bp, ed.g_lp.data_ptr(), ed.ll,
-        ed.d_lp, ed.step, ed.nout, ed.hb, ed.tile, env.data_ptr(),
+        x.data_ptr(), int(x.dtype == torch.int16), W, C,
+        ed.bp_split.data_ptr(), ed.lb, ed.d_bp, ed.lp_split.data_ptr(),
+        ed.ll, ed.d_lp, ed.step, ed.nout, ed.hb, ed.tile, env.data_ptr(),
         torch.cuda.current_stream(xw.device).cuda_stream)
     check(code, "envdet")
     envdet.launches += 1

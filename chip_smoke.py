@@ -27,22 +27,30 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    window_matmul kernels and their plain versions, and of the chain's
    1-hour loop (83 device-resident chunks);
 6. the launch counters of phase 4, each of which must be > 0;
-7. the ``envdet`` kernel against its plain version at the song detector's
-   headline chunk (16 ch x 2,101,248 int16 frames, the CLI's default
-   design at 96 kHz: 1-10 kHz band-pass, 500 Hz envelope, step 19) and
-   against a float64 evaluation of the same taps; the two-stage ``EnvDet``
-   on ``window_matmul`` with the ``dequant`` and ``square`` premaps, each
-   stage against its plain version at these shapes;
+7. the ``envdet`` kernel against its plain version and a float64
+   evaluation of the same taps at the song detector's headline chunk
+   (16 ch x 2,101,248 int16 frames, the CLI's default design at 96 kHz:
+   1-10 kHz band-pass, 500 Hz envelope, step 19), and on the same window
+   at steps 1, 3 and 7, as float32, at C = 1 and 3, at an ``nout`` that is
+   not a multiple of the tile and at the 200 Hz design (step 48), whose
+   span halves the tile; a longer design is refused and left to
+   ``EnvDet``; the two-stage ``EnvDet`` on ``window_matmul`` with the
+   ``dequant`` and ``square`` premaps, each stage against its plain
+   version at these shapes;
 8. the song detector's main path: ``audian_torch.cli.songdetector.main``
    on a 90 s x 16 ch x 96 kHz PCM-16 WAV with planted songs (five chunks,
    three interior).  Launch counters are zeroed just before and read just
    after the run: ``envdet`` must run once per interior chunk.  Every
    planted song must be found on every channel with its onset within
    0.1 s; ``band_env`` on two channels is held against the scipy float64
-   oracle;
-9. CUDA-event times of the envdet kernel, its plain version and the
-   two-stage ``EnvDet`` per headline chunk, and the 1-hour detect loop
-   (165 device-resident chunks, seconds per recording hour).
+   oracle; under ``torch.profiler`` each envdet launch must follow its
+   window's upload directly (no copy kernel between them);
+9. CUDA-event times of the envdet kernel (at each tile it can take for
+   the design), its plain version and the two-stage ``EnvDet`` per
+   headline chunk, of the same kernel work over a time-contiguous
+   (C = 1) window and of the transposing copy the kernel no longer needs,
+   and the 1-hour detect loop (165 device-resident chunks, seconds per
+   recording hour).
 
 The line before the last is a JSON object with one entry per kernel: its
 launches on its main path (phase 4 for chain and window_matmul, phase 8
@@ -50,14 +58,15 @@ for envdet), its largest error, its time and its plain version's, the
 least time the card could take for the same work (``bound_ms``: fp32 at
 67 TFLOP/s or 3.35 TB/s of device memory, whichever is larger) and the
 time of one PyTorch call computing the same function where there is one.
-The two tensor-core kernels (chain, window_matmul) also carry
-``bound_tc_ms``: the same true-tap operations in three TF32 passes at
-495 TFLOP/s, or the bytes at 3.35 TB/s, whichever is larger.
+The three tensor-core kernels also carry ``bound_tc_ms``: the same
+true-tap operations in three TF32 passes at 495 TFLOP/s, or the bytes at
+3.35 TB/s, whichever is larger.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import itertools
 import json
 import math
@@ -211,7 +220,9 @@ def envdet_work(ed, xw):
 def envdet_f64(ed, xw):
     """The envdet envelope in float64 over the same float32 taps (cuDNN
     off): an oracle for the kernel's arithmetic."""
-    x = xw.double().T / 32768.0
+    x = xw.double().T
+    if xw.dtype == torch.int16:
+        x = x / 32768.0
     s0, s1 = ed.hb - ed.lead2, ed.hb + (ed.nout - 1) * ed.step + ed.d_lp
     x0, x1 = s0 + ed.d_bp - (ed.lb - 1), s1 + ed.d_bp + 1
     seg = torch.nn.functional.pad(x[:, x0:x1], (0, max(0, x1 - x.shape[1])))
@@ -222,6 +233,27 @@ def envdet_f64(ed, xw):
         e = torch.nn.functional.conv1d((y * y)[:, None], g,
                                        stride=ed.step)[:, 0]
     return (2.0 * torch.sqrt(e.clamp_min(0.0))).T
+
+
+def check_envdet(ed, xw, label):
+    """The envdet kernel against its plain version and the float64 oracle
+    on one window; returns its largest absolute error."""
+    from audian_torch.ops.cuda.envdet import envdet, envdet_plain
+
+    got = envdet(ed, xw)
+    want = envdet_plain(ed, xw)
+    ref = envdet_f64(ed, xw)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    ep, ef, pf = max_abs(got, want), max_abs(got, ref), max_abs(want, ref)
+    require(tuple(got.shape) == (ed.nout, xw.shape[1]),
+            f"{label} shape {tuple(got.shape)}")
+    require(bool(torch.isfinite(got).all()), f"{label} finite")
+    require(ep <= TOL_DETECT * scale, f"{label}: envdet vs plain {ep}")
+    require(ef <= TOL_DETECT * scale, f"{label}: envdet vs float64 {ef}")
+    print(f"  {label} (tile {ed.tile}): kernel vs plain {ep:.3e}, vs "
+          f"float64 {ef:.3e}; plain vs float64 {pf:.3e} (scale {scale:.4f})")
+    return max(ep, ef)
 
 
 def detect_chunk(gen, W, device):
@@ -338,6 +370,7 @@ def main():
     from audian_torch.ops.cuda import _build
     from audian_torch.ops.cuda.chain import (ALL_OUTPUTS, TAP_PAD, chain,
                                              chain_plain)
+    from audian_torch.ops.cuda.envdet import TILE_MAX as ENVDET_TILE_MAX
     from audian_torch.ops.cuda.envdet import (EnvDetKernel, envdet,
                                               envdet_plain)
     from audian_torch.ops.cuda.envdet import smem_bytes as envdet_smem_bytes
@@ -355,8 +388,14 @@ def main():
     lib = _build.load_library()
     print(f"phase 1: built {_build.build_dir()} in "
           f"{time.perf_counter() - t0:.2f} s")
-    for line in kernel_resources(_build.ptxas_report()):
+    resources = kernel_resources(_build.ptxas_report())
+    for line in resources:
         print("  " + line)
+    for line in resources:
+        m = re.search(r"chain_kernel: .*Used (\d+) registers", line)
+        if m:
+            require(int(m.group(1)) <= 85, "chain_kernel keeps three blocks "
+                    "an SM (85 registers or fewer)")
 
     # -- phase 2: window_matmul ----------------------------------------------
     print("phase 2: window_matmul kernel vs plain at 16 ch x 2^20")
@@ -632,35 +671,65 @@ def main():
     del hour, q, qs, ql
 
     # -- phase 7: envdet -----------------------------------------------------
-    print("phase 7: envdet kernel vs plain at the headline detect chunk")
+    print("phase 7: envdet kernel vs plain and float64 at the detect chunk")
     fdet = FilterDesign.from_sos(sps.butter(1, DETECT_BAND, "bandpass",
                                             fs=RATE, output="sos"))
-    edet = FilterDesign.from_sos(sps.butter(1, DETECT_ENV, "lowpass",
-                                            fs=RATE, output="sos"))
-    step = int(np.round(RATE / (10 * DETECT_ENV)))
-    halo = events.detect_halo(fdet, edet)
+
+    def env_design(cutoff):
+        edes = FilterDesign.from_sos(sps.butter(1, cutoff, "lowpass",
+                                                fs=RATE, output="sos"))
+        return (edes, int(np.round(RATE / (10 * cutoff))),
+                events.detect_halo(fdet, edes))
+
+    edet, step, halo = env_design(DETECT_ENV)
     ed, det_chunk = events._make_envdet(fdet, edet, step, halo, dev)
     W = events._CHUNK + 2 * halo
     require(isinstance(ed, EnvDetKernel), "the CLI design takes the kernel")
-    require(lib.envdet_smem_bytes(ed.lb, ed.ll, step, ed.tile)
-            == envdet_smem_bytes(ed.lb, ed.ll, step, ed.tile),
-            "shared-memory formula agrees")
+    require(lib.envdet_tile_max() == ENVDET_TILE_MAX, "envdet tile")
+
+    def smem_agrees(e):
+        n = lib.envdet_smem_bytes(e.lb, e.ll, e.step, e.tile)
+        require(n == envdet_smem_bytes(e.lb, e.ll, e.step, e.tile)
+                and n <= _build.SMEM_LIMIT, "shared-memory formula agrees")
+        return n
+
     print(f"  step {step}  halo {halo}  chunk {det_chunk}  W {W}  "
           f"nout {ed.nout}  taps {ed.lb} + {ed.ll}  tile {ed.tile}  "
-          f"shared {lib.envdet_smem_bytes(ed.lb, ed.ll, step, ed.tile)} B")
+          f"shared {smem_agrees(ed)} B")
     qd = detect_chunk(gen, W, dev)
-    got = envdet(ed, qd)
-    want = envdet_plain(ed, qd)
+    env_err = check_envdet(ed, qd, "headline int16")
+    env_err = max(env_err, check_envdet(ed, dequant16(qd), "float32"))
+    for cc in (1, 3):
+        env_err = max(env_err, check_envdet(ed, qd[:, :cc].contiguous(),
+                                            f"C = {cc}"))
+    for s_ in (1, 3, 7):
+        e_s = EnvDetKernel(fdet, edet, s_, (1 << 18) // s_ + 13, hb=halo,
+                           device=dev)
+        env_err = max(env_err, check_envdet(e_s, qd, f"step {s_}, nout "
+                                            f"{e_s.nout}"))
+    e_n = EnvDetKernel(fdet, edet, step, 1000, hb=halo, device=dev)
+    require(e_n.nout % e_n.tile != 0, "nout is not a multiple of the tile")
+    env_err = max(env_err, check_envdet(e_n, qd, "nout 1000"))
+    # the 200 Hz envelope at the CLI's step (48): a span that halves the
+    # tile; a 100 Hz one (step 96) spans more than a block holds
+    e200, step200, halo200 = env_design(200.0)
+    e_h = EnvDetKernel(fdet, e200, step200, (1 << 18) // step200 + 13,
+                       hb=halo200, device=dev)
+    require(e_h.tile < ENVDET_TILE_MAX, "the 200 Hz design halves the tile")
+    print(f"  200 Hz design: taps {e_h.lb} + {e_h.ll}, step {step200}, "
+          f"shared {smem_agrees(e_h)} B")
+    env_err = max(env_err, check_envdet(e_h, qd, f"200 Hz design, step "
+                                        f"{step200}"))
+    e100, step100, halo100 = env_design(100.0)
+    made = events._make_envdet(fdet, e100, step100, halo100, dev)
+    require(made is not None and isinstance(made[0], EnvDet),
+            "the 100 Hz design is refused and left to EnvDet")
+    long_ed = made[0]
+    print(f"  100 Hz design (taps {long_ed.lb} + {long_ed.ll}, step "
+          f"{step100}): refused by the kernel, EnvDet takes it")
+    del long_ed, made
     ref = envdet_f64(ed, qd)
-    torch.cuda.synchronize()
     scale = float(ref.abs().max())
-    ep, ef, pf = max_abs(got, want), max_abs(got, ref), max_abs(want, ref)
-    require(ep <= TOL_DETECT * scale, f"envdet vs plain {ep}")
-    require(ef <= TOL_DETECT * scale, f"envdet vs float64 {ef}")
-    require(bool(torch.isfinite(got).all()), "envdet finite")
-    env_err = max(ep, ef)
-    print(f"  kernel vs plain {ep:.3e}, vs float64 {ef:.3e}; plain vs "
-          f"float64 {pf:.3e} (scale {scale:.4f})")
     # the two-stage EnvDet on window_matmul, stage by stage
     two = EnvDet(fdet, edet, step, ed.nout, hb=halo, device=dev)
     got2 = two(qd, halo)
@@ -689,7 +758,7 @@ def main():
                            "fco")
     wm_err = max(wm_err, e_bp, e_env)
     print(f"  EnvDet (two window_matmul stages) vs float64 {e2:.3e}")
-    del got, want, ref, got2, xp, caus, y_ext
+    del ref, got2, xp, caus, y_ext
 
     # -- phase 8: the song detector's main path ------------------------------
     print(f"phase 8: audian-songdetector on a {DETECT_SECONDS} s x {C} ch x "
@@ -745,6 +814,15 @@ def main():
              if e.device_type == torch.autograd.DeviceType.CUDA
              and e.self_device_time_total > 0), reverse=True)
         busy_s = sum(t for t, _ in by_kernel) / 1e6
+        # what the device ran just before each envdet launch: the window's
+        # upload, and no copy kernel (the transposing copy is gone)
+        timeline = sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start)
+        before_envdet = [timeline[i - 1].name
+                         for i, e in enumerate(timeline)
+                         if i > 0 and "envdet_kernel" in e.name]
         del data
     require(rows[0] == ["channel", "tstart/s", "tend/s", "duration/s"],
             f"CSV header {rows[0]}")
@@ -770,6 +848,11 @@ def main():
               f"%); by kernel (ms):")
         for t, key in by_kernel[:6]:
             print(f"    {t / 1e3:10.4f}  {key[:90]}")
+        require(len(before_envdet) == interior
+                and all(n.startswith("Memcpy") for n in before_envdet),
+                f"envdet launches follow their uploads: {before_envdet}")
+        print(f"  before each envdet launch the device ran: "
+              f"{sorted(set(before_envdet))}")
     else:
         print("  band_env device busy share: not measured (the profiler "
               "recorded no device time)")
@@ -795,9 +878,37 @@ def main():
     env_plain_ms = median_ms(lambda: envdet_plain(ed, qd))
     two_ms = median_ms(lambda: two(qd, halo))
     env_bound = bound(*envdet_work(ed, qd))
+    env_bound_tc = bound_tc(*envdet_work(ed, qd))
     print(f"  envdet headline chunk ({C} x {W} int16): kernel {env_ms:.4f} ms"
           f"  plain {env_plain_ms:.4f} ms  two-stage EnvDet {two_ms:.4f} ms"
-          f"  bound {env_bound[0]:.4f} ms ({env_bound[1]})  [{card}]")
+          f"  bound {env_bound[0]:.4f} ms ({env_bound[1]})  bound_tc "
+          f"{env_bound_tc:.4f} ms ({100 * env_bound_tc / env_ms:.1f} % "
+          f"reached)  [{card}]")
+    # the tiles the host could pick for this design, widest first
+    tile = ed.tile // 2
+    while tile >= 64:
+        et = copy.copy(ed)
+        et.tile = tile
+        print(f"  envdet headline chunk at tile {tile} "
+              f"({envdet_smem_bytes(ed.lb, ed.ll, step, tile)} B shared): "
+              f"kernel {median_ms(lambda: envdet(et, qd)):.4f} ms  [{card}]")
+        tile //= 2
+    # what reading the (W, C) window costs: the same blocks over a
+    # time-contiguous window (the channels end to end, C = 1), and the
+    # transposing copy that made one before
+    ntile = -(-ed.nout // ed.tile)
+    ed1 = EnvDetKernel(fdet, edet, step, C * ntile * ed.tile, hb=halo,
+                       device=dev)
+    x1 = torch.nn.functional.pad(qd.T.reshape(-1),
+                                 (0, ed1.window_need(halo) - C * W))
+    x1 = x1.reshape(-1, 1)
+    one_ms = median_ms(lambda: envdet(ed1, x1))
+    copy_ms = median_ms(lambda: qd.T.contiguous())
+    print(f"  the same {C * ntile} blocks over a time-contiguous window "
+          f"(C = 1): kernel {one_ms:.4f} ms; the (W, C) reads cost "
+          f"{env_ms - one_ms:.4f} ms, the transposing copy took "
+          f"{copy_ms:.4f} ms  [{card}]")
+    del x1
     det_hour = [qd] + [detect_chunk(gen, W, dev) for _ in range(2)]
     nhour = -(-int(3600 * RATE) // det_chunk)
 
@@ -838,7 +949,8 @@ def main():
          "replaces": "audian_tpu/ops/pallas/envdet.py:64",
          "launches": det_launches["envdet"], "max_abs_err": env_err,
          "ms": env_ms, "plain_ms": env_plain_ms, "bound_ms": env_bound[0],
-         "bound_by": env_bound[1], "library_ms": None},
+         "bound_by": env_bound[1], "bound_tc_ms": env_bound_tc,
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

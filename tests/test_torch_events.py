@@ -218,7 +218,7 @@ def test_cli_design_geometry_equals_jax():
             == (jed.lb, jed.d_bp, jed.ll, jed.d_lp, jed.nout, jed.hb)
             == (511, 255, 1023, 511, 110376, 2048))
     assert ted.window_need(halo) == jed.window_need(halo) <= (1 << 21) + 4096
-    assert ted.tile == 512
+    assert ted.tile == 256
 
 
 def _two_songs(seed=1):
