@@ -13,12 +13,15 @@ from __future__ import annotations
 
 import numpy as np
 
+from .graph.nodes import SpectrogramNode, device_params
 from .ops.cuda.envdet import EnvDetKernel
+from .ops.design import FilterDesign, FirKernels
 from .ops.envdet import EnvDet
 from .ops.fused import FusedChainCF
+from .utils import resolve_device
 
-__all__ = ["ARRAY_KEYS", "ENVDET_KEYS", "chain_from_arrays",
-           "envdet_from_arrays"]
+__all__ = ["ARRAY_KEYS", "DESIGN_KEYS", "ENVDET_KEYS", "chain_from_arrays",
+           "envdet_from_arrays", "node_params_from_arrays"]
 
 #: the state a chain is rebuilt from
 ARRAY_KEYS = ("rate", "nfft", "hop", "env_clamp", "_h_filt", "_g_env",
@@ -29,6 +32,13 @@ ARRAY_KEYS = ("rate", "nfft", "hop", "env_clamp", "_h_filt", "_g_env",
 #: ``filtfilt_sym_kernel(design.sos, pad_to=design.fir.length)``), the
 #: decimation step, outputs per window and the window headroom
 ENVDET_KEYS = ("g_bp", "d_bp", "g_lp", "d_lp", "step", "nout", "hb")
+
+#: the leaves of a filter or envelope node's design (the JAX package's
+#: ``FilterDesign`` pytree: the SOS cascade, ``sosfilt_zi``, the
+#: ``sosfiltfilt`` padding, and the truncated impulse, state-output and
+#: input-state responses with the state matrix and truncation eps)
+DESIGN_KEYS = ("sos", "zi0", "padlen", "h", "state_out", "input_state", "A",
+               "eps")
 
 
 def chain_from_arrays(arrays, device=None):
@@ -70,3 +80,28 @@ def envdet_from_arrays(arrays, kernel=True, device=None):
         np.asarray(arrays["g_lp"], np.float64), int(arrays["d_lp"]),
         int(arrays["step"]), int(arrays["nout"]), int(arrays["hb"]),
         device=device)
+
+
+def node_params_from_arrays(node, arrays, device=None):
+    """The device parameters of the port's trace-graph ``node`` (what its
+    ``compute`` takes) from the JAX node's ``params()`` as numpy values:
+    for a :class:`~audian_torch.graph.nodes.SpectrogramNode` the STFT
+    window, for a filter or envelope node a dict holding
+    :data:`DESIGN_KEYS` (``None`` for a pass-through or infeasible
+    design).  On ``device``, the CUDA card by default."""
+    device = resolve_device(device)
+    if isinstance(node, SpectrogramNode) or arrays is None:
+        return device_params(arrays, device)
+    missing = set(DESIGN_KEYS) - set(arrays)
+    if missing:
+        raise KeyError(f"missing design arrays: {sorted(missing)}")
+
+    def arr(k):
+        return np.asarray(arrays[k], np.float64)
+
+    fir = FirKernels(h=arr("h"), state_out=arr("state_out"),
+                     input_state=arr("input_state"), eps=float(arrays["eps"]),
+                     A=arr("A"))
+    return device_params(FilterDesign(sos=arr("sos"), zi0=arr("zi0"),
+                                      padlen=int(arrays["padlen"]), fir=fir),
+                         device)

@@ -1,21 +1,27 @@
-"""Raw PCM-16 reads from WAV files (RIFF, RF64/BW64, Sony Wave64).
+"""WAV reads (RIFF, RF64/BW64, Sony Wave64) with metadata and markers.
 
-The read path of the batch chain: :func:`wav_info` scans the chunk
-headers, and :func:`read_frames_raw16` reads a frame range as
-little-endian int16 straight into a caller's buffer (sample = k / 2**15,
-dequantized on the device).  Pure numpy and the standard library.
-FLAC and other containers are not read here.
+The batch chain's read path: :func:`wav_info` scans the chunk headers,
+and :func:`read_frames_raw16` reads a frame range as little-endian int16
+straight into a caller's buffer (sample = k / 2**15, dequantized on the
+device).  The loader's float path: :func:`read_frames` decodes PCM_U8/16/
+24/32, FLOAT and DOUBLE frames to float64.  :func:`scan_wav` reads the
+metadata (LIST-INFO tags, the broadcast-wave ``bext`` chunk) and the
+markers (``cue`` plus LIST-adtl ``labl``/``note``/``ltxt``) without the
+payload.  Pure numpy and the standard library, copied from
+``audian_tpu/data/wavio.py``; FLAC and other containers are not read here.
 """
 
 from __future__ import annotations
 
+import datetime as dt
 import struct
 import sys
 from pathlib import Path
 
 import numpy as np
 
-__all__ = ["WavError", "read_frames_raw16", "wav_info"]
+__all__ = ["WavError", "get_datetime", "markers", "metadata", "read_frames",
+           "read_frames_raw16", "scan_wav", "unwrap", "wav_info"]
 
 
 class WavError(ValueError):
@@ -34,6 +40,19 @@ _META_CHUNK_CAP = 1 << 26
 
 _ENCODING_NAMES = {(1, 16): "PCM_16", (1, 24): "PCM_24", (1, 32): "PCM_32",
                    (1, 8): "PCM_U8", (3, 32): "FLOAT", (3, 64): "DOUBLE"}
+_ENCODINGS = {name: key for key, name in _ENCODING_NAMES.items()}
+
+_INFO_TAGS = {
+    "INAM": "Title", "IART": "Artist", "ICMT": "Comment", "ICRD": "Date",
+    "IENG": "Engineer", "IGNR": "Genre", "IKEY": "Keywords",
+    "IPRD": "Product", "ISFT": "Software", "ISRC": "Source",
+    "ICOP": "Copyright", "ISBJ": "Subject",
+}
+
+_BEXT_FIELDS = [
+    ("Description", 256), ("Originator", 32), ("OriginatorReference", 32),
+    ("OriginationDate", 10), ("OriginationTime", 8),
+]
 
 
 def _wave_container(head):
@@ -123,6 +142,12 @@ def _parse_fmt(buf, off, size):
     return tag, channels, rate, bits
 
 
+def _not_wave(path, head):
+    kind = "FLAC" if head[:4] == b"fLaC" else "this container"
+    return WavError(f"{path}: {kind} is not read by audian_torch "
+                    f"(WAV, RF64 and W64 only)")
+
+
 def wav_info(path):
     """Header scan: ``(rate, channels, frames, encoding, data_offset)``.
 
@@ -134,9 +159,7 @@ def wav_info(path):
     with p.open("rb") as f:
         head = f.read(16)
         if _wave_container(head) is None:
-            kind = "FLAC" if head[:4] == b"fLaC" else "this container"
-            raise WavError(f"{path}: {kind} is not read by audian_torch "
-                           f"(WAV, RF64 and W64 only)")
+            raise _not_wave(path, head)
         fmt = None
         for cid, size, off in _walk_wave_chunks(f, path):
             if cid == b"fmt ":
@@ -179,3 +202,228 @@ def read_frames_raw16(path, start, nframes, info, out):
     if sys.byteorder != "little":  # pragma: no cover - LE hosts only here
         out[: nbytes // bpf].byteswap(inplace=True)
     return nbytes // bpf
+
+
+def _decode(raw, tag, bits, channels):
+    """PCM or IEEE-float bytes -> (frames, channels) float64 (float32 for
+    FLOAT), scaled to [-1, 1]; a partial trailing sample is dropped."""
+    bps = max(bits // 8, 1)
+    if len(raw) % bps:
+        raw = raw[: len(raw) - (len(raw) % bps)]
+    if tag == 3:
+        dtype = np.float32 if bits == 32 else np.float64
+        data = np.frombuffer(raw, dtype="<f4" if bits == 32 else "<f8")
+        data = data.astype(dtype, copy=False)
+    elif tag == 1:
+        if bits == 16:
+            data = np.frombuffer(raw, dtype="<i2").astype(np.float64) / 2 ** 15
+        elif bits == 32:
+            data = np.frombuffer(raw, dtype="<i4").astype(np.float64) / 2 ** 31
+        elif bits == 24:
+            b = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 3)
+            ints = (
+                b[:, 0].astype(np.int32)
+                | (b[:, 1].astype(np.int32) << 8)
+                | (b[:, 2].astype(np.int32) << 16)
+            )
+            ints = np.where(ints >= 1 << 23, ints - (1 << 24), ints)
+            data = ints.astype(np.float64) / 2 ** 23
+        elif bits == 8:
+            data = (np.frombuffer(raw, dtype=np.uint8).astype(np.float64)
+                    - 128.0) / 128.0
+        else:
+            raise WavError(f"unsupported PCM bit depth: {bits}")
+    else:
+        raise WavError(f"unsupported WAV format tag: {tag}")
+    frames = len(data) // channels
+    return data[: frames * channels].reshape(frames, channels)
+
+
+def read_frames(path, start, nframes, info=None):
+    """Decode frames [start, start + nframes) of a WAV file (without
+    reading the rest) to float values in [-1, 1]."""
+    if info is None:
+        info = wav_info(path)
+    rate, channels, frames, enc, data_off = info
+    tag, bits = _ENCODINGS.get(enc, (None, None))
+    if tag is None:
+        raise WavError(f"{path}: unsupported encoding {enc}")
+    bpf = channels * (bits // 8)
+    start = max(0, min(start, frames))
+    nframes = max(0, min(nframes, frames - start))
+    with Path(path).open("rb") as f:
+        f.seek(data_off + start * bpf)
+        raw = f.read(nframes * bpf)
+    return _decode(raw, tag, bits, channels)
+
+
+def _cstr(b):
+    return b.split(b"\x00", 1)[0].decode("latin-1", "replace").strip()
+
+
+def _parse_bext(buf, off, size):
+    md = {}
+    pos = off
+    for name, n in _BEXT_FIELDS:
+        md[name] = _cstr(buf[pos : pos + n])
+        pos += n
+    lo, hi = struct.unpack_from("<II", buf, pos)
+    md["TimeReference"] = (hi << 32) | lo
+    pos += 8
+    (md["Version"],) = struct.unpack_from("<H", buf, pos)
+    pos += 2
+    pos += 64  # UMID
+    pos += 10  # loudness
+    pos += 180  # reserved
+    if pos < off + size:
+        md["CodingHistory"] = _cstr(buf[pos : off + size])
+    return {k: v for k, v in md.items() if v not in ("", 0)}
+
+
+def _parse_list(buf, off, size):
+    kind = buf[off : off + 4]
+    entries = {}
+    pos = off + 4
+    end = off + size
+    while pos + 8 <= end:
+        cid = buf[pos : pos + 4]
+        (csize,) = struct.unpack_from("<I", buf, pos + 4)
+        body = buf[pos + 8 : pos + 8 + csize]
+        entries.setdefault(cid.decode("latin-1"), []).append(body)
+        pos += 8 + csize + (csize & 1)
+    return kind, entries
+
+
+def _collect_meta(cid, buf, off, size, md, cues, lengths, names, notes):
+    """Fold one non-data chunk into the metadata and marker accumulators.
+    A truncated side chunk keeps what parsed and skips the rest: metadata
+    and markers are auxiliary, so a malformed one is not fatal."""
+    try:
+        if cid == b"bext":
+            md["BEXT"] = _parse_bext(buf, off, size)
+        elif cid == b"LIST":
+            kind, entries = _parse_list(buf, off, size)
+            if kind == b"INFO":
+                for tag4, bodies in entries.items():
+                    key = _INFO_TAGS.get(tag4, tag4)
+                    md[key] = _cstr(bodies[0])
+            elif kind == b"adtl":
+                for body in entries.get("labl", []):
+                    (cue_id,) = struct.unpack_from("<I", body, 0)
+                    names[cue_id] = _cstr(body[4:])
+                for body in entries.get("note", []):
+                    (cue_id,) = struct.unpack_from("<I", body, 0)
+                    notes[cue_id] = _cstr(body[4:])
+                for body in entries.get("ltxt", []):
+                    cue_id, length = struct.unpack_from("<II", body, 0)
+                    lengths[cue_id] = length
+        elif cid == b"cue ":
+            (ncues,) = struct.unpack_from("<I", buf, off)
+            for k in range(ncues):
+                base = off + 4 + 24 * k
+                cue_id, _, _, _, _, pos = struct.unpack_from("<IIIIII",
+                                                             buf, base)
+                cues[cue_id] = pos
+    except struct.error:
+        return
+
+
+def _marker_arrays(cues, lengths, names, notes):
+    ids = sorted(cues)
+    locs = np.array(
+        [[cues[i], lengths.get(i, 0)] for i in ids], dtype=np.int64
+    ).reshape(-1, 2)
+    labels = np.array(
+        [[names.get(i, ""), notes.get(i, "")] for i in ids], dtype=object
+    ).reshape(-1, 2)
+    return locs, labels
+
+
+def scan_wav(path):
+    """Header-only scan: ``(rate, md, locs, labels)``, seeking past the
+    data payload.  ``md`` holds the INFO tags at top level and the
+    broadcast-wave fields under ``"BEXT"``; ``locs`` (n, 2) are
+    ``[position, span]`` and ``labels`` (n, 2) ``[label, text]``."""
+    p = Path(path)
+    md = {}
+    cues, lengths, names, notes = {}, {}, {}, {}
+    fmt = None
+    with p.open("rb") as f:
+        head = f.read(16)
+        if _wave_container(head) is None:
+            raise _not_wave(path, head)
+        for cid, size, off in _walk_wave_chunks(f, path):
+            if cid == b"data":
+                continue  # the walker seeks past the payload
+            take = min(size, _META_CHUNK_CAP)
+            body = f.read(take)
+            if len(body) < take:
+                break
+            if cid == b"fmt ":
+                fmt = _parse_fmt(body, 0, take)
+            else:
+                _collect_meta(cid, body, 0, take, md, cues, lengths,
+                              names, notes)
+    if fmt is None:
+        raise WavError(f"{path}: missing fmt chunk")
+    locs, labels = _marker_arrays(cues, lengths, names, notes)
+    return float(fmt[2]), md, locs, labels
+
+
+def metadata(path):
+    _, md, _, _ = scan_wav(path)
+    return md
+
+
+def markers(path):
+    _, _, locs, labels = scan_wav(path)
+    return locs, labels
+
+
+def get_datetime(md):
+    """Recording start datetime from metadata (BEXT OriginationDate/Time or
+    INFO ICRD/Date), or None."""
+    bext = md.get("BEXT", {})
+    date = bext.get("OriginationDate")
+    time = bext.get("OriginationTime", "00:00:00")
+    if date:
+        try:
+            return dt.datetime.fromisoformat(f"{date}T{time}")
+        except ValueError:
+            pass
+    date = md.get("Date") or md.get("ICRD")
+    if date:
+        try:
+            return dt.datetime.fromisoformat(str(date))
+        except ValueError:
+            pass
+    return None
+
+
+def unwrap(data, thresh=1.5, clips=False, ampl_max=1.0, start_shift=0.0,
+           return_shift=False):
+    """Unwrap data that wrapped around the ADC range: where consecutive
+    samples jump by more than ``thresh*ampl_max``, shift by the full range.
+    Then either clip to the range or scale down by two (the reference's
+    ``-U`` and ``-u`` options).
+
+    ``start_shift`` seeds the cumulative shift so a sequential block scan
+    can continue a wrap still active at a block boundary;
+    ``return_shift=True`` also returns the final cumulative shift.
+    """
+    data = np.array(data, dtype=np.float64, copy=True)
+    rng = 2.0 * ampl_max
+    d = np.diff(data, axis=0)
+    steps = np.zeros_like(data)
+    steps[1:] = -rng * np.where(d > thresh * ampl_max, 1.0,
+                                np.where(d < -thresh * ampl_max, -1.0, 0.0))
+    shift = np.cumsum(steps, axis=0) + start_shift
+    data += shift
+    final = shift[-1] if len(data) else start_shift
+    if clips:
+        np.clip(data, -ampl_max, ampl_max, out=data)
+    else:
+        data *= 0.5
+    if return_shift:
+        return data, final
+    return data

@@ -153,7 +153,7 @@ def sosfiltfilt_fir(kernels, x, zi0, padlen, axis=0):
             f"which is {padlen}."
         )
     ext = odd_ext(xt, padlen, axis=0)
-    zi0 = torch.as_tensor(np.asarray(zi0), dtype=x.dtype, device=x.device)
+    zi0 = torch.as_tensor(zi0, dtype=x.dtype, device=x.device)
     bshape = tuple(zi0.shape) + (1,) * (xt.ndim - 1)
 
     def zi_for(edge):

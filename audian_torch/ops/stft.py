@@ -92,6 +92,17 @@ def _dft_matrices(nfft, nbins, dtype):
     return np.concatenate([np.cos(ang), -np.sin(ang)], axis=1).astype(dtype)
 
 
+@functools.lru_cache(maxsize=16)
+def _dft_tensors(nfft, dtype, device):
+    """``(DFT matrix, one-sided doubling)`` on ``device``, made once per
+    NFFT: the spectrogram of a scroll step uploads no coefficients."""
+    def put(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return (put(_dft_matrices(nfft, nfft // 2 + 1, np.float64)),
+            put(one_sided_doubling(nfft)))
+
+
 def spectrogram(x, rate, nfft, hop, window=None, detrend=False,
                 method="auto"):
     """One-sided PSD spectrogram of ``x`` ((n,) or (n, channels)).
@@ -106,7 +117,9 @@ def spectrogram(x, rate, nfft, hop, window=None, detrend=False,
     dtype = x.dtype
     if window is None:
         window = hann_window(nfft, np.float64)
-    window = torch.tensor(np.asarray(window), dtype=dtype, device=x.device)
+    if not isinstance(window, torch.Tensor):
+        window = np.array(window)  # writable: the cached Hann is read-only
+    window = torch.as_tensor(window, dtype=dtype, device=x.device)
     frames = frame_signal(x, nfft, hop)               # (nf, nfft, ...)
     if detrend == "constant":
         frames = frames - frames.mean(dim=1, keepdim=True)
@@ -118,17 +131,14 @@ def spectrogram(x, rate, nfft, hop, window=None, detrend=False,
     ft = torch.movedim(frames, 1, -1)                 # (nf, ..., nfft)
     if method == "matmul":
         full_fp32()
-        W = torch.as_tensor(_dft_matrices(nfft, nbins, np.float64),
-                            dtype=dtype, device=x.device)
-        spec = ft @ W
+        spec = ft @ _dft_tensors(nfft, dtype, x.device)[0]
         re, im = spec[..., :nbins], spec[..., nbins:]
         psd = re * re + im * im
     else:
         spec = torch.fft.rfft(ft, n=nfft, dim=-1)
         psd = (spec.real * spec.real + spec.imag * spec.imag).to(dtype)
     scale = 1.0 / (rate * torch.sum(window * window))
-    factors = torch.as_tensor(one_sided_doubling(nfft), dtype=dtype,
-                              device=x.device) * scale
+    factors = _dft_tensors(nfft, dtype, x.device)[1] * scale
     return psd * factors
 
 

@@ -2,7 +2,7 @@
 
 import torch
 
-__all__ = ["pow2_at_least", "resolve_device", "round_up"]
+__all__ = ["on_device", "pow2_at_least", "resolve_device", "round_up"]
 
 
 def round_up(x, m):
@@ -28,3 +28,12 @@ def resolve_device(device=None):
             f"available (device {device}); pass device='cpu' to run the "
             f"plain versions on the host")
     return device
+
+
+def on_device(x, device=None):
+    """``x`` as a tensor: a tensor stays on its device unless ``device``
+    names another; host data (numpy, lists) goes to
+    :func:`resolve_device`'s device, the CUDA card by default."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x
+    return torch.as_tensor(x, device=resolve_device(device))

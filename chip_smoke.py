@@ -50,7 +50,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    headline chunk, of the same kernel work over a time-contiguous
    (C = 1) window and of the transposing copy the kernel no longer needs,
    and the 1-hour detect loop (165 device-resident chunks, seconds per
-   recording hour).
+   recording hour);
+10. the interactive path (``audian_torch.data.Data`` -> the trace graph ->
+    the render tiles) on a 180 s x 16 ch x 96 kHz PCM-16 WAV with planted
+    songs: a 60 s window (20 s kept behind), ``default_traces()`` with the
+    filter at 2-40 kHz, a 2 s view paged forward 40 times and back 10
+    times, then two jumps, each move followed by the browser's refresh
+    (min/max tiles of "filtered" and "envelope" and uint8 dB tiles of the
+    spectrogram, every channel).  Checks: the raw window equals the file
+    (the pinned-staging fence), min/max tiles equal numpy's reduceat
+    exactly, a 2 s slice of channel 0 against scipy float64 (1e-5,
+    0.013 dB), the delta-stitched windows against a full recompute
+    (1e-6), and a four-value cutoff scrub adds no executor plan;
+11. interactive times: open plus first render, scroll p50/p95 at 16 ch
+    and on an 8-channel copy, the jumps, the cutoff scrub, NFFT steps,
+    the autoscale extrema (host clock, each ended by a synchronize), the
+    full-window recompute (CUDA events) and its split by node, and the
+    device busy share of 20 pages under ``torch.profiler``.  No kernel
+    lies on this path: it runs on torch ops (cuDNN convolutions, cuBLAS
+    DFT products).
 
 The line before the last is a JSON object with one entry per kernel: its
 launches on its main path (phase 4 for chain and window_matmul, phase 8
@@ -349,6 +367,472 @@ def check_chain(ck, x_ext, n, label):
     print(f"  {label}: filtered {ey:.3e}  envelope {ee:.3e}  "
           f"psd {es:.3e} dB  psd_sum {eq:.3e} dB")
     return max(ey, ee), got
+
+
+# -- phases 10-11: the interactive path -----------------------------------
+
+IA_SECONDS = 180         # the interactive recording
+IA_VIEW = 2.0            # s in view
+IA_PAGES = (40, 10)      # pages forward, then back
+IA_JUMPS = (150.0, 10.0)
+IA_CUTOFFS = (30000.0, 20000.0, 35000.0, 40000.0)   # the lowpass scrub
+IA_NAMES = ("filtered", "envelope", "spectrogram")
+# a delta-stitched window against a full recompute of the same window:
+# the same float32 arithmetic over other sub-window edges
+TOL_DELTA = 1e-6
+
+
+def interactive_recording(seconds, channels, device):
+    """PCM-16 ``(n, channels)`` made on the card from :data:`SEED` and
+    returned on the host: noise plus a song (1.5 s of a channel's carrier,
+    2-8.75 kHz, amplitude-modulated at 100 Hz) every 9 s."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    n = int(seconds * RATE)
+    x = 0.02 * torch.randn((n, channels), generator=gen, device=device)
+    carriers = 2000.0 + 450.0 * torch.arange(channels, device=device,
+                                             dtype=torch.float64)
+    for s0 in np.arange(3.0, seconds - 2.0, 9.0):
+        i0, i1 = int(s0 * RATE), int((s0 + 1.5) * RATE)
+        t = torch.arange(i0, i1, device=device,
+                         dtype=torch.float64)[:, None] / RATE
+        am = 0.5 * (1 + torch.sin(2 * math.pi * 100.0 * t))
+        x[i0:i1] += (0.5 * am * torch.sin(2 * math.pi * carriers * t)).to(
+            x.dtype)
+    q = torch.clamp(torch.round(x * 32768.0), -32768, 32767)
+    return q.to(torch.int16).cpu().numpy()
+
+
+def open_interactive(path, dev):
+    """``Data`` as the browser opens it: a 60 s window with 20 s kept
+    behind the cursor, ``default_traces()`` with the filter set to
+    2-40 kHz (the 500 Hz envelope and the NFFT 256 spectrogram as they
+    come)."""
+    from audian_torch.data import Data, default_traces
+
+    d = Data(path, buffer_time=60.0, back_time=20.0, device=dev)
+    for node in default_traces():
+        d.add_trace(node)
+    d.open()
+    d["filtered"].update(highpass_cutoff=2000.0, lowpass_cutoff=40000.0)
+    return d
+
+
+class Refresh:
+    """The browser's refresh work after a move: the min/max tiles of
+    "filtered" and "envelope" and the uint8 dB tiles of the spectrogram,
+    for every channel, at the colour levels of the first window's noise
+    floor (``SpectrogramNode.estimate_noiselevels``' rule)."""
+
+    def __init__(self, dev):
+        from audian_torch.view.render import SpecTiler, TraceTiler
+
+        self.traces = TraceTiler(device=dev)
+        self.spec = SpecTiler(device=dev)
+        self.levels = None
+
+    def __call__(self, d, t0, t1):
+        from audian_torch.view.render import noise_level_stats
+
+        for name in ("filtered", "envelope"):
+            for c in range(d.channels):
+                self.traces.tile(d[name], t0, t1, channel=c)
+        spec = d["spectrogram"]
+        if self.levels is None:
+            nf = max(spec.buffer.shape[-1] // 16, 1)
+            stats = noise_level_stats(spec.buffer, nf).cpu().numpy()
+            zmin = stats[:, 0]
+            zmax = zmin + 0.95 * (stats[:, 1] - zmin)
+            zmax = np.maximum(zmax, zmin + 20.0)
+            zmin = np.maximum(zmin, zmax - 80.0)
+            self.levels = np.stack([zmin, zmax], axis=1).astype(np.float32)
+        for c in range(d.channels):
+            self.spec.tile(spec, c, self.levels[c, 0], self.levels[c, 1],
+                           quantize=True, t0=t0, t1=t1, levels=self.levels)
+
+
+def timed_move(d, refresh, t0):
+    """Host seconds of one move to [t0, t0 + IA_VIEW] and its refresh,
+    ended by a synchronize."""
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    d.update_times(t0, t0 + IA_VIEW)
+    refresh(d, t0, t0 + IA_VIEW)
+    torch.cuda.synchronize()
+    return time.perf_counter() - a
+
+
+def page_session(d, refresh):
+    """Page a 2 s view forward and back from 0 s; returns the host
+    seconds of each page and the number of pages that took the delta
+    path with a moved raw window."""
+    deltas = 0
+    orig = d._try_delta_update
+
+    def counting(dev, targets):
+        nonlocal deltas
+        hit = orig(dev, targets)
+        deltas += bool(hit and d._last_raw_shift)
+        return hit
+
+    d._try_delta_update = counting
+    fwd, back = IA_PAGES
+    starts = ([IA_VIEW * k for k in range(1, fwd + 1)]
+              + [IA_VIEW * (fwd - k) for k in range(1, back + 1)])
+    lat = [timed_move(d, refresh, t0) for t0 in starts]
+    d._try_delta_update = orig
+    return lat, deltas, starts[-1]
+
+
+def full_window(d, view):
+    """Snapshot of the trace windows, then the same windows recomputed
+    from a fresh upload without the delta path; returns both."""
+    snap = {n: (d[n].offset, d[n].buffer) for n in IA_NAMES}
+    t0, t1 = view
+    d._dev_raw = None
+    orig = d._try_delta_update
+    d._try_delta_update = lambda dev, targets: False
+    d.update_times(t0, t1)
+    d._try_delta_update = orig
+    return snap, {n: (d[n].offset, d[n].buffer) for n in IA_NAMES}
+
+
+def recompute_flop(d):
+    """Operations of one full recompute of the window: the filter's taps
+    over its output and the warm-up, both envelope passes over the padded
+    window, and the DFT products of the spectrogram's frames."""
+    plan, _ = d.executor._plan(d._dev_raw_off, d._dev_raw.shape[0],
+                               d.graph.active_set(IA_NAMES))
+    C = d.channels
+    filt, env, spec = (d[n]._node for n in IA_NAMES)
+    gf, ge, gs = (plan[n] for n in IA_NAMES)
+    flop = 2 * C * (gf.rel_s1 - gf.rel_s0) * filt.design.fir.length
+    flop += 2 * 2 * C * ((ge.rel_s1 - ge.rel_s0) + 2 * env.design.padlen) \
+        * env.design.fir.length
+    nbins = spec.nfft // 2 + 1
+    flop += gs.n_out * C * 2 * spec.nfft * 2 * nbins
+    return flop, plan
+
+
+def interactive_checks(d, path, refresh, dev, view):
+    """Phase 10's checks on the window left by the page session at
+    ``view``: delta == full, scipy float64 on a 2 s slice of channel 0,
+    exact min/max tiles, the raw window against the file, and the plan
+    cache under a cutoff scrub.  Returns the scrub's host seconds."""
+    from audian_torch.data.wavio import read_frames_raw16, wav_info
+    from audian_torch.ops.minmax import reduceat_like
+    from audian_torch.view.render import TraceTiler
+
+    t0, t1 = view
+    # the raw window equals the file's samples (the staging fence)
+    off, cap = d._dev_raw_off, d._dev_raw.shape[0]
+    info = wav_info(path)
+    codes = np.empty((cap, d.channels), np.int16)
+    require(read_frames_raw16(path, off, cap, info, codes) == cap,
+            "raw window read")
+    raw = d._dev_raw.cpu().numpy()
+    require(np.array_equal(raw, codes.astype(np.float32) / 32768.0),
+            "the raw window equals the file after the scrolls")
+    print(f"  raw window [{off}, {off + cap}) equals the file's samples")
+    # exact min/max tiles of the stitched window
+    exact = TraceTiler(quantize=False, device=dev)
+    for name in ("filtered", "envelope"):
+        tr = d[name]
+        for v0, v1 in ((t0, t1), (t0 - 10.0, t1 + 10.0)):
+            times, vals = exact.tile(tr, v0, v1)
+            step = int(round((times[1] - times[0]) * 2 * tr.rate))
+            start = int(round(times[0] * tr.rate))
+            n = len(vals) // 2
+            a = start - tr.offset
+            part = tr.buffer[a : a + n * step].cpu().numpy()
+            require(np.array_equal(vals, reduceat_like(part, step)),
+                    f"{name} min/max tile [{v0}, {v1}] == numpy")
+    print("  min/max tiles equal numpy's reduceat of the pulled windows "
+          "exactly")
+    # scipy float64 on a 2 s slice of channel 0
+    filt, env, spec = (d[n]._node for n in IA_NAMES)
+    rate = d.rate
+    i0, i1 = int(t0 * rate), int(t1 * rate)
+    warm = int(2 * rate)
+    s0, s1 = i0 - warm, i1 + warm
+    x = np.empty((s1 - s0, d.channels), np.int16)
+    read_frames_raw16(path, s0, s1 - s0, info, x)
+    x = x[:, 0].astype(np.float64) / 32768.0
+    ys = sps.sosfilt(filt.design.sos, x)
+    es = np.maximum(sps.sosfiltfilt(env.design.sos, (np.pi / 2) * np.abs(ys)),
+                    0.0)
+    ey = float(np.abs(d["filtered"][i0:i1, 0] - ys[warm:-warm]).max())
+    ee = float(np.abs(d["envelope"][i0:i1, 0] - es[warm:-warm]).max())
+    hop, nfft = spec.hop, spec.nfft
+    f0, f1 = -(-i0 // hop), (i1 - nfft) // hop
+    _, _, sx = sps.spectrogram(
+        ys[f0 * hop - s0 : (f1 - 1) * hop + nfft - s0], fs=rate,
+        window="hann", nperseg=nfft, noverlap=nfft - hop, detrend=False,
+        scaling="density", mode="psd")
+    got_s = torch.from_numpy(d["spectrogram"][f0:f1, 0])
+    sdb = psd_db_err(got_s, torch.from_numpy(sx.T))
+    require(ey <= TOL_FILTERED, f"interactive filtered vs scipy {ey}")
+    require(ee <= TOL_ENVELOPE, f"interactive envelope vs scipy {ee}")
+    require(sdb <= TOL_PSD_DB, f"interactive psd vs scipy {sdb} dB")
+    print(f"  stitched windows vs scipy float64 (ch 0, {t0}-{t1} s): "
+          f"filtered {ey:.3e} envelope {ee:.3e} psd {sdb:.3e} dB")
+    # delta == full
+    snap, full = full_window(d, view)
+    for name in IA_NAMES:
+        (o_s, b_s), (o_f, b_f) = snap[name], full[name]
+        require(o_s == o_f and b_s.shape == b_f.shape,
+                f"{name} window geometry after a full recompute")
+        err = max_abs(b_s, b_f)
+        require(bool(torch.isfinite(b_s).all()), f"{name} finite")
+        require(err <= TOL_DELTA, f"{name} delta vs full {err}")
+        print(f"  {name}: delta-stitched window == full recompute within "
+              f"{err:.3e} ({tuple(b_s.shape)})")
+    # the cutoff scrub adds no plan
+    size = d.executor.cache_size
+    scrub = []
+    for cutoff in IA_CUTOFFS:
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        d["filtered"].update(lowpass_cutoff=cutoff)
+        refresh(d, t0, t1)
+        torch.cuda.synchronize()
+        scrub.append(time.perf_counter() - a)
+    require(d.executor.cache_size == size,
+            f"cutoff scrub: {size} -> {d.executor.cache_size} plans")
+    print(f"  cutoff scrub {IA_CUTOFFS}: executor.cache_size stays {size}")
+    return scrub
+
+
+def node_split(d, reps=3):
+    """CUDA-event ms of each node's compute in one full recompute of the
+    window (the executor's loop, node by node), median of ``reps`` after a
+    warm-up, and the same loop's kernels under ``torch.profiler`` by
+    node."""
+    from audian_torch.graph import RAW
+
+    ex = d.executor
+    dev, off = d._dev_raw, d._dev_raw_off
+    plan, _ = ex._plan(off, dev.shape[0], d.graph.active_set(IA_NAMES))
+
+    def run(events=None, label=False):
+        bufs = {RAW: dev}
+        for node in d.graph.order:
+            name = node.name.lower()
+            g = plan[name]
+            src = bufs[node.source_name.lower()][g.rel_s0 : g.rel_s1]
+            params = ex._params(node)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            if label:
+                with torch.profiler.record_function(f"node:{name}"):
+                    bufs[name] = node.compute(src, g.lead, g.n_out, params)
+            else:
+                bufs[name] = node.compute(src, g.lead, g.n_out, params)
+            ev[1].record()
+            if events is not None:
+                events.setdefault(name, []).append(ev)
+        return bufs
+
+    run()
+    events = {}
+    for _ in range(reps):
+        run(events)
+    torch.cuda.synchronize()
+    ms = {n: float(np.median([a.elapsed_time(b) for a, b in evs]))
+          for n, evs in events.items()}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(label=True)
+        torch.cuda.synchronize()
+    by_node = {}
+    kernels = []
+    for e in prof.key_averages():
+        dt = getattr(e, "device_time_total", 0.0)
+        if e.key.startswith("node:"):
+            by_node[e.key[5:]] = dt / 1e3
+        elif (e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0):
+            kernels.append((e.self_device_time_total / 1e3, e.key))
+    return ms, by_node, sorted(kernels, reverse=True)
+
+
+def busy_share(d, refresh, starts):
+    """Host seconds and device-busy seconds of the pages to ``starts``
+    under ``torch.profiler``."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        for t0 in starts:
+            d.update_times(t0, t0 + IA_VIEW)
+            refresh(d, t0, t0 + IA_VIEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - a
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    return wall, busy
+
+
+def page_split(d, refresh, starts):
+    """Median host ms of each step of a page: the loader's move of its
+    host window (``AudioLoader.update_time``), the device update (raw
+    upload, slides and the delta recompute, synchronized) and the
+    refresh (tiles); and of one host copy of a window-sized float32
+    array, what the loader's move copies."""
+    steps = {"loader": [], "device": [], "tiles": []}
+    for t0 in starts:
+        t1 = t0 + IA_VIEW
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        d.data.update_time(max(t0 - d.tbefore, 0.0),
+                           min(t1 + d.tafter, d.frames / d.rate))
+        b = time.perf_counter()
+        d.update_times(t0, t1)          # the loader's window is in place
+        torch.cuda.synchronize()
+        c = time.perf_counter()
+        refresh(d, t0, t1)
+        torch.cuda.synchronize()
+        e = time.perf_counter()
+        for k, v in zip(steps, (b - a, c - b, e - c)):
+            steps[k].append(1e3 * v)
+    buf = d.data.buffer
+    spare = np.empty_like(buf)
+    copies = []
+    for _ in range(5):
+        a = time.perf_counter()
+        np.copyto(spare, buf)
+        copies.append(1e3 * (time.perf_counter() - a))
+    out = {k: float(np.median(v)) for k, v in steps.items()}
+    out["window copy"] = float(np.median(copies))
+    return out
+
+
+def pcts(lat):
+    lat = np.asarray(lat) * 1e3
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
+
+
+def interactive_phases(card, dev):
+    """Phases 10 and 11: the interactive data path on the card."""
+    from audian_torch.view.render import window_extrema
+
+    print(f"phase 10: the interactive path, a {IA_SECONDS} s x {C} ch x "
+          f"96 kHz PCM-16 WAV, 60 s window, 2 s view")
+    t_rec = time.perf_counter()
+    pcm = interactive_recording(IA_SECONDS, C, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "interactive.wav")
+        scipy.io.wavfile.write(path, int(RATE), pcm)
+        path8 = os.path.join(tmp, "interactive8.wav")
+        scipy.io.wavfile.write(path8, int(RATE),
+                               np.ascontiguousarray(pcm[:, :8]))
+        del pcm
+        print(f"  recordings made and written in "
+              f"{time.perf_counter() - t_rec:.2f} s")
+        refresh = Refresh(dev)
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        d = open_interactive(path, dev)
+        d.update_times(0.0, IA_VIEW)
+        refresh(d, 0.0, IA_VIEW)
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - a
+        lat, deltas, last = page_session(d, refresh)
+        require(deltas >= 1, "a page took the delta path")
+        print(f"  {len(lat)} pages, {deltas} with a moved raw window on "
+              f"the delta path; executor plans {d.executor.cache_size}")
+        scrub = interactive_checks(d, path, refresh, dev,
+                                   (last, last + IA_VIEW))
+        jumps = [timed_move(d, refresh, t0) for t0 in IA_JUMPS]
+        for name in IA_NAMES:
+            buf = d[name].buffer
+            require(bool(torch.isfinite(buf).all()) and len(buf) > 0,
+                    f"{name} window finite after the jumps")
+
+        # -- phase 11: times -------------------------------------------------
+        print("phase 11: interactive times (host clock, each ended by a "
+              "synchronize, unless marked CUDA events)")
+        nfft_s = []
+        for nfft in (512, 256, 512, 256):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            d["spectrogram"].update(nfft=nfft)
+            refresh.levels = None
+            refresh(d, IA_JUMPS[-1], IA_JUMPS[-1] + IA_VIEW)
+            torch.cuda.synchronize()
+            nfft_s.append(time.perf_counter() - a)
+        # autoscale of a fresh window: the first channel pulls all
+        d.update_times(40.0, 40.0 + IA_VIEW)
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        for c in range(d.channels):
+            window_extrema(d["filtered"], 40.0, 40.0 + IA_VIEW, c)
+        extrema_s = time.perf_counter() - a
+        # the full-window recompute and its split by node
+        d.update_times(100.0, 100.0 + IA_VIEW)
+        flop, plan = recompute_flop(d)
+        dev_raw, off = d._dev_raw, d._dev_raw_off
+        full_ms = median_ms(lambda: d.executor.run(dev_raw, off,
+                                                   targets=IA_NAMES))
+        split_ms, prof_ms, kernels = node_split(d)
+        # the device's busy share of 20 pages, then the steps of 10 more;
+        # from 40 s each page moves the loader's window by 2 s (its 60 s
+        # window ends before the file's end there)
+        d.update_times(40.0, 40.0 + IA_VIEW)
+        wall, busy = busy_share(d, refresh, [40.0 + IA_VIEW * k
+                                             for k in range(1, 21)])
+        split = page_split(d, refresh, [80.0 + IA_VIEW * k
+                                        for k in range(1, 11)])
+        p50, p95 = pcts(lat)
+        print(f"  open + first render: {1e3 * open_s:.2f} ms  [{card}]")
+        print(f"  scroll at {C} ch ({len(lat)} pages): p50 {p50:.3f} ms  "
+              f"p95 {p95:.3f} ms  max {1e3 * max(lat):.3f} ms  [{card}]")
+        print(f"  jumps {IA_JUMPS}: " + "  ".join(
+            f"{1e3 * s:.2f} ms" for s in jumps) + f"  [{card}]")
+        print(f"  cutoff scrub {IA_CUTOFFS}: " + "  ".join(
+            f"{1e3 * s:.2f}" for s in scrub) + f" ms  [{card}]")
+        print("  NFFT 256 -> 512 -> 256 -> 512 -> 256: " + "  ".join(
+            f"{1e3 * s:.2f}" for s in nfft_s) + f" ms  [{card}]")
+        print(f"  window_extrema autoscale ({d.channels} channels, one "
+              f"pull): {1e3 * extrema_s:.3f} ms  [{card}]")
+        win = plan["filtered"].n_out
+        print(f"  full-window recompute ({win} frames x {C} ch, "
+              f"{flop / 1e12:.3f} TFLOP): {full_ms:.3f} ms CUDA events, "
+              f"{flop / full_ms / 1e9:.2f} TFLOP/s  [{card}]")
+        print("  by node, CUDA events (ms): " + "  ".join(
+            f"{n} {v:.3f}" for n, v in split_ms.items()))
+        if any(prof_ms.values()):
+            print("  by node under torch.profiler (device ms): " + "  ".join(
+                f"{n} {v:.3f}" for n, v in prof_ms.items()))
+        else:
+            print("  by node under torch.profiler: not measured (no device "
+                  "time on the node ranges)")
+        for t, key in kernels[:6]:
+            print(f"    {t:10.4f}  {key[:90]}")
+        if busy > 0:
+            print(f"  20 pages under torch.profiler: wall {wall:.4f} s, "
+                  f"device busy {busy:.4f} s ({100 * busy / wall:.1f} %)  "
+                  f"[{card}]")
+        else:
+            print("  scroll device busy share: not measured (the profiler "
+                  "recorded no device time)")
+        print("  a page, median of 10 (host ms): " + "  ".join(
+            f"{k} {v:.3f}" for k, v in split.items()) + f"  [{card}]")
+        d.close()
+        del d
+        # the same pages at 8 channels
+        d8 = open_interactive(path8, dev)
+        refresh8 = Refresh(dev)
+        d8.update_times(0.0, IA_VIEW)
+        refresh8(d8, 0.0, IA_VIEW)
+        lat8, _, _ = page_session(d8, refresh8)
+        d8.close()
+        del d8
+    p50_8, p95_8 = pcts(lat8)
+    print(f"  scroll at 8 ch ({len(lat8)} pages): p50 {p50_8:.3f} ms  "
+          f"p95 {p95_8:.3f} ms  max {1e3 * max(lat8):.3f} ms  [{card}]")
 
 
 def main():
@@ -923,6 +1407,9 @@ def main():
     print(f"  1-hour detect loop ({nhour} chunks x {C} ch, device-resident): "
           f"kernel {hour_det_ms / 1e3:.4f} s per recording hour  plain "
           f"{hour_det_plain_ms / 1e3:.4f} s  [{card}]")
+
+    # -- phases 10-11: the interactive path -------------------------------
+    interactive_phases(card, dev)
 
     wm_bound = bound(wm_flop, wm_bytes)
     wm_bound_tc = bound_tc(wm_flop, wm_bytes)

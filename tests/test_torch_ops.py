@@ -110,3 +110,138 @@ def test_frame_signal_and_decibel(x):
     np.testing.assert_allclose(stft.inverse_decibel(db, 2.0).numpy(),
                                np.asarray(jstft.inverse_decibel(
                                    db.numpy(), 2.0)))
+
+
+# -- min/max decimation, spectrogram sweeps, dB tiles and playback ----------
+
+from audian_tpu.ops import minmax as jminmax
+from audian_tpu.ops import mix as jmix
+from audian_tpu.ops import sweep as jsweep
+
+from audian_torch.ops import minmax, mix, sweep
+
+
+@pytest.mark.parametrize("n,step", [(1000, 10), (1003, 10), (7, 3),
+                                    (4096, 64), (5, 8), (100, 1)])
+def test_minmax_interleaved_ragged_tails(n, step):
+    x = np.random.default_rng(n + step).standard_normal((n, 3)).astype(
+        np.float32)
+    got = minmax.minmax_interleaved(torch.from_numpy(x), step).numpy()
+    if step > 1:
+        np.testing.assert_array_equal(got, minmax.reduceat_like(x, step))
+    np.testing.assert_array_equal(got, np.asarray(
+        jminmax.minmax_interleaved(x, step)))
+
+
+def test_minmax_int16_and_pyramid():
+    rng = np.random.default_rng(9)
+    q = rng.integers(-32768, 32767, (1001, 2), dtype=np.int16)
+    mins, maxs = minmax.minmax_decimate(torch.from_numpy(q), 7)
+    assert mins.dtype == torch.int16
+    np.testing.assert_array_equal(
+        minmax.interleave_minmax(mins, maxs).numpy(),
+        minmax.reduceat_like(q, 7))
+    x = rng.standard_normal((10007, 2)).astype(np.float32)
+    got = minmax.minmax_pyramid(torch.from_numpy(x), 16)
+    want = jminmax.minmax_pyramid(x, 16)
+    assert len(got) == len(want) == minmax.pyramid_levels(10007, 16)
+    for k, ((a, b), (c, d)) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+        np.testing.assert_array_equal(b.numpy(), np.asarray(d))
+        # level k is the direct decimation by 16 * 2**k
+        np.testing.assert_array_equal(
+            minmax.interleave_minmax(a, b).numpy(),
+            minmax.reduceat_like(x, 16 << k))
+
+
+def test_spectrogram_sweep_matches_jax(x):
+    nffts = (128, 256, 1024, 2048)
+    got = sweep.spectrogram_sweep(torch.from_numpy(x), RATE, nffts, 0.75)
+    want = jsweep.spectrogram_sweep(x, RATE, nffts, 0.75)
+    assert set(got) == set(want) == set(nffts)
+    for nfft in nffts:
+        assert got[nfft].shape == want[nfft].shape
+        np.testing.assert_allclose(got[nfft].numpy(),
+                                   np.asarray(want[nfft]), rtol=1e-4,
+                                   atol=1e-10)
+
+
+def test_db_quantize_and_normalize_match_jax(x):
+    psd = stft.spectrogram(torch.from_numpy(x), RATE, 256, 128)
+    for zmin, zmax in ((-120.0, -40.0), (-80.0, -80.0), (-100.0, -20.0)):
+        got = sweep.db_quantize(psd, zmin, zmax).numpy()
+        want = np.asarray(jsweep.db_quantize(psd.numpy(), zmin, zmax))
+        assert got.dtype == np.uint8
+        assert np.abs(got.astype(int) - want).max() <= 1
+        np.testing.assert_allclose(
+            sweep.db_normalize(psd, zmin, zmax).numpy(),
+            np.asarray(jsweep.db_normalize(psd.numpy(), zmin, zmax)),
+            atol=1e-5)
+
+
+def test_mix_steps_match_jax(x):
+    sig = torch.from_numpy(x)
+    np.testing.assert_allclose(mix.stereo_mixdown(sig, [1, 0]).numpy(),
+                               np.asarray(jmix.stereo_mixdown(x, [1, 0])),
+                               atol=1e-7)
+    x3 = np.concatenate([x, x[:, :1]], axis=1)
+    np.testing.assert_allclose(
+        mix.stereo_mixdown(torch.from_numpy(x3)).numpy(),
+        np.asarray(jmix.stereo_mixdown(x3)), atol=1e-7)
+    np.testing.assert_allclose(mix.heterodyne(sig, RATE, 7000.0).numpy(),
+                               np.asarray(jmix.heterodyne(x, RATE, 7000.0)),
+                               atol=1e-6)
+    np.testing.assert_allclose(mix.fade(sig, RATE, 0.01).numpy(),
+                               np.asarray(jmix.fade(x, RATE, 0.01)),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("het", [False, True])
+def test_prepare_playback_matches_jax(het):
+    rng = np.random.default_rng(10)
+    x = (0.2 * rng.standard_normal((20000, 4))).astype(np.float32)
+    kw = dict(channels=[0, 2, 3], use_heterodyne=het,
+              heterodyne_freq=30000.0, rate_fac=2.0, fade_time=0.05)
+    got, got_rate = mix.prepare_playback(torch.from_numpy(x), 96000.0, **kw)
+    want, want_rate = jmix.prepare_playback(x, 96000.0, **kw)
+    assert got_rate == want_rate and got.shape == want.shape
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,bits", [(np.int16, 16), (np.int32, 32),
+                                        (np.int8, 8)])
+def test_prepare_playback_scales_signed_ints(dtype, bits):
+    """Any signed integer input is scaled by 2^(bits-1); the JAX package
+    scales only int16 (its heterodyne and fade cast other integers
+    unscaled), so the port is held against the JAX result of the scaled
+    floats."""
+    rng = np.random.default_rng(bits)
+    info = np.iinfo(dtype)
+    q = rng.integers(info.min, info.max, (6000, 2), dtype=dtype)
+    floats = (q.astype(np.float64) / 2.0 ** (bits - 1)).astype(np.float32)
+    got, _ = mix.prepare_playback(torch.from_numpy(q), 48000.0,
+                                  use_heterodyne=True,
+                                  heterodyne_freq=10000.0)
+    want, _ = jmix.prepare_playback(floats, 48000.0, use_heterodyne=True,
+                                    heterodyne_freq=10000.0)
+    same, _ = mix.prepare_playback(torch.from_numpy(floats), 48000.0,
+                                   use_heterodyne=True,
+                                   heterodyne_freq=10000.0)
+    np.testing.assert_array_equal(got.numpy(), same.numpy())
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    het = mix.heterodyne(torch.from_numpy(q), 48000.0, 5000.0).numpy()
+    np.testing.assert_allclose(het, np.asarray(jmix.heterodyne(
+        floats, 48000.0, 5000.0)), atol=1e-6)
+
+
+def test_ops_put_host_data_on_cuda_by_default(x):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    for call in (lambda: minmax.minmax_decimate(x, 4),
+                 lambda: minmax.minmax_pyramid(x, 4),
+                 lambda: sweep.spectrogram_sweep(x, RATE, (256,)),
+                 lambda: mix.prepare_playback(x, RATE)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert minmax.minmax_decimate(x, 4, device="cpu")[0].device.type == "cpu"

@@ -24,10 +24,17 @@ from audian_tpu.ops.fused import FusedChainCF as JaxChain
 from audian_torch.analysis import events
 from audian_torch.cli import songdetector
 from audian_torch.convert import (ARRAY_KEYS, chain_from_arrays,
-                                  envdet_from_arrays)
+                                  envdet_from_arrays,
+                                  node_params_from_arrays)
+from audian_torch.data import Data
 from audian_torch.data.wavio import read_frames_raw16, wav_info
 from audian_torch.entry import entry as torch_entry
+from audian_torch.graph import GraphExecutor, SpectrogramNode, TraceGraph
 from audian_torch.models import get_preset
+from audian_torch.ops import (minmax_decimate, minmax_pyramid,
+                              prepare_playback, spectrogram_sweep)
+from audian_torch.ops.stft import hann_window
+from audian_torch.view.render import SpecTiler, TraceTiler
 from audian_torch.ops.cuda.chain import ChainKernel, chain
 from audian_torch.ops.cuda.envdet import EnvDetKernel
 from audian_torch.ops.cuda.window_matmul import window_matmul
@@ -197,6 +204,18 @@ ENTRY_POINTS = {
                                                         device=d),
     "songdetector.main": lambda d: songdetector.main(["--mesh", "1"],
                                                      device=d),
+    "Data": lambda d: Data("never-opened.wav", device=d),
+    "GraphExecutor": lambda d: GraphExecutor(TraceGraph(), device=d),
+    "TraceTiler": lambda d: TraceTiler(device=d),
+    "SpecTiler": lambda d: SpecTiler(device=d),
+    "minmax_decimate": lambda d: minmax_decimate(_SIGNAL, 16, device=d),
+    "minmax_pyramid": lambda d: minmax_pyramid(_SIGNAL, 16, device=d),
+    "spectrogram_sweep": lambda d: spectrogram_sweep(_SIGNAL, 8000.0,
+                                                     (256,), device=d),
+    "prepare_playback": lambda d: prepare_playback(_SIGNAL, 8000.0,
+                                                   device=d),
+    "node_params_from_arrays": lambda d: node_params_from_arrays(
+        SpectrogramNode(), hann_window(256), device=d),
 }
 
 
