@@ -9,11 +9,11 @@ the same CSV table.
 
     python -m audian_torch.cli.songdetector recording.wav [-o songs.csv]
 
-Recordings are read as raw PCM-16 (WAV, RF64, W64) through
-:mod:`audian_torch.data.wavio`.  Other encodings and containers need the
-``AudioLoader``, which the port does not have yet; so do the interactive
-viewer (``-p``, ``--plot-png``), ``-j`` and ``--mesh``, which stop with a
-message (ROADMAP.md, Queue 1).
+Recordings (WAV, RF64, W64) are read through the port's
+:class:`~audian_torch.data.loader.AudioLoader`: PCM-16 as raw int16 codes
+(dequantized on the card), every other encoding decoded to float32.  The
+interactive viewer (``-p``, ``--plot-png``), ``-j`` and ``--mesh`` are not
+ported yet and stop with a message (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from .. import __version__
 from ..analysis.events import detect
 from ..analysis.table import ResultTable
 from ..config import ConfigFile
-from ..data.wavio import WavError, read_frames_raw16, wav_info
+from ..data.loader import AudioLoader
 from ..utils import resolve_device
 
 
@@ -64,23 +64,22 @@ def default_config():
     return cfg
 
 
-def read_pcm16(path):
-    """``(int16 frames (n, channels), rate)`` of a PCM-16 WAV/RF64/W64
-    file.  Anything else raises :class:`WavError` naming the missing
-    loader."""
+def load_recording(path):
+    """``(frames (n, channels), rate)`` of a whole recording: the raw
+    int16 codes when the loader is ``raw16_capable`` (``detect``
+    dequantizes them on the device), else float32 through the loader's
+    decode."""
+    ld = AudioLoader(path, prefetch=False)
     try:
-        info = wav_info(path)
-    except WavError as e:
-        raise WavError(f"{e}; other containers need the AudioLoader, which "
-                       f"audian_torch has not ported yet") from None
-    rate, channels, frames, enc, _ = info
-    if enc != "PCM_16":
-        raise WavError(f"{path}: {enc} needs the AudioLoader, which "
-                       f"audian_torch has not ported yet (it reads PCM-16 "
-                       f"WAV, RF64 and W64)")
-    data = np.empty((frames, channels), np.int16)
-    got = read_frames_raw16(path, 0, frames, info, data)
-    return data[:got], rate
+        if ld.raw16_capable:
+            data = np.empty((ld.frames, ld.channels), np.int16)
+            ld.read_raw16_into(0, ld.frames, data)
+        else:
+            data = np.empty((ld.frames, ld.channels), np.float32)
+            ld._read_into(0, ld.frames, data)
+    finally:
+        ld.close()
+    return data, ld.rate
 
 
 def main(cargs=None, device=None):
@@ -148,8 +147,8 @@ def main(cargs=None, device=None):
         """Detect songs in one file; returns (path, nsongs, out) or the
         error message of a file that could not be read."""
         try:
-            data, rate = read_pcm16(path)
-        except (OSError, WavError) as e:
+            data, rate = load_recording(path)
+        except Exception as e:
             return f"{path}: {e}"
         if args.verbose:
             print(f"loaded {path} ({data.shape[0]} frames @ {rate:.0f} Hz)",

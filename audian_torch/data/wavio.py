@@ -1,4 +1,5 @@
-"""WAV reads (RIFF, RF64/BW64, Sony Wave64) with metadata and markers.
+"""WAV reads (RIFF, RF64/BW64, Sony Wave64) and writes, with metadata and
+markers.
 
 The batch chain's read path: :func:`wav_info` scans the chunk headers,
 and :func:`read_frames_raw16` reads a frame range as little-endian int16
@@ -7,8 +8,12 @@ device).  The loader's float path: :func:`read_frames` decodes PCM_U8/16/
 24/32, FLOAT and DOUBLE frames to float64.  :func:`scan_wav` reads the
 metadata (LIST-INFO tags, the broadcast-wave ``bext`` chunk) and the
 markers (``cue`` plus LIST-adtl ``labl``/``note``/``ltxt``) without the
-payload.  Pure numpy and the standard library, copied from
-``audian_tpu/data/wavio.py``; FLAC and other containers are not read here.
+payload.  :func:`write_audio` writes PCM_16/24/32, PCM_U8, FLOAT and
+DOUBLE WAV (RF64 past 4 GiB) with the same metadata and markers, and
+:func:`update_starttime`, :func:`bext_history_str` and :func:`add_history`
+edit the metadata of a region export.  Pure numpy and the standard
+library, copied from ``audian_tpu/data/wavio.py``; FLAC and other
+containers are neither read nor written here.
 """
 
 from __future__ import annotations
@@ -20,8 +25,10 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["WavError", "get_datetime", "markers", "metadata", "read_frames",
-           "read_frames_raw16", "scan_wav", "unwrap", "wav_info"]
+__all__ = ["WavError", "add_history", "available_encodings",
+           "bext_history_str", "get_datetime", "load_audio", "markers",
+           "metadata", "read_frames", "read_frames_raw16", "scan_wav",
+           "unwrap", "update_starttime", "wav_info", "write_audio"]
 
 
 class WavError(ValueError):
@@ -48,6 +55,7 @@ _INFO_TAGS = {
     "IPRD": "Product", "ISFT": "Software", "ISRC": "Source",
     "ICOP": "Copyright", "ISBJ": "Subject",
 }
+_INFO_TAGS_INV = {v: k for k, v in _INFO_TAGS.items()}
 
 _BEXT_FIELDS = [
     ("Description", 256), ("Originator", 32), ("OriginatorReference", 32),
@@ -257,6 +265,13 @@ def read_frames(path, start, nframes, info=None):
     return _decode(raw, tag, bits, channels)
 
 
+def load_audio(path):
+    """``(data, rate)`` of a whole WAV file, decoded to float values in
+    [-1, 1] (float32 for FLOAT files, float64 otherwise)."""
+    info = wav_info(path)
+    return read_frames(path, 0, info[2], info), info[0]
+
+
 def _cstr(b):
     return b.split(b"\x00", 1)[0].decode("latin-1", "replace").strip()
 
@@ -427,3 +442,229 @@ def unwrap(data, thresh=1.5, clips=False, ampl_max=1.0, start_shift=0.0,
     if return_shift:
         return data, final
     return data
+
+
+# ---------------------------------------------------------------------------
+# writing
+# ---------------------------------------------------------------------------
+
+_RIFF_MAX = 0xFFFFFFFE
+
+
+def available_encodings(format="WAV"):
+    if (format or "").upper() == "FLAC":
+        return ["PCM_16", "PCM_24", "PCM_32"]  # FLAC is integer-only
+    return list(_ENCODINGS)
+
+
+def _encode(data, encoding):
+    tag, bits = _ENCODINGS[encoding]
+    data = np.asarray(data)
+    if data.ndim == 1:
+        data = data[:, None]
+    if np.issubdtype(data.dtype, np.unsignedinteger):
+        raise WavError("unsigned integer samples are ambiguous; pass "
+                       "signed PCM codes or float in [-1, 1]")
+    if np.issubdtype(data.dtype, np.integer):
+        # integer input is PCM codes at the dtype's width (k / 2^15 for
+        # int16, k / 2^31 for int32), not floats to clip: an int16 array
+        # written as PCM_16 round-trips bit-exactly
+        width = data.dtype.itemsize * 8
+        data = data.astype(np.float64) / float(2 ** (width - 1))
+    if tag == 3:
+        return data.astype("<f4" if bits == 32 else "<f8").tobytes(), tag, bits
+    clipped = np.clip(data, -1.0, 1.0 - 2.0 ** (1 - bits))
+    scaled = np.round(clipped * 2 ** (bits - 1)).astype(np.int64)
+    if bits == 16:
+        return scaled.astype("<i2").tobytes(), tag, bits
+    if bits == 32:
+        return scaled.astype("<i4").tobytes(), tag, bits
+    if bits == 24:
+        ints = scaled.astype(np.int64) & 0xFFFFFF
+        b = np.empty(ints.shape + (3,), np.uint8)
+        b[..., 0] = ints & 0xFF
+        b[..., 1] = (ints >> 8) & 0xFF
+        b[..., 2] = (ints >> 16) & 0xFF
+        return b.tobytes(), tag, bits
+    if bits == 8:  # unsigned, 128 offset (the _decode inverse)
+        return (np.clip(scaled + 128, 0, 255).astype(np.uint8).tobytes(),
+                tag, bits)
+    raise WavError(f"unsupported encoding {encoding}")
+
+
+def _chunk_exact(cid, body):
+    pad = b"\x00" if len(body) & 1 else b""
+    return cid + struct.pack("<I", len(body)) + body + pad
+
+
+def _build_bext(bext):
+    body = b""
+    for name, n in _BEXT_FIELDS:
+        body += str(bext.get(name, ""))[:n].encode(
+            "latin-1", "replace").ljust(n, b"\x00")
+    tr = int(bext.get("TimeReference", 0))
+    body += struct.pack("<II", tr & 0xFFFFFFFF, tr >> 32)
+    body += struct.pack("<H", int(bext.get("Version", 1)))
+    body += b"\x00" * 64   # UMID
+    body += b"\x00" * 10   # loudness
+    body += b"\x00" * 180  # reserved
+    hist = str(bext.get("CodingHistory", ""))
+    if hist:
+        body += hist.encode("latin-1", "replace")
+        if not body.endswith(b"\r\n"):
+            body += b"\r\n"
+    return body
+
+
+def _marker_chunks(locs, labels):
+    """The ``cue`` chunk and the LIST-adtl ``labl``/``note``/``ltxt``
+    entries of ``locs`` (n, 2) ``[position, span]`` and ``labels`` (n, 2)
+    ``[label, text]``."""
+    locs = np.asarray(locs)
+    if locs.ndim == 1:
+        locs = np.stack([locs, np.zeros_like(locs)], axis=1)
+    cue = struct.pack("<I", len(locs))
+    adtl = b""
+    for k, (pos, span) in enumerate(locs):
+        cue += struct.pack("<IIIIII", k + 1, int(pos), 0x61746164, 0, 0,
+                           int(pos))
+        label, text = "", ""
+        if labels is not None and k < len(labels):
+            pair = np.atleast_1d(labels[k])
+            label = str(pair[0]) if len(pair) > 0 and pair[0] else ""
+            text = str(pair[1]) if len(pair) > 1 and pair[1] else ""
+        if label:
+            adtl += _chunk_exact(
+                b"labl", struct.pack("<I", k + 1)
+                + label.encode("latin-1", "replace") + b"\x00")
+        if text:
+            adtl += _chunk_exact(
+                b"note", struct.pack("<I", k + 1)
+                + text.encode("latin-1", "replace") + b"\x00")
+        if span:
+            adtl += _chunk_exact(
+                b"ltxt", struct.pack("<II", k + 1, int(span)) + b"\x00" * 12)
+    chunks = [_chunk_exact(b"cue ", cue)]
+    if adtl:
+        chunks.append(_chunk_exact(b"LIST", b"adtl" + adtl))
+    return chunks
+
+
+def write_audio(path, data, rate, metadata=None, locs=None, labels=None,
+                encoding="PCM_16", format="WAV"):
+    """Write a WAV file with optional metadata and markers (audioio's
+    ``write_audio`` call shape).
+
+    ``data`` is float in [-1, 1] or signed integer PCM codes at the
+    dtype's width.  Payloads past the 32-bit RIFF size cap are written as
+    RF64 (EBU tech 3306: ``RF64`` magic plus a ``ds64`` chunk with the
+    64-bit sizes); ``format="RF64"`` forces that container.  A ``.flac``
+    target or any other format raises: the port writes WAV only (FLAC
+    export waits for the FLAC codec, ROADMAP.md Queue 1 #6)."""
+    fmt = (format or "WAV").upper()
+    if (fmt == "FLAC" or str(encoding).upper() == "FLAC"
+            or str(path).lower().endswith(".flac")):
+        raise WavError(f"{path}: audian_torch writes WAV only; FLAC export "
+                       f"is not ported yet (ROADMAP.md, Queue 1 #6)")
+    if fmt not in ("WAV", "RF64"):
+        raise ValueError(f"unsupported format: {format}")
+    if encoding not in _ENCODINGS:
+        raise WavError(f"unsupported encoding {encoding}")
+    data = np.asarray(data)
+    if data.ndim == 1:
+        data = data[:, None]
+    raw, tag, bits = _encode(data, encoding)
+    channels = data.shape[1]
+    bpf = channels * (bits // 8)
+    # ByteRate is informational; clamp it for the huge synthetic rates the
+    # overview cache writes (its rate is scaled by 1e6)
+    byte_rate = min(int(round(rate)) * bpf, 0xFFFFFFFF)
+    chunks = [_chunk_exact(b"fmt ", struct.pack(
+        "<HHIIHH", tag, channels, int(round(rate)), byte_rate, bpf, bits))]
+    md = dict(metadata or {})
+    bext = md.pop("BEXT", None)
+    if bext:
+        chunks.append(_chunk_exact(b"bext", _build_bext(bext)))
+    info_entries = b""
+    for key, val in md.items():
+        if isinstance(val, dict):
+            continue  # non-INFO sections are not representable
+        tag4 = _INFO_TAGS_INV.get(key, key if len(key) == 4 else None)
+        if tag4 is None:
+            continue
+        body = str(val).encode("latin-1", "replace") + b"\x00"
+        info_entries += _chunk_exact(tag4.encode("latin-1"), body)
+    if info_entries:
+        chunks.append(_chunk_exact(b"LIST", b"INFO" + info_entries))
+    if locs is not None and len(locs):
+        chunks += _marker_chunks(locs, labels)
+    meta = b"".join(chunks)
+    data_size = len(raw)
+    pad = b"\x00" if data_size & 1 else b""
+    riff_size = 4 + len(meta) + 8 + data_size + len(pad)
+    with Path(path).open("wb") as f:
+        if riff_size <= _RIFF_MAX and fmt != "RF64":
+            f.write(b"RIFF" + struct.pack("<I", riff_size) + b"WAVE")
+            f.write(meta)
+            f.write(b"data" + struct.pack("<I", data_size))
+        else:
+            # the 32-bit size fields hold the 0xFFFFFFFF placeholder, the
+            # true riff/data sizes live in the leading ds64
+            ds64 = struct.pack("<QQQI", riff_size + 36, data_size,
+                               data_size // max(bpf, 1), 0)
+            f.write(b"RF64" + struct.pack("<I", 0xFFFFFFFF) + b"WAVE")
+            f.write(b"ds64" + struct.pack("<I", len(ds64)) + ds64)
+            f.write(meta)
+            f.write(b"data" + struct.pack("<I", 0xFFFFFFFF))
+        f.write(raw)
+        f.write(pad)
+    return Path(path)
+
+
+def update_starttime(md, deltat, rate):
+    """Shift the recording start time in ``md`` by ``deltat`` seconds (a
+    region cut out of the recording starts later)."""
+    start = get_datetime(md)
+    if start is not None:
+        new = start + dt.timedelta(seconds=float(deltat))
+        if "BEXT" in md and "OriginationDate" in md["BEXT"]:
+            md["BEXT"]["OriginationDate"] = new.date().isoformat()
+            md["BEXT"]["OriginationTime"] = new.time().strftime("%H:%M:%S")
+        if "Date" in md:
+            md["Date"] = new.isoformat()
+    bext = md.get("BEXT")
+    if bext and "TimeReference" in bext:
+        bext["TimeReference"] = int(bext["TimeReference"]) + int(
+            round(float(deltat) * rate))
+    return md
+
+
+def bext_history_str(encoding, rate, channels, text=None):
+    """One BWF CodingHistory line, ``A=PCM,F=...,W=...,M=...``."""
+    enc = str(encoding or "PCM_16").upper()
+    bits = {"FLOAT": 32, "DOUBLE": 64}.get(enc)
+    if bits is None:
+        # PCM_16/24/32, PCM_U8, FLAC_16/24/...: the trailing digits are
+        # the word length
+        tail = "".join(c for c in enc.rsplit("_", 1)[-1] if c.isdigit())
+        bits = int(tail) if tail else 16
+    mode = {1: "mono", 2: "stereo"}.get(int(channels), f"{channels}ch")
+    s = f"A=PCM,F={int(round(rate))},W={bits},M={mode}"
+    if text:
+        s += f",T={text}"
+    return s
+
+
+def add_history(md, history, key="CodingHistory", pre_history=None):
+    """Append a history line to the metadata under ``key`` (a dotted path
+    is allowed), seeding with ``pre_history`` if the field was empty."""
+    d = md
+    parts = key.split(".")
+    for p in parts[:-1]:
+        d = d.setdefault(p, {})
+    field = parts[-1]
+    old = d.get(field, "")
+    if not old and pre_history:
+        old = pre_history
+    d[field] = (old + "\r\n" + history) if old else history
+    return md

@@ -1,10 +1,13 @@
-"""Chain presets: the named processing chains of audian, each building
-the matching :class:`audian_torch.ops.fused.FusedChainCF`."""
+"""Chain presets: the named processing chains of audian.  Each builds the
+trace nodes of the interactive graph (:meth:`ChainPreset.nodes`) and the
+matching batch chain (:meth:`ChainPreset.fused`), so interactive and batch
+runs of one analysis agree by construction."""
 
 from __future__ import annotations
 
 import dataclasses
 
+from .graph import EnvelopeNode, FilterNode, SpectrogramNode
 from .ops.design import design_envelope_filter, design_filter
 from .ops.fused import FusedChainCF
 
@@ -23,6 +26,25 @@ class ChainPreset:
     envelope_cutoff: float | None = None
     nfft: int = 256
     overlap_frac: float = 0.5
+
+    def nodes(self):
+        """Trace nodes for the interactive graph."""
+        out = [FilterNode("filtered", "data")]
+        if self.envelope_cutoff:
+            out.append(EnvelopeNode("envelope", "filtered",
+                                    envelope_cutoff=self.envelope_cutoff))
+        out.append(SpectrogramNode("spectrogram", "filtered",
+                                   nfft=self.nfft,
+                                   overlap_frac=self.overlap_frac))
+        return out
+
+    def apply(self, data):
+        """Install the filter design on an (open) ``Data``."""
+        if "filtered" in data and (self.highpass_cutoff
+                                   or self.lowpass_cutoff):
+            data["filtered"].update(highpass_cutoff=self.highpass_cutoff,
+                                    lowpass_cutoff=self.lowpass_cutoff)
+        return data
 
     def fused(self, rate, eps=1e-7, device=None):
         """The matching channels-first batch chain on ``device`` (the CUDA

@@ -239,12 +239,12 @@ def _result(y, e, s, stats, power, env_sum, psd_sum):
     return out
 
 
+@full_fp32()
 def chain_plain(ck, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
     """Plain PyTorch version of :func:`chain`: the filter and the envelope
     as ``conv1d`` over the halo'd stream, the PSD as ``unfold`` frames
     times the full analysis matrix ``spec_w``, all in full float32."""
     outputs = _check_outputs(outputs)
-    full_fp32()
     n = int(n)
     x = dequant16(x_ext) if x_ext.dtype == torch.int16 else x_ext.float()
     C = x.shape[0]

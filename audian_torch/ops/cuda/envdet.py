@@ -131,12 +131,12 @@ def _check_window(xw):
             f"channels of a sample adjacent), got strides {xw.stride()}")
 
 
+@full_fp32()
 def envdet_plain(ed, xw):
     """Plain PyTorch version of :func:`envdet`: ``conv1d`` of the
     dequantized window with ``g_bp``, the square, then ``conv1d`` with
     ``g_lp`` at ``stride=step``, in full float32."""
     _check_window(xw)
-    full_fp32()
     x = xw.T
     x = dequant16(x) if x.dtype == torch.int16 else x.to(torch.float32)
     # y over [s0, s1] feeds the outputs; x over [x0, s1 + d_bp] feeds y

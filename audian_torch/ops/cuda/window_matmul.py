@@ -53,12 +53,12 @@ def _reshape_out(y, out_layout):
     return y.reshape(y.shape[0], -1)
 
 
+@full_fp32()
 def window_matmul_plain(x, w, stride, nframes, premap=None, out_layout="fco"):
     """Plain PyTorch version of :func:`window_matmul`: the frames as an
     ``unfold`` view of the zero-extended stream, then one ``matmul`` in
     full float32."""
     _check_args(x, w, stride, nframes, premap, out_layout)
-    full_fp32()
     C, n = x.shape
     K, O = w.shape
     if nframes == 0:

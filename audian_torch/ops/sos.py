@@ -14,6 +14,8 @@ corrections through ``matmul``, both in full float32 (:func:`full_fp32`).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -27,13 +29,23 @@ __all__ = [
 ]
 
 
+@contextlib.contextmanager
 def full_fp32():
-    """Keep float32 matrix products and convolutions in full float32 on
-    the GPU.  cuDNN runs float32 convolutions in TF32 (about three decimal
-    digits) unless told not to, which would break the 1e-5 contract of the
-    plain versions the kernels are held against."""
+    """Run float32 matrix products and convolutions in full float32 on the
+    GPU for the duration of the block (or of the decorated call), then put
+    both TF32 flags back as the caller left them.  cuDNN runs float32
+    convolutions in TF32 (about three decimal digits) unless told not to,
+    which would break the 1e-5 contract of the plain versions the kernels
+    are held against; the caller's own matmuls keep its setting."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def _toeplitz_bank_np(h, block):
@@ -48,11 +60,11 @@ def _toeplitz_bank_np(h, block):
                     h[np.clip(idx, 0, T - 1)], h.dtype.type(0))
 
 
+@full_fp32()
 def _fir_valid_cf(x_cf, h):
     """``out[c, i] = sum_m h[m] x[c, i + T - 1 - m]`` for ``i`` in
     ``[0, n - T + 1)``: the causal FIR over a channels-first stream whose
     first ``T - 1`` samples are history."""
-    full_fp32()
     h = torch.as_tensor(h, dtype=x_cf.dtype, device=x_cf.device)
     w = torch.flip(h, (0,)).reshape(1, 1, -1)
     return F.conv1d(x_cf.unsqueeze(1), w).squeeze(1)
@@ -80,6 +92,7 @@ def _time_first(x, axis):
     return xt.reshape(shape[0], -1), restore
 
 
+@full_fp32()
 def sosfilt_fir(kernels, x, zi=None, axis=0, return_zf=None):
     """Causal SOS filtering through the truncated impulse response.
 
@@ -95,7 +108,6 @@ def sosfilt_fir(kernels, x, zi=None, axis=0, return_zf=None):
     axis = axis % max(ndim, 1)
     flat, restore = _time_first(x, axis)
     dtype, dev = flat.dtype, flat.device
-    full_fp32()
     n = flat.shape[0]
     y = _conv1d_same_causal(flat, kernels.h)
     nstate = kernels.state_out.shape[1]

@@ -130,8 +130,8 @@ def spectrogram(x, rate, nfft, hop, window=None, detrend=False,
         method = "matmul" if nfft <= 1024 else "fft"
     ft = torch.movedim(frames, 1, -1)                 # (nf, ..., nfft)
     if method == "matmul":
-        full_fp32()
-        spec = ft @ _dft_tensors(nfft, dtype, x.device)[0]
+        with full_fp32():
+            spec = ft @ _dft_tensors(nfft, dtype, x.device)[0]
         re, im = spec[..., :nbins], spec[..., nbins:]
         psd = re * re + im * im
     else:

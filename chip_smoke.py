@@ -68,7 +68,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     full-window recompute (CUDA events) and its split by node, and the
     device busy share of 20 pages under ``torch.profiler``.  No kernel
     lies on this path: it runs on torch ops (cuDNN convolutions, cuBLAS
-    DFT products).
+    DFT products);
+12. the headless browser on phase 10's recording and its 8-channel copy:
+    ``audian_cli([16 ch, 8 ch, "-f", "2000", "-l", "40000"])`` with
+    ``default_traces()``, both browsers on the card (every window a CUDA
+    tensor; a browser without a card raises), each move followed by the
+    browsers' refresh (``trace_tile`` of every shown trace and channel,
+    ``spec_tile`` of every channel): open, 40 page downs and 10 page ups,
+    end, home, a jump, a three-step lowpass scrub and two ``step_filter``
+    steps (linked to the 8 ch browser), NFFT 256 -> 512 -> 256, an
+    envelope step, and a page with the time scroll linked.  Checks: the
+    tiles equal a direct refresh of each browser's ``Data`` exactly, a 2 s
+    slice against scipy float64 (1e-5, 0.013 dB), ``play_region`` with a
+    30 kHz heterodyne against numpy float64 (1e-5), the statistics row
+    against float64 (1e-5 relative; the mean's error relative to the
+    standard deviation, since a band-passed mean nearly cancels),
+    ``save_region`` of 10 s at channels
+    0, 3 and 7 equal to the source's int16 codes with the stored marker
+    shifted into the cut and the CodingHistory line, and the overview
+    after ``FullTraceData.wait()`` equal to numpy's interleaved min/max of
+    the file.  Times on the host clock, each beside the card.
+
+Phase 4 starts with both TF32 flags on and checks that they are still on
+after it: the port scopes full float32 to its own calls.
 
 The line before the last is a JSON object with one entry per kernel: its
 launches on its main path (phase 4 for chain and window_matmul, phase 8
@@ -513,6 +535,41 @@ def recompute_flop(d):
     return flop, plan
 
 
+def slice_vs_scipy(d, path, t0, t1, label, ch=0):
+    """The filtered, envelope and spectrogram traces of ``d`` over
+    [t0, t1] on channel ``ch`` against scipy float64 of the file's samples
+    (2 s of warm-up on each side) at the nodes' current designs."""
+    from audian_torch.data.wavio import read_frames_raw16, wav_info
+
+    filt, env, spec = (d[n]._node for n in IA_NAMES)
+    rate = d.rate
+    i0, i1 = int(t0 * rate), int(t1 * rate)
+    warm = int(2 * rate)
+    s0, s1 = i0 - warm, i1 + warm
+    require(s0 >= 0 and s1 <= d.frames, f"{label}: slice has its warm-up")
+    x = np.empty((s1 - s0, d.channels), np.int16)
+    read_frames_raw16(path, s0, s1 - s0, wav_info(path), x)
+    x = x[:, ch].astype(np.float64) / 32768.0
+    ys = sps.sosfilt(filt.design.sos, x)
+    es = np.maximum(sps.sosfiltfilt(env.design.sos, (np.pi / 2) * np.abs(ys)),
+                    0.0)
+    ey = float(np.abs(d["filtered"][i0:i1, ch] - ys[warm:-warm]).max())
+    ee = float(np.abs(d["envelope"][i0:i1, ch] - es[warm:-warm]).max())
+    hop, nfft = spec.hop, spec.nfft
+    f0, f1 = -(-i0 // hop), (i1 - nfft) // hop
+    _, _, sx = sps.spectrogram(
+        ys[f0 * hop - s0 : (f1 - 1) * hop + nfft - s0], fs=rate,
+        window="hann", nperseg=nfft, noverlap=nfft - hop, detrend=False,
+        scaling="density", mode="psd")
+    got_s = torch.from_numpy(d["spectrogram"][f0:f1, ch])
+    sdb = psd_db_err(got_s, torch.from_numpy(sx.T))
+    require(ey <= TOL_FILTERED, f"{label} filtered vs scipy {ey}")
+    require(ee <= TOL_ENVELOPE, f"{label} envelope vs scipy {ee}")
+    require(sdb <= TOL_PSD_DB, f"{label} psd vs scipy {sdb} dB")
+    print(f"  {label} vs scipy float64 (ch {ch}, {t0}-{t1} s, NFFT {nfft}): "
+          f"filtered {ey:.3e} envelope {ee:.3e} psd {sdb:.3e} dB")
+
+
 def interactive_checks(d, path, refresh, dev, view):
     """Phase 10's checks on the window left by the page session at
     ``view``: delta == full, scipy float64 on a 2 s slice of channel 0,
@@ -548,33 +605,7 @@ def interactive_checks(d, path, refresh, dev, view):
                     f"{name} min/max tile [{v0}, {v1}] == numpy")
     print("  min/max tiles equal numpy's reduceat of the pulled windows "
           "exactly")
-    # scipy float64 on a 2 s slice of channel 0
-    filt, env, spec = (d[n]._node for n in IA_NAMES)
-    rate = d.rate
-    i0, i1 = int(t0 * rate), int(t1 * rate)
-    warm = int(2 * rate)
-    s0, s1 = i0 - warm, i1 + warm
-    x = np.empty((s1 - s0, d.channels), np.int16)
-    read_frames_raw16(path, s0, s1 - s0, info, x)
-    x = x[:, 0].astype(np.float64) / 32768.0
-    ys = sps.sosfilt(filt.design.sos, x)
-    es = np.maximum(sps.sosfiltfilt(env.design.sos, (np.pi / 2) * np.abs(ys)),
-                    0.0)
-    ey = float(np.abs(d["filtered"][i0:i1, 0] - ys[warm:-warm]).max())
-    ee = float(np.abs(d["envelope"][i0:i1, 0] - es[warm:-warm]).max())
-    hop, nfft = spec.hop, spec.nfft
-    f0, f1 = -(-i0 // hop), (i1 - nfft) // hop
-    _, _, sx = sps.spectrogram(
-        ys[f0 * hop - s0 : (f1 - 1) * hop + nfft - s0], fs=rate,
-        window="hann", nperseg=nfft, noverlap=nfft - hop, detrend=False,
-        scaling="density", mode="psd")
-    got_s = torch.from_numpy(d["spectrogram"][f0:f1, 0])
-    sdb = psd_db_err(got_s, torch.from_numpy(sx.T))
-    require(ey <= TOL_FILTERED, f"interactive filtered vs scipy {ey}")
-    require(ee <= TOL_ENVELOPE, f"interactive envelope vs scipy {ee}")
-    require(sdb <= TOL_PSD_DB, f"interactive psd vs scipy {sdb} dB")
-    print(f"  stitched windows vs scipy float64 (ch 0, {t0}-{t1} s): "
-          f"filtered {ey:.3e} envelope {ee:.3e} psd {sdb:.3e} dB")
+    slice_vs_scipy(d, path, t0, t1, "stitched windows")
     # delta == full
     snap, full = full_window(d, view)
     for name in IA_NAMES:
@@ -714,125 +745,428 @@ def pcts(lat):
     return float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
 
 
-def interactive_phases(card, dev):
-    """Phases 10 and 11: the interactive data path on the card."""
+def interactive_phases(card, dev, tmp):
+    """Phases 10 and 11: the interactive data path on the card.  The
+    recording and its 8-channel copy are written to ``tmp``; returns their
+    paths (phase 12 opens them again)."""
     from audian_torch.view.render import window_extrema
 
     print(f"phase 10: the interactive path, a {IA_SECONDS} s x {C} ch x "
           f"96 kHz PCM-16 WAV, 60 s window, 2 s view")
     t_rec = time.perf_counter()
     pcm = interactive_recording(IA_SECONDS, C, dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "interactive.wav")
-        scipy.io.wavfile.write(path, int(RATE), pcm)
-        path8 = os.path.join(tmp, "interactive8.wav")
-        scipy.io.wavfile.write(path8, int(RATE),
-                               np.ascontiguousarray(pcm[:, :8]))
-        del pcm
-        print(f"  recordings made and written in "
-              f"{time.perf_counter() - t_rec:.2f} s")
-        refresh = Refresh(dev)
-        torch.cuda.synchronize()
-        a = time.perf_counter()
-        d = open_interactive(path, dev)
-        d.update_times(0.0, IA_VIEW)
-        refresh(d, 0.0, IA_VIEW)
-        torch.cuda.synchronize()
-        open_s = time.perf_counter() - a
-        lat, deltas, last = page_session(d, refresh)
-        require(deltas >= 1, "a page took the delta path")
-        print(f"  {len(lat)} pages, {deltas} with a moved raw window on "
-              f"the delta path; executor plans {d.executor.cache_size}")
-        scrub = interactive_checks(d, path, refresh, dev,
-                                   (last, last + IA_VIEW))
-        jumps = [timed_move(d, refresh, t0) for t0 in IA_JUMPS]
-        for name in IA_NAMES:
-            buf = d[name].buffer
-            require(bool(torch.isfinite(buf).all()) and len(buf) > 0,
-                    f"{name} window finite after the jumps")
+    path = os.path.join(tmp, "interactive.wav")
+    scipy.io.wavfile.write(path, int(RATE), pcm)
+    path8 = os.path.join(tmp, "interactive8.wav")
+    scipy.io.wavfile.write(path8, int(RATE),
+                           np.ascontiguousarray(pcm[:, :8]))
+    del pcm
+    print(f"  recordings made and written in "
+          f"{time.perf_counter() - t_rec:.2f} s")
+    refresh = Refresh(dev)
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    d = open_interactive(path, dev)
+    d.update_times(0.0, IA_VIEW)
+    refresh(d, 0.0, IA_VIEW)
+    torch.cuda.synchronize()
+    open_s = time.perf_counter() - a
+    lat, deltas, last = page_session(d, refresh)
+    require(deltas >= 1, "a page took the delta path")
+    print(f"  {len(lat)} pages, {deltas} with a moved raw window on "
+          f"the delta path; executor plans {d.executor.cache_size}")
+    scrub = interactive_checks(d, path, refresh, dev,
+                               (last, last + IA_VIEW))
+    jumps = [timed_move(d, refresh, t0) for t0 in IA_JUMPS]
+    for name in IA_NAMES:
+        buf = d[name].buffer
+        require(bool(torch.isfinite(buf).all()) and len(buf) > 0,
+                f"{name} window finite after the jumps")
 
-        # -- phase 11: times -------------------------------------------------
-        print("phase 11: interactive times (host clock, each ended by a "
-              "synchronize, unless marked CUDA events)")
-        nfft_s = []
-        for nfft in (512, 256, 512, 256):
-            torch.cuda.synchronize()
-            a = time.perf_counter()
-            d["spectrogram"].update(nfft=nfft)
-            refresh.levels = None
-            refresh(d, IA_JUMPS[-1], IA_JUMPS[-1] + IA_VIEW)
-            torch.cuda.synchronize()
-            nfft_s.append(time.perf_counter() - a)
-        # autoscale of a fresh window: the first channel pulls all
-        d.update_times(40.0, 40.0 + IA_VIEW)
+    # -- phase 11: times -------------------------------------------------
+    print("phase 11: interactive times (host clock, each ended by a "
+          "synchronize, unless marked CUDA events)")
+    nfft_s = []
+    for nfft in (512, 256, 512, 256):
         torch.cuda.synchronize()
         a = time.perf_counter()
-        for c in range(d.channels):
-            window_extrema(d["filtered"], 40.0, 40.0 + IA_VIEW, c)
-        extrema_s = time.perf_counter() - a
-        # the full-window recompute and its split by node
-        d.update_times(100.0, 100.0 + IA_VIEW)
-        flop, plan = recompute_flop(d)
-        dev_raw, off = d._dev_raw, d._dev_raw_off
-        full_ms = median_ms(lambda: d.executor.run(dev_raw, off,
-                                                   targets=IA_NAMES))
-        split_ms, prof_ms, kernels = node_split(d)
-        # the device's busy share of 20 pages, then the steps of 10 more;
-        # from 40 s each page moves the loader's window by 2 s (its 60 s
-        # window ends before the file's end there)
-        d.update_times(40.0, 40.0 + IA_VIEW)
-        wall, busy = busy_share(d, refresh, [40.0 + IA_VIEW * k
-                                             for k in range(1, 21)])
-        split = page_split(d, refresh, [80.0 + IA_VIEW * k
-                                        for k in range(1, 11)])
-        p50, p95 = pcts(lat)
-        print(f"  open + first render: {1e3 * open_s:.2f} ms  [{card}]")
-        print(f"  scroll at {C} ch ({len(lat)} pages): p50 {p50:.3f} ms  "
-              f"p95 {p95:.3f} ms  max {1e3 * max(lat):.3f} ms  [{card}]")
-        print(f"  jumps {IA_JUMPS}: " + "  ".join(
-            f"{1e3 * s:.2f} ms" for s in jumps) + f"  [{card}]")
-        print(f"  cutoff scrub {IA_CUTOFFS}: " + "  ".join(
-            f"{1e3 * s:.2f}" for s in scrub) + f" ms  [{card}]")
-        print("  NFFT 256 -> 512 -> 256 -> 512 -> 256: " + "  ".join(
-            f"{1e3 * s:.2f}" for s in nfft_s) + f" ms  [{card}]")
-        print(f"  window_extrema autoscale ({d.channels} channels, one "
-              f"pull): {1e3 * extrema_s:.3f} ms  [{card}]")
-        win = plan["filtered"].n_out
-        print(f"  full-window recompute ({win} frames x {C} ch, "
-              f"{flop / 1e12:.3f} TFLOP): {full_ms:.3f} ms CUDA events, "
-              f"{flop / full_ms / 1e9:.2f} TFLOP/s  [{card}]")
-        print("  by node, CUDA events (ms): " + "  ".join(
-            f"{n} {v:.3f}" for n, v in split_ms.items()))
-        if any(prof_ms.values()):
-            print("  by node under torch.profiler (device ms): " + "  ".join(
-                f"{n} {v:.3f}" for n, v in prof_ms.items()))
-        else:
-            print("  by node under torch.profiler: not measured (no device "
-                  "time on the node ranges)")
-        for t, key in kernels[:6]:
-            print(f"    {t:10.4f}  {key[:90]}")
-        if busy > 0:
-            print(f"  20 pages under torch.profiler: wall {wall:.4f} s, "
-                  f"device busy {busy:.4f} s ({100 * busy / wall:.1f} %)  "
-                  f"[{card}]")
-        else:
-            print("  scroll device busy share: not measured (the profiler "
-                  "recorded no device time)")
-        print("  a page, median of 10 (host ms): " + "  ".join(
-            f"{k} {v:.3f}" for k, v in split.items()) + f"  [{card}]")
-        d.close()
-        del d
-        # the same pages at 8 channels
-        d8 = open_interactive(path8, dev)
-        refresh8 = Refresh(dev)
-        d8.update_times(0.0, IA_VIEW)
-        refresh8(d8, 0.0, IA_VIEW)
-        lat8, _, _ = page_session(d8, refresh8)
-        d8.close()
-        del d8
+        d["spectrogram"].update(nfft=nfft)
+        refresh.levels = None
+        refresh(d, IA_JUMPS[-1], IA_JUMPS[-1] + IA_VIEW)
+        torch.cuda.synchronize()
+        nfft_s.append(time.perf_counter() - a)
+    # autoscale of a fresh window: the first channel pulls all
+    d.update_times(40.0, 40.0 + IA_VIEW)
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    for c in range(d.channels):
+        window_extrema(d["filtered"], 40.0, 40.0 + IA_VIEW, c)
+    extrema_s = time.perf_counter() - a
+    # the full-window recompute and its split by node
+    d.update_times(100.0, 100.0 + IA_VIEW)
+    flop, plan = recompute_flop(d)
+    dev_raw, off = d._dev_raw, d._dev_raw_off
+    full_ms = median_ms(lambda: d.executor.run(dev_raw, off,
+                                               targets=IA_NAMES))
+    split_ms, prof_ms, kernels = node_split(d)
+    # the device's busy share of 20 pages, then the steps of 10 more;
+    # from 40 s each page moves the loader's window by 2 s (its 60 s
+    # window ends before the file's end there)
+    d.update_times(40.0, 40.0 + IA_VIEW)
+    wall, busy = busy_share(d, refresh, [40.0 + IA_VIEW * k
+                                         for k in range(1, 21)])
+    split = page_split(d, refresh, [80.0 + IA_VIEW * k
+                                    for k in range(1, 11)])
+    p50, p95 = pcts(lat)
+    print(f"  open + first render: {1e3 * open_s:.2f} ms  [{card}]")
+    print(f"  scroll at {C} ch ({len(lat)} pages): p50 {p50:.3f} ms  "
+          f"p95 {p95:.3f} ms  max {1e3 * max(lat):.3f} ms  [{card}]")
+    print(f"  jumps {IA_JUMPS}: " + "  ".join(
+        f"{1e3 * s:.2f} ms" for s in jumps) + f"  [{card}]")
+    print(f"  cutoff scrub {IA_CUTOFFS}: " + "  ".join(
+        f"{1e3 * s:.2f}" for s in scrub) + f" ms  [{card}]")
+    print("  NFFT 256 -> 512 -> 256 -> 512 -> 256: " + "  ".join(
+        f"{1e3 * s:.2f}" for s in nfft_s) + f" ms  [{card}]")
+    print(f"  window_extrema autoscale ({d.channels} channels, one "
+          f"pull): {1e3 * extrema_s:.3f} ms  [{card}]")
+    win = plan["filtered"].n_out
+    print(f"  full-window recompute ({win} frames x {C} ch, "
+          f"{flop / 1e12:.3f} TFLOP): {full_ms:.3f} ms CUDA events, "
+          f"{flop / full_ms / 1e9:.2f} TFLOP/s  [{card}]")
+    print("  by node, CUDA events (ms): " + "  ".join(
+        f"{n} {v:.3f}" for n, v in split_ms.items()))
+    if any(prof_ms.values()):
+        print("  by node under torch.profiler (device ms): " + "  ".join(
+            f"{n} {v:.3f}" for n, v in prof_ms.items()))
+    else:
+        print("  by node under torch.profiler: not measured (no device "
+              "time on the node ranges)")
+    for t, key in kernels[:6]:
+        print(f"    {t:10.4f}  {key[:90]}")
+    if busy > 0:
+        print(f"  20 pages under torch.profiler: wall {wall:.4f} s, "
+              f"device busy {busy:.4f} s ({100 * busy / wall:.1f} %)  "
+              f"[{card}]")
+    else:
+        print("  scroll device busy share: not measured (the profiler "
+              "recorded no device time)")
+    print("  a page, median of 10 (host ms): " + "  ".join(
+        f"{k} {v:.3f}" for k, v in split.items()) + f"  [{card}]")
+    d.close()
+    del d
+    # the same pages at 8 channels
+    d8 = open_interactive(path8, dev)
+    refresh8 = Refresh(dev)
+    d8.update_times(0.0, IA_VIEW)
+    refresh8(d8, 0.0, IA_VIEW)
+    lat8, _, _ = page_session(d8, refresh8)
+    d8.close()
+    del d8
     p50_8, p95_8 = pcts(lat8)
     print(f"  scroll at 8 ch ({len(lat8)} pages): p50 {p50_8:.3f} ms  "
           f"p95 {p95_8:.3f} ms  max {1e3 * max(lat8):.3f} ms  [{card}]")
+    return path, path8
+
+# -- phase 12: the headless browser -----------------------------------------
+
+BR_PAGES = (40, 10)                          # page downs, then page ups
+BR_JUMP = 60.0                               # s, where the parameters move
+BR_SCRUB = (30000.0, 20000.0, 35000.0)       # the lowpass scrub
+BR_STEPS = ((2.0, None), (None, 0.8))        # step_filter(hp, lp)
+BR_ENVELOPE = 1000.0                         # Hz, the envelope step
+BR_HETERODYNE = 30000.0                      # Hz
+BR_SAVE = (10.0, (0, 3, 7))                  # s, channels
+TOL_PLAY = 1e-5
+TOL_STATS = 1e-5
+
+
+def browser_refresh(b):
+    """What a frontend pulls on a redraw: ``trace_tile`` of every shown
+    trace and channel, ``spec_tile`` (uint8) of every channel."""
+    tiles = {}
+    for name in b.data.keys():
+        if name != b.spectrogram and b.data.is_visible(name):
+            for c in b.show_channels:
+                tiles[name, c] = b.trace_tile(name, c)
+    for c in range(b.data.channels):
+        tiles["spec", c] = b.spec_tile(c, quantize=True)
+    return tiles
+
+
+class DirectRefresh:
+    """The browser's refresh computed by its own tilers straight on
+    ``b.data``, as phase 10's :class:`Refresh` does: called after the same
+    moves, its tilers hold the same scroll caches as the browser's, so
+    the tiles must be equal bit for bit (the spectrogram at the browser's
+    colour levels, over the whole window as the browser asks)."""
+
+    def __init__(self, dev):
+        from audian_torch.view.render import SpecTiler, TraceTiler
+
+        self.traces = TraceTiler(device=dev)
+        self.spec = SpecTiler(device=dev)
+
+    def __call__(self, b):
+        t0, t1 = b.toffset, b.toffset + b.twindow
+        tiles = {}
+        for name in b.data.keys():
+            if name != b.spectrogram and b.data.is_visible(name):
+                for c in b.show_channels:
+                    tiles[name, c] = self.traces.tile(b.data[name], t0, t1,
+                                                      channel=c)
+        levels = np.array([b.estimate_power_levels(c)
+                           for c in range(b.data.channels)], np.float32)
+        for c in range(b.data.channels):
+            tiles["spec", c] = self.spec.tile(
+                b.data[b.spectrogram], c, levels[c, 0], levels[c, 1],
+                quantize=True, levels=levels)
+        return tiles
+
+
+def tiles_equal(a, b):
+    if a.keys() != b.keys():
+        return False
+    for k in a:
+        (x0, y0), (x1, y1) = a[k], b[k]
+        if not (np.array_equal(x0, x1) and np.array_equal(y0, y1)):
+            return False
+    return True
+
+
+def playback_f64(x, rate, freq, fade_time=0.1):
+    """The browser's playback mix in numpy float64 on the same samples:
+    the shown channels' halves averaged to two, the sine carrier, the
+    20 kHz order-2 zero-phase low-pass (scipy), the decimation and the
+    sine-squared fades."""
+    from audian_torch.ops.design import FilterDesign, design_filter
+
+    x = np.asarray(x, np.float64)
+    n2 = (x.shape[1] + 1) // 2
+    play = np.stack([x[:, :n2].mean(axis=1), x[:, n2:].mean(axis=1)],
+                    axis=1)
+    cyc = np.arange(len(play), dtype=np.float64) * (freq / rate)
+    play *= np.sin(2.0 * np.pi * np.mod(cyc, 1.0))[:, None]
+    sos = design_filter(rate, lowpass_cutoff=20000.0, order=2)
+    if sos is not None:
+        play = sps.sosfiltfilt(sos, play, axis=0,
+                               padlen=FilterDesign.from_sos(sos).padlen)
+    nstep = max(1, int(np.round(rate / 40000.0)))
+    play = play[::nstep]
+    nf = min(int(round(fade_time * rate / nstep)), len(play) // 2)
+    ramp = np.sin(0.5 * np.pi * np.arange(nf) / nf) ** 2
+    play[:nf] *= ramp[:, None]
+    play[len(play) - nf :] *= ramp[::-1][:, None]
+    return play, rate / nstep
+
+
+def browser_phase(card, dev, tmp, path, path8):
+    """Phase 12: the headless browser and shell on phase 10's recording
+    and its 8-channel copy."""
+    from audian_torch.analysis import Plugins
+    from audian_torch.app import DataBrowser, audian_cli
+    from audian_torch.cache import FullTraceData
+    from audian_torch.cache.fulltrace import _interleaved_minmax
+    from audian_torch.data import AudioLoader, default_traces
+    from audian_torch.data.wavio import read_frames_raw16, scan_wav, wav_info
+
+    print(f"phase 12: the headless browser, audian_cli on the {C} ch and "
+          f"8 ch recordings, default_traces(), -f 2000 -l 40000")
+    t_phase = time.perf_counter()
+    # the overview cache of this run lives and dies in the temp directory
+    cache_env = os.environ.get("XDG_CACHE_HOME")
+    os.environ["XDG_CACHE_HOME"] = os.path.join(tmp, "cache")
+    real = torch.cuda.is_available
+    torch.cuda.is_available = lambda: False
+    try:
+        DataBrowser(path)
+        raise AssertionError("a browser without a card did not raise")
+    except RuntimeError:
+        pass
+    finally:
+        torch.cuda.is_available = real
+    plugins = Plugins()
+    plugins.clear_trace_factories()
+    plugins.add_trace_factory(
+        lambda b: [b.add_trace(n) for n in default_traces()])
+    moves = {}
+    direct = {}
+    compared = [0]
+
+    def same_as_direct(b, tiles):
+        """The browser adds no arithmetic: its tiles are the direct
+        refresh's, bit for bit."""
+        want = direct.setdefault(id(b), DirectRefresh(dev))(b)
+        require(tiles_equal(tiles, want),
+                f"{b.data.channels} ch browser tiles == direct refresh")
+        compared[0] += 1
+
+    def timed(label, fn, browsers):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        fn()
+        tiles = [browser_refresh(b) for b in browsers]
+        torch.cuda.synchronize()
+        moves.setdefault(label, []).append(time.perf_counter() - a)
+        for b, t in zip(browsers, tiles):
+            same_as_direct(b, t)
+
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    shell = audian_cli([path, path8, "-f", "2000", "-l", "40000"],
+                       plugins=plugins)
+    shell.load_files()
+    b0, b1 = shell.browsers
+    tiles = [browser_refresh(b) for b in (b0, b1)]
+    torch.cuda.synchronize()
+    moves["open + first refresh (both)"] = [time.perf_counter() - a]
+    for b, t in zip((b0, b1), tiles):
+        same_as_direct(b, t)
+    require(not shell.errors and len(shell) == 2, f"shell {shell.errors}")
+    require((b0.data.channels, b1.data.channels) == (C, 8), "channels")
+    for b in (b0, b1):
+        require(b.device.type == dev.type, f"browser on {b.device}")
+        require(b.data.keys() == ["data", "filtered", "envelope",
+                                  "spectrogram"], f"traces {b.data.keys()}")
+        for name in b.data.keys():
+            buf = b.data[name].buffer
+            require(isinstance(buf, torch.Tensor) and buf.device == dev,
+                    f"{name} window on the card")
+        f = b.data["filtered"]
+        require((f.highpass_cutoff, f.lowpass_cutoff) == (2000.0, 40000.0),
+                "the filter of -f/-l")
+    fwd, back = BR_PAGES
+    for _ in range(fwd):
+        timed("page", b0.time_page_down, [b0])
+    for _ in range(back):
+        timed("page", b0.time_page_up, [b0])
+    timed("time_end", b0.time_end, [b0])
+    timed("time_home", b0.time_home, [b0])
+    timed("jump", lambda: b0.set_times(BR_JUMP), [b0])
+    for cutoff in BR_SCRUB:
+        timed("update_filter (both)",
+              lambda: b0.update_filter(lowpass_cutoff=cutoff), [b0, b1])
+    require(b1.data["filtered"].lowpass_cutoff == BR_SCRUB[-1],
+            "the filter is linked")
+    for hp, lp in BR_STEPS:
+        timed("step_filter (both)", lambda: b0.step_filter(hp, lp),
+              [b0, b1])
+    timed("freq_resolution_up", b0.freq_resolution_up, [b0])
+    require(b0.data["spectrogram"].nfft == 512, "NFFT 512")
+    timed("freq_resolution_down", b0.freq_resolution_down, [b0])
+    require(b0.data["spectrogram"].nfft == 256, "NFFT 256")
+    timed("update_envelope (both)",
+          lambda: b0.update_envelope(BR_ENVELOPE), [b0, b1])
+    require(b1.data["envelope"].envelope_cutoff == BR_ENVELOPE,
+            "the envelope is linked")
+    shell.link_timescroll = True
+    timed("linked page (both)", b0.time_page_down, [b0, b1])
+    require(b1.toffset == b0.toffset == BR_JUMP + 0.5 * b0.twindow,
+            f"linked page: {b0.toffset} and {b1.toffset}")
+    print(f"  every move's tiles ({compared[0]} refreshes, both browsers) "
+          f"equal a direct refresh of their Data exactly")
+    t0, t1 = b0.toffset, b0.toffset + b0.twindow
+    slice_vs_scipy(b0.data, path, t0, t1, "browser after scrub/NFFT steps",
+                   ch=5)
+    # playback: 2 s, heterodyne at 30 kHz, every channel shown
+    b0.set_audio(use_heterodyne=True, heterodyne_freq=BR_HETERODYNE)
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    play, prate = b0.play_region(t0, t1)
+    play_s = time.perf_counter() - a
+    rate = b0.data.rate
+    i0, i1 = int(np.round(t0 * rate)), int(np.round(t1 * rate))
+    want, wrate = playback_f64(b0.data["filtered"][i0:i1], rate,
+                               BR_HETERODYNE)
+    require(isinstance(play, np.ndarray) and play.shape == want.shape
+            and prate == wrate, f"playback {play.shape} @ {prate}")
+    play_err = float(np.abs(play - want).max())
+    require(play_err <= TOL_PLAY, f"playback vs float64 {play_err}")
+    # statistics of a region
+    a = time.perf_counter()
+    traces = b0.analyze_region(t0, t1, 5)
+    analyze_s = time.perf_counter() - a
+    row = b0.get_analysis_table()[-1]
+    # the band-passed region's mean nearly cancels, so its error is taken
+    # relative to the region's scale (its standard deviation)
+    x = np.asarray(traces["filtered"][1], np.float64)
+    stats_err = max(abs(row["filtered mean/a.u."] - x.mean()) / x.std(),
+                    abs(row["filtered stdev/a.u."] / x.std() - 1.0))
+    require(stats_err <= TOL_STATS, f"statistics vs float64 {stats_err}")
+    print(f"  play_region {t1 - t0:.0f} s, heterodyne {BR_HETERODYNE:.0f} "
+          f"Hz: {play.shape} @ {prate:.0f} Hz, vs float64 {play_err:.3e}; "
+          f"statistics row vs float64 {stats_err:.3e} relative (the mean's "
+          f"to the std)")
+    # the region export: 10 s at three channels with a marker inside
+    seconds, chans = BR_SAVE
+    b0.select_channels(list(chans))
+    require(b0.selected_channels == list(chans), "selected channels")
+    b0.set_crosshair(chans[0], t=t0 + 3.0)
+    b0.store_marker("song", "inside")
+    a = time.perf_counter()
+    out = b0.save_region(t0, t0 + seconds, os.path.join(tmp, "cut.wav"))
+    save_s = time.perf_counter() - a
+    info = wav_info(out)
+    s0 = int(np.round(t0 * rate))
+    got = np.empty((info[2], len(chans)), np.int16)
+    read_frames_raw16(out, 0, info[2], info, got)
+    src = np.empty((info[2], C), np.int16)
+    read_frames_raw16(path, s0, info[2], wav_info(path), src)
+    require(info[2] == int(seconds * rate) and info[3] == "PCM_16",
+            f"saved {info}")
+    require(np.array_equal(got, src[:, list(chans)]),
+            "saved region == the source's int16 codes")
+    _, md, locs, labels = scan_wav(out)
+    mark = int(np.round((t0 + 3.0) * rate)) - s0
+    require(locs.tolist() == [[mark, 0]]
+            and labels.tolist() == [["song", "inside"]],
+            f"saved marker {locs.tolist()} {labels.tolist()}")
+    history = md.get("BEXT", {}).get("CodingHistory", "")
+    require("cut out" in history and "cut.wav" in history,
+            f"CodingHistory {history!r}")
+    print(f"  save_region {seconds:.0f} s x channels {list(chans)}: int16 "
+          f"codes == source, marker at {mark} frames, CodingHistory "
+          f"{history.splitlines()[-1]!r}")
+    # the overview
+    ft = b0.fulltrace
+    a = time.perf_counter()
+    ft.wait()
+    wait_s = time.perf_counter() - a
+    require(ft.error is None and not ft.short_data, f"overview {ft.error}")
+    codes = np.empty((b0.data.frames, C), np.int16)
+    read_frames_raw16(path, 0, b0.data.frames, wav_info(path), codes)
+    want = _interleaved_minmax(codes, ft.step) / 32768.0
+    require(np.array_equal(ft.datas, want), "overview == numpy")
+    del codes, want
+    ld = AudioLoader(path, prefetch=False)
+    again = FullTraceData(ld, device=dev)
+    a = time.perf_counter()
+    again.start(6000, background=False)
+    overview_s = time.perf_counter() - a
+    require(np.array_equal(again.datas, ft.datas), "overview rerun")
+    ld.close()
+    print(f"  overview ({len(ft.datas)} x {C}, step {ft.step}) == numpy's "
+          f"interleaved min/max of the file; wait() {wait_s:.3f} s")
+    shell.close()
+    if cache_env is None:
+        os.environ.pop("XDG_CACHE_HOME", None)
+    else:
+        os.environ["XDG_CACHE_HOME"] = cache_env
+    print(f"  times (host clock, each move ended by a synchronize and "
+          f"followed by its browsers' refresh)  [{card}]")
+    for label, ts in moves.items():
+        ms = 1e3 * np.asarray(ts)
+        if len(ms) > 2:
+            print(f"    {label} x{len(ms)}: p50 {np.percentile(ms, 50):.3f} "
+                  f"ms  p95 {np.percentile(ms, 95):.3f} ms  max "
+                  f"{ms.max():.3f} ms  [{card}]")
+        else:
+            print(f"    {label}: " + "  ".join(f"{v:.3f}" for v in ms)
+                  + f" ms  [{card}]")
+    print(f"    play_region {1e3 * play_s:.3f} ms  analyze_region "
+          f"{1e3 * analyze_s:.3f} ms  save_region {1e3 * save_s:.3f} ms  "
+          f"overview of {IA_SECONDS} s x {C} ch (numpy scan) "
+          f"{overview_s:.3f} s  [{card}]")
+    print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -983,6 +1317,12 @@ def main():
 
     # -- phase 4: the main path ----------------------------------------------
     print("phase 4: 60 s x 16 ch x 96 kHz PCM-16 WAV -> chain_cf")
+    # TF32 on, as a host program may set it: the port's calls must leave
+    # both flags as they find them
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
     rng = np.random.default_rng(SEED)
     nfile = int(60 * RATE)
     t = np.arange(nfile) / RATE
@@ -1095,6 +1435,12 @@ def main():
         print(f"  {label} vs scipy float64 (ch {ch}, 2 s): filtered {ey:.3e} "
               f"envelope {ee:.3e} psd {sdb:.3e} dB")
     del yw, ew, sw, us_out, chunks, chunked0, x_file, xw, got_q, full
+    require(torch.backends.cuda.matmul.allow_tf32
+            and torch.backends.cudnn.allow_tf32,
+            "the port's calls left the TF32 flags as they found them")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    print("  both TF32 flags, set on before this phase, are still on")
 
     # -- phase 5: times ------------------------------------------------------
     print("phase 5: CUDA-event times, median of 5 after a warm-up")
@@ -1270,7 +1616,7 @@ def main():
         # exact edge chunks, envdet on the interior ones) and, as the rest
         # of detect(), the host event logic
         t0 = time.perf_counter()
-        data, _ = songdetector.read_pcm16(wav)
+        data, _ = songdetector.load_recording(wav)
         t1 = time.perf_counter()
         events.band_env(data, RATE, *DETECT_BAND, DETECT_ENV,
                         return_filtered=False, fused=True)
@@ -1408,8 +1754,10 @@ def main():
           f"kernel {hour_det_ms / 1e3:.4f} s per recording hour  plain "
           f"{hour_det_plain_ms / 1e3:.4f} s  [{card}]")
 
-    # -- phases 10-11: the interactive path -------------------------------
-    interactive_phases(card, dev)
+    # -- phases 10-12: the interactive path and the headless browser -------
+    with tempfile.TemporaryDirectory() as tmp:
+        path, path8 = interactive_phases(card, dev, tmp)
+        browser_phase(card, dev, tmp, path, path8)
 
     wm_bound = bound(wm_flop, wm_bytes)
     wm_bound_tc = bound_tc(wm_flop, wm_bytes)

@@ -1,0 +1,441 @@
+"""The port's headless ``DataBrowser`` (``audian_torch.app.browser``,
+``device="cpu"``) against the JAX package's on the same WAV and the same
+verbs: opening, ``set_times``, paging and zoom, the filter, resolution and
+envelope verbs, channel selection, panels, ranges and autoscale, the
+crosshair and marker store, ``analyze_region``, ``play_region`` and
+``save_region``.
+
+Tolerances: the view state (toffset, twindow, channels, ``get_range`` of
+every letter) is equal exactly, except the ranges autoscale and the power
+levels fit to the data; trace tiles within amplitude / 32767 (the largest
+magnitude of the channel's window over int16); u8 spectrogram tiles
+within one level; dB readouts (power spectrum, colour levels) as the
+power they stand for, within the PSD tolerance of ``test_torch_data.py``
+(1e-4 relative, 1e-12 absolute); analysis tables within 1e-5 relative
+(a region's mean, which nearly cancels, within 1e-5 of its standard
+deviation);
+playback buffers within 1e-5; saved WAVs with equal int16 codes, markers
+and metadata, each package reading the other's file."""
+
+import numpy as np
+import pytest
+
+from audian_tpu import app as japp
+from audian_tpu.analysis import Plugins as JPlugins
+from audian_tpu.data import wavio as jwav
+from audian_tpu.graph import EnvelopeNode as JEnvelopeNode
+
+from audian_torch import app as tapp
+from audian_torch.analysis import Plugins as TPlugins
+from audian_torch.data import wavio as twav
+from audian_torch.graph import EnvelopeNode as TEnvelopeNode
+
+#: the envelope of the JAX browser tests' recording, at 1.5 kHz so the
+#: plain CPU convolutions of the port stay short
+ENV_CUTOFF = 1500.0
+TRACES = ("data", "filtered", "envelope")
+TOL_PSD_RTOL = 1e-4
+TOL_PSD_ATOL = 1e-12
+TOL_PLAY = 1e-5
+TOL_TABLE = 1e-5
+
+
+@pytest.fixture(scope="module")
+def wav(tmp_path_factory, cricket_like):
+    x, rate = cricket_like
+    p = tmp_path_factory.mktemp("tbrowser") / "song.wav"
+    locs = np.array([[1000, 500], [60000, 0]])
+    labels = np.array([["song", "a chirp"], ["start", ""]], dtype=object)
+    md = {"BEXT": {"OriginationDate": "2026-05-05",
+                   "OriginationTime": "06:07:08",
+                   "TimeReference": 4410},
+          "Comment": "two crickets"}
+    jwav.write_audio(p, x, rate, metadata=md, locs=locs, labels=labels,
+                     encoding="PCM_16")
+    return p
+
+
+def open_pair(path, **kw):
+    """The port's and the JAX package's browser on ``path``, each with the
+    envelope trace of the JAX browser tests added by a plugin."""
+    out = []
+    for app, plugins, env in ((tapp, TPlugins, TEnvelopeNode),
+                              (japp, JPlugins, JEnvelopeNode)):
+        pl = plugins()
+        pl.add_trace_factory(lambda b, env=env: b.add_trace(
+            env("envelope", "filtered", envelope_cutoff=ENV_CUTOFF)))
+        extra = {"device": "cpu"} if app is tapp else {}
+        out.append(app.DataBrowser(path, plugins=pl, buffer_time=1.0,
+                                   back_time=0.25, **kw, **extra).open())
+    return out
+
+
+@pytest.fixture()
+def pair(wav):
+    tb, jb = open_pair(wav)
+    yield tb, jb
+    tb.close()
+    jb.close()
+
+
+def used_letters(b):
+    return [k for k, r in sorted(b.plot_ranges.items()) if r.is_used()]
+
+
+def view_state(b):
+    return dict(
+        toffset=b.toffset, twindow=b.twindow, show=b.show_channels,
+        selected=b.selected_channels, current=b.current_channel,
+        panels=(b.show_traces, b.show_specs, b.show_powers, b.show_cbars,
+                b.show_fulldata, b.grids, b.color_map),
+        visible=[b.data.is_visible(n) for n in b.data.keys()],
+        ranges={k: [b.get_range(k, c) for c in range(b.data.channels)]
+                for k in used_letters(b)})
+
+
+def check_db(got, want, label=""):
+    """dB values compared as the power they stand for."""
+    np.testing.assert_allclose(10.0 ** (np.asarray(got, float) / 10),
+                               10.0 ** (np.asarray(want, float) / 10),
+                               rtol=TOL_PSD_RTOL, atol=TOL_PSD_ATOL,
+                               err_msg=label)
+
+
+def check_state(tb, jb, label, data_letters=""):
+    """View state equal; the used letters among ``data_letters`` (fitted
+    to the data) within one int16 code of full scale (amplitudes) or as
+    powers (dB levels)."""
+    got, want = view_state(tb), view_state(jb)
+    for k in data_letters:
+        if k not in want["ranges"]:
+            continue
+        g = np.array(got["ranges"].pop(k), float)
+        w = np.array(want["ranges"].pop(k), float)
+        if k in "pq":
+            check_db(g, w, f"{label} {k}")
+        else:
+            np.testing.assert_allclose(g, w, atol=1.0 / 32767,
+                                       err_msg=f"{label} {k}")
+    assert got == want, label
+
+
+def amplitude(b, name, c):
+    """The channel's largest magnitude in the trace's window, which bounds
+    the int16 scale of every tile cut from it."""
+    return float(np.abs(np.asarray(b.data[name].buffer)[:, c]).max())
+
+
+def check_tiles(tb, jb, label):
+    """Every trace and channel's trace tile, every channel's u8
+    spectrogram tile and colour levels."""
+    for name in TRACES:
+        if not jb.data.is_visible(name):
+            continue
+        for c in range(jb.data.channels):
+            gt, gv = tb.trace_tile(name, c)
+            wt, wv = jb.trace_tile(name, c)
+            np.testing.assert_array_equal(gt, wt, err_msg=f"{label} {name}")
+            assert gv.shape == wv.shape, (label, name)
+            np.testing.assert_allclose(
+                gv, wv, atol=amplitude(jb, name, c) / 32767,
+                err_msg=f"{label} {name} {c}")
+    for c in range(jb.data.channels):
+        (gi, gr), (wi, wr) = (b.spec_tile(c, quantize=True)
+                              for b in (tb, jb))
+        assert gi.dtype == wi.dtype == np.uint8 and gi.shape == wi.shape
+        assert np.abs(gi.astype(int) - wi.astype(int)).max() <= 1, label
+        np.testing.assert_allclose(gr, wr, rtol=1e-12, err_msg=label)
+        check_db(tb.estimate_power_levels(c), jb.estimate_power_levels(c),
+                 f"{label} levels {c}")
+
+
+def both(pair, verb, *args, **kw):
+    return [getattr(b, verb)(*args, **kw) for b in pair]
+
+
+def test_open_matches_jax(pair):
+    tb, jb = pair
+    assert tb.data.keys() == jb.data.keys()
+    assert tb.device.type == "cpu"
+    assert tb.spectrogram == jb.spectrogram == "spectrogram"
+    assert [a.name for a in tb.analyzers] == [a.name for a in jb.analyzers]
+    assert [(m.label, m.key_shortcut, m.color) for m in tb.marker_labels] \
+        == [(m.label, m.key_shortcut, m.color) for m in jb.marker_labels]
+    for key in tb.marker_data.keys:
+        assert getattr(tb.marker_data, key) == \
+            getattr(jb.marker_data, key), key
+    assert tb.name == jb.name and tb.metadata_rows() == jb.metadata_rows()
+    assert tb.time_info(1.25) == jb.time_info(1.25)
+    assert tb.hover_readout(0.5, 0.1) == jb.hover_readout(0.5, 0.1)
+    assert tb.device_state == "ok" and tb.device_status_text() == ""
+    check_state(tb, jb, "open")
+    check_tiles(tb, jb, "open")
+
+
+@pytest.mark.parametrize("verbs", [
+    [("set_times", 0.2, 0.5), ("time_page_down",), ("time_page_down",),
+     ("time_page_down",), ("time_page_up",), ("time_zoom_in",),
+     ("time_page_down",), ("time_zoom_out",), ("time_end",),
+     ("time_home",), ("set_times", 1.1, 0.3)],
+    [("set_times", 0.3, 0.4), ("update_filter", 2000.0, 10000.0),
+     ("step_filter", 2.0), ("step_filter", None, 0.8),
+     ("update_envelope", 1000.0), ("set_resolution", 512),
+     ("freq_resolution_down",), ("freq_resolution_down",),
+     ("overlap_frac_up",), ("freq_resolution_up",), ("time_page_down",)],
+], ids=["times", "parameters"])
+def test_verbs_match_jax(pair, verbs):
+    tb, jb = pair
+    for verb, *args in verbs:
+        both(pair, verb, *args)
+        label = f"{verb}{tuple(args)}"
+        check_state(tb, jb, label)
+        check_tiles(tb, jb, label)
+    assert tb.data["spectrogram"].nfft == jb.data["spectrogram"].nfft
+    f, jf = tb.data["filtered"], jb.data["filtered"]
+    assert (f.highpass_cutoff, f.lowpass_cutoff) == \
+        (jf.highpass_cutoff, jf.lowpass_cutoff)
+    assert not tb.has_pending_resolution
+    assert tb.warm_resolutions() == 0 and tb.warm_resolutions_async() is None
+
+
+def test_channels_and_panels_match_jax(pair):
+    tb, jb = pair
+    steps = [("set_channels", [1]), ("set_channels", [0, 1], [1]),
+             ("all_channels",), ("all_channels",), ("next_channel",),
+             ("previous_channel",), ("select_next_channel",),
+             ("select_previous_channel",), ("toggle_channel", 0),
+             ("toggle_channel", 0), ("show_channel", 1), ("show_channel", 1),
+             ("select_channels", [1]), ("hide_deselected_channels",),
+             ("set_channels", [0, 1], [0, 1], 0),
+             ("toggle_spectrograms",), ("toggle_spectrograms",),
+             ("toggle_powers",), ("toggle_colorbars",), ("toggle_fulldata",),
+             ("toggle_traces",), ("toggle_traces",), ("toggle_grids",),
+             ("color_map_cycler",), ("set_panels", True, 1),
+             ("toggle_trace", False, "envelope"),
+             ("toggle_trace", True, "envelope")]
+    for verb, *args in steps:
+        both(pair, verb, *args)
+        check_state(tb, jb, f"{verb}{tuple(args)}")
+    check_tiles(tb, jb, "channels")
+
+
+def test_ranges_crosshair_and_markers_match_jax(pair):
+    tb, jb = pair
+    both(pair, "set_times", 0.4, 0.5)
+    for verb, letters in (("zoom_in", "x"), ("down", "x"), ("zoom_out", "f"),
+                          ("up", "f"), ("reset", "x"), ("center", "x"),
+                          ("snap", "f")):
+        both(pair, "apply_ranges", verb, letters)
+        check_state(tb, jb, f"{verb} {letters}")
+    both(pair, "apply_time_ranges", "zoom_in")
+    both(pair, "apply_time_ranges", "end")
+    check_state(tb, jb, "time ranges")
+    both(pair, "set_ranges", "f", 1000.0, 9000.0)
+    check_state(tb, jb, "set_ranges")
+    both(pair, "auto_ampl")
+    both(pair, "set_powers")
+    check_state(tb, jb, "auto", data_letters="xyp")
+    both(pair, "apply_ranges", "auto", "x")
+    check_state(tb, jb, "auto verb", data_letters="xyp")
+    both(pair, "set_crosshair", 1, t=0.6, amplitude=0.1, frequency=4800.0,
+         power=-40.0)
+    assert both(pair, "store_marker", "start", "first") == [2, 2]
+    both(pair, "set_crosshair", 1, t=0.75, amplitude=-0.2, frequency=6000.0)
+    got, want = (b.crosshair_readout() for b in pair)
+    assert got == want
+    both(pair, "store_marker", "end")
+    for key in tb.marker_data.keys:
+        assert getattr(tb.marker_data, key) == \
+            getattr(jb.marker_data, key), key
+    for a, b in zip(tb.marker_data.get_markers(tb.data.rate),
+                    jb.marker_data.get_markers(jb.data.rate)):
+        np.testing.assert_array_equal(a, b)
+    both(pair, "clear_crosshair")
+    assert tb.crosshair_readout() == jb.crosshair_readout()
+
+
+def test_analyze_and_power_spectrum_match_jax(pair, tmp_path):
+    tb, jb = pair
+    both(pair, "update_filter", 2000.0, 10000.0)
+    for t0, t1, c in ((0.5, 0.6, 0), (1.2, 1.9, 1), (0.0, 0.05, 1)):
+        got, want = (b.analyze_region(t0, t1, c) for b in pair)
+        assert set(got) == set(want)
+        for name in got:
+            assert len(got[name]) == len(want[name])
+            np.testing.assert_array_equal(got[name][0], want[name][0])
+            atol = 1e-12 if name == "spectrogram" else 1e-5
+            np.testing.assert_allclose(got[name][-1], want[name][-1],
+                                       rtol=1e-4, atol=atol, err_msg=name)
+    got, want = (b.get_analysis_table() for b in pair)
+    assert [list(r) for r in got] == [list(r) for r in want]
+    for g, w in zip(got, want):
+        std = float(w["filtered stdev/a.u."])
+        for k in w:
+            # the mean of a band-passed region nearly cancels: its error
+            # is relative to the region's scale, its standard deviation
+            atol = TOL_TABLE * std if "mean" in k else 1e-12
+            np.testing.assert_allclose(float(g[k]), float(w[k]),
+                                       rtol=TOL_TABLE, atol=atol, err_msg=k)
+    a, b = tmp_path / "t.csv", tmp_path / "j.csv"
+    tb.save_analysis(a)
+    jb.save_analysis(b)
+    assert a.read_text().splitlines()[0] == b.read_text().splitlines()[0]
+    for c in range(2):
+        (gf, gd), (wf, wd) = (b.power_spectrum(c) for b in pair)
+        np.testing.assert_allclose(gf, wf, rtol=1e-12)
+        check_db(gd, wd, f"power spectrum {c}")
+    both(pair, "clear_analysis")
+    assert tb.get_analysis_table() == jb.get_analysis_table() == []
+
+
+@pytest.mark.parametrize("audio", [
+    dict(), dict(use_heterodyne=True, heterodyne_freq=5000.0),
+    dict(rate_fac=0.5, use_heterodyne=True, heterodyne_freq=3000.0)])
+def test_play_region_matches_jax(pair, audio):
+    tb, jb = pair
+    both(pair, "set_audio", **audio)
+    for t0, t1 in ((0.1, 0.9), (1.5, 2.5)):
+        (got, grate), (want, wrate) = both(pair, "play_region", t0, t1)
+        assert isinstance(got, np.ndarray) and got.shape == want.shape
+        assert grate == wrate
+        np.testing.assert_allclose(got, want, atol=TOL_PLAY)
+        assert (tb.audio_time, tb.audio_tmax) == (jb.audio_time,
+                                                   jb.audio_tmax)
+    assert tb.mark_audio() == jb.mark_audio()
+
+
+def read_wav(pkg, path):
+    rate, md, locs, labels = pkg.scan_wav(path)
+    info = pkg.wav_info(path)
+    codes = np.round(pkg.read_frames(path, 0, info[2], info) * 32768)
+    return codes.astype(np.int64), rate, md, locs, labels
+
+
+def test_save_region_matches_jax(pair, tmp_path):
+    tb, jb = pair
+    both(pair, "select_channels", [1])
+    both(pair, "set_crosshair", 0, t=0.3)
+    both(pair, "store_marker", "mark", "inside")
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    got = tb.save_region(0.2, 1.7, tmp_path / "t" / "cut.wav")
+    want = jb.save_region(0.2, 1.7, tmp_path / "j" / "cut.wav")
+    assert got == tmp_path / "t" / "cut.wav"
+    assert tb.save_path == tmp_path / "t"
+    for reader in (twav, jwav):
+        g, w = read_wav(reader, got), read_wav(reader, want)
+        np.testing.assert_array_equal(g[0], w[0])
+        assert g[1:3] == w[1:3]
+        np.testing.assert_array_equal(g[3], w[3])
+        np.testing.assert_array_equal(g[4], w[4])
+    codes, _, md, locs, labels = read_wav(twav, got)
+    i0 = int(round(0.2 * tb.data.rate))
+    q = np.empty((codes.shape[0], 2), np.int16)
+    tb.data.data.read_raw16_into(i0, codes.shape[0], q)
+    np.testing.assert_array_equal(codes[:, 0], q[:, 1])
+    assert "cut out 0.2s-1.7s: cut.wav" in md["BEXT"]["CodingHistory"]
+    assert md["BEXT"]["OriginationTime"] == "06:07:08"
+    assert md["BEXT"]["TimeReference"] == 4410 + i0
+    # the song marker ends before the cut; the others shift by its start
+    assert labels.tolist() == [["start", ""], ["mark", "inside"]]
+    assert locs.tolist() == [[60000 - i0, 0], [13230 - i0, 0]]
+    # the default name, and a FLAC target the port does not write
+    default = tb.save_region(0.5, 1.0)
+    assert default.name == "song-0.5s-1s.wav" and default.exists()
+    with pytest.raises(twav.WavError, match="Queue 1 #6"):
+        tb.save_region(0.5, 1.0, tmp_path / "t.flac")
+
+
+def test_region_modes_and_scroll_match_jax(pair, tmp_path):
+    tb, jb = pair
+    for mode in (tapp.DataBrowser.zoom_region,
+                 tapp.DataBrowser.analyze_region_mode,
+                 tapp.DataBrowser.ask_region):
+        got, want = (b.handle_region(1, 0.3, 0.7, mode) for b in pair)
+        assert got[0] == want[0]
+        if got[0] == "zoom":
+            assert got[1] == want[1]
+        check_state(tb, jb, f"region {got[0]}")
+    both(pair, "auto_scroll")
+    both(pair, "auto_scroll")
+    for _ in range(5):
+        both(pair, "scroll_further")
+        check_state(tb, jb, "scroll")
+    assert [b.play_scroll()[0] for b in pair] == ["scroll-stopped"] * 2
+    assert tb.goto_time("song.wav", 0.8) == jb.goto_time("song.wav", 0.8)
+    check_state(tb, jb, "goto")
+
+
+def test_browser_refuses_a_mesh(wav):
+    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
+        tapp.DataBrowser(wav, mesh=object(), device="cpu")
+
+
+def test_secs_to_str_equals_jax():
+    for t in (0.0, 5.0, 5.25, 65.25, 3600.0, 3725.5, 0.125, 59.999):
+        assert tapp.secs_to_str(t) == japp.secs_to_str(t)
+
+
+def test_save_region_keeps_the_history_without_bext(tmp_path, cricket_like):
+    """A source without a bext chunk: the port files the CodingHistory
+    in a new bext chunk, where the JAX package's top-level entry is
+    dropped by its WAV writer."""
+    x, rate = cricket_like
+    src = tmp_path / "plain.wav"
+    jwav.write_audio(src, x, rate, encoding="PCM_16")
+    tb = tapp.DataBrowser(src, device="cpu").open()
+    try:
+        out = tb.save_region(0.5, 1.0, tmp_path / "cut.wav")
+    finally:
+        tb.close()
+    md = twav.metadata(out)
+    assert md["BEXT"]["CodingHistory"].splitlines() == [
+        f"A=PCM,F=44100,W=16,M=stereo,T={src}",
+        "A=PCM,F=44100,W=16,M=stereo,T=cut out 0.5s-1s: cut.wav"]
+    assert jwav.metadata(out) == md
+
+
+def peak_analyzer(analysis):
+    """The JAX browser tests' custom analyzer, on either package's base."""
+
+    class PeakAnalyzer(analysis.Analyzer):
+        def __init__(self, b):
+            super().__init__(b, "peaks", "filtered")
+            self.make_column("peak", "V", "%.3f")
+            self.make_trace_events("peaks", "filtered", "o", "red", 5)
+            self.make_panel_events("marks", "spectrogram", "x", "blue", 3)
+
+        def analyze(self, t0, t1, channel, traces):
+            t, y = traces["filtered"]
+            i = int(np.argmax(y))
+            self.store(float(y[i]))
+            self.set_events("peaks", channel, [t[i]], [y[i]])
+            self.add_events("marks", -1, [t0, t1], [1000.0, 2000.0])
+
+    return PeakAnalyzer
+
+
+def test_custom_analyzer_and_marker_export_match_jax(pair, tmp_path):
+    from audian_tpu import analysis as janalysis
+    from audian_torch import analysis as tanalysis
+
+    tb, jb = pair
+    tp = peak_analyzer(tanalysis)(tb)
+    jp = peak_analyzer(janalysis)(jb)
+    both(pair, "analyze", 0.1, 0.2, 1)
+    both(pair, "analyze", 0.5, 0.9, 0)
+    np.testing.assert_allclose(np.array(tp.data.rows, float),
+                               np.array(jp.data.rows, float), atol=1e-5)
+    got = [(a.name, n, r.channel, r.owner_panel(tb), r.x.tolist())
+           for a, n, r in tb.iter_event_items()]
+    want = [(a.name, n, r.channel, r.owner_panel(jb), r.x.tolist())
+            for a, n, r in jb.iter_event_items()]
+    assert got == want and got
+    tb.remove_analyzer("peaks")
+    assert tb.get_analyzer("peaks") is None
+    both(pair, "set_crosshair", 1, t=0.6, amplitude=0.1, frequency=4800.0)
+    both(pair, "store_marker", "start", "first")
+    a, b = tmp_path / "t.csv", tmp_path / "j.csv"
+    assert tb.marker_data.save(a) == a
+    jb.marker_data.save(b)
+    assert a.read_text() == b.read_text()

@@ -245,3 +245,32 @@ def test_ops_put_host_data_on_cuda_by_default(x):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert minmax.minmax_decimate(x, 4, device="cpu")[0].device.type == "cpu"
+
+
+def test_port_calls_leave_the_tf32_flags_as_they_were(x):
+    """``full_fp32`` scopes full float32 to each call: a host program's
+    own TF32 setting survives the filter, the graph executor and the
+    STFT."""
+    from audian_torch import graph as tgraph
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        k = design.fir_kernels(SOS, eps=1e-9)
+        sos.sosfilt_fir(k, torch.from_numpy(x), zi=np.zeros((len(SOS), 2, 2)))
+        g = tgraph.TraceGraph([tgraph.FilterNode("filtered", "data"),
+                               tgraph.SpectrogramNode("spectrogram",
+                                                      "filtered")])
+        g.open(tgraph.TraceSpec(rate=RATE, channels=2, frames=len(x)))
+        tgraph.GraphExecutor(g, device="cpu").run(x, 0, pull=True)
+        stft.spectrogram(torch.from_numpy(x), RATE, nfft=256, hop=128)
+        with sos.full_fp32():
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -1,12 +1,15 @@
 """The port's slice end to end against the JAX package: a PCM-16 WAV read
 in halo'd int16 chunks by audian_torch's reader and run through its
 ``chain_cf`` with stats, the ``entry()`` twin, the import boundary (no
-jax), the no-fallback rules of the kernel wrappers on a CPU-only host,
-and the default device of every entry point (the CUDA card: without it a
-call that does not name the CPU raises)."""
+jax, and no pandas, matplotlib or PyQt5 either), the no-fallback rules
+of the kernel wrappers on a CPU-only host, and the default device of
+every entry point (the CUDA card: without it a call that does not name
+the CPU raises)."""
 
+import functools
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -22,11 +25,14 @@ from audian_tpu.ops import design_envelope_filter, design_filter
 from audian_tpu.ops.fused import FusedChainCF as JaxChain
 
 from audian_torch.analysis import events
+from audian_torch.app import Audian, DataBrowser, audian_cli
+from audian_torch.cache import FullTraceData
 from audian_torch.cli import songdetector
 from audian_torch.convert import (ARRAY_KEYS, chain_from_arrays,
                                   envdet_from_arrays,
                                   node_params_from_arrays)
-from audian_torch.data import Data
+from audian_torch.data import AudioLoader, Data
+from audian_torch.data import wavio as twav
 from audian_torch.data.wavio import read_frames_raw16, wav_info
 from audian_torch.entry import entry as torch_entry
 from audian_torch.graph import GraphExecutor, SpectrogramNode, TraceGraph
@@ -112,8 +118,9 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(audian_torch.__path__,"
         " 'audian_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or"
-        " k.startswith(('jax.', 'audian_tpu'))]\n"
+        "bad = [k for k in sys.modules if k in ('jax', 'pandas',"
+        " 'matplotlib', 'PyQt5') or k.startswith(('jax.', 'audian_tpu',"
+        " 'pandas.', 'matplotlib.', 'PyQt5.'))]\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules"
         " if k.startswith('audian_torch')]))\n")
@@ -178,6 +185,21 @@ def _chain_kernel(device=None):
 
 _SIGNAL = np.zeros((20000, 1), np.float32)
 
+
+@functools.lru_cache(maxsize=None)
+def _wav():
+    """A 0.5 s mono PCM-16 WAV for the entry points that read one."""
+    path = Path(tempfile.mkdtemp()) / "entry.wav"
+    twav.write_audio(path, _SIGNAL[:4000], 8000.0)
+    return str(path)
+
+
+def _overview(d):
+    ft = FullTraceData(AudioLoader(_wav()), device=d)
+    ft.data.update_time(0.0, 0.5)
+    ft.start(100)
+    return ft
+
 #: every entry point of the port, each called as ``fn(device)``
 ENTRY_POINTS = {
     "FusedChainCF": lambda d: FusedChainCF(
@@ -216,6 +238,11 @@ ENTRY_POINTS = {
                                                    device=d),
     "node_params_from_arrays": lambda d: node_params_from_arrays(
         SpectrogramNode(), hann_window(256), device=d),
+    "DataBrowser": lambda d: DataBrowser(_wav(), device=d).open().close(),
+    "Audian": lambda d: Audian([_wav()], device=d).load_files(),
+    "audian_cli": lambda d: audian_cli(["-f", "500", _wav()],
+                                       device=d).load_files(),
+    "FullTraceData": _overview,
 }
 
 

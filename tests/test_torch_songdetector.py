@@ -1,9 +1,10 @@
 """audian_torch's ``audian-songdetector`` against the JAX package's CLI on
 the CPU: the same PCM-16 recording gives the same CSV table (both with the
 same small ``_CHUNK``, so interior chunks take the decimating envelope),
-``-c`` writes the same configuration, malformed config values warn and
-keep the defaults, and what the port cannot read or run yet stops with a
-message that names it."""
+and so do PCM-24 and float recordings, read through the port's
+``AudioLoader``; ``-c`` writes the same configuration, malformed config
+values warn and keep the defaults, and what the port cannot read or run
+yet stops with a message that names it."""
 
 import numpy as np
 import pytest
@@ -51,6 +52,19 @@ def test_cli_writes_the_same_table_as_jax(tmp_path, small_chunks):
     assert got.read_text() == want.read_text()
 
 
+@pytest.mark.parametrize("encoding", ["PCM_24", "FLOAT"])
+def test_cli_reads_other_encodings_as_jax(tmp_path, small_chunks, encoding):
+    path = tmp_path / f"songs-{encoding}.wav"
+    jwav.write_audio(path, _recording(), RATE, encoding=encoding)
+    data, rate = tcli.load_recording(path)
+    assert data.dtype == np.float32 and rate == RATE
+    want, got = tmp_path / "jax.csv", tmp_path / "torch.csv"
+    assert jcli.main(["-o", str(want), str(path)]) == 0
+    assert tcli.main(["-o", str(got), str(path)], device="cpu") == 0
+    assert len(got.read_text().strip().splitlines()) == 1 + 2 * 3
+    assert got.read_text() == want.read_text()
+
+
 def test_cli_default_output_name(tmp_path, small_chunks, capsys):
     path = tmp_path / "rec.wav"
     jwav.write_audio(path, _recording(nsongs=1), RATE, encoding="PCM_16")
@@ -94,17 +108,26 @@ def test_config_tolerates_bad_values(tmp_path, capsys):
 
 @pytest.mark.parametrize("kind", ["float", "flac", "missing"])
 def test_unreadable_input_names_the_loader(tmp_path, capsys, kind):
+    """What the loader does not read stops with its reason: a 16-bit float
+    WAV (an IEEE-float tag no reader decodes), a FLAC file, a missing
+    file."""
     path = tmp_path / "rec.wav"
     if kind == "float":
-        jwav.write_audio(path, _recording(nsongs=1), RATE, encoding="FLOAT")
+        jwav.write_audio(path, _recording(nsongs=1), RATE, encoding="PCM_16")
+        raw = bytearray(path.read_bytes())
+        assert raw[12:16] == b"fmt "
+        raw[20:22] = (3).to_bytes(2, "little")     # IEEE float, 16 bits
+        path.write_bytes(bytes(raw))
     elif kind == "flac":
         path = tmp_path / "rec.flac"
         path.write_bytes(b"fLaC" + bytes(60))
     assert tcli.main([str(path)], device="cpu") == 1
     err = capsys.readouterr().err
     assert err.startswith("error: ") and str(path) in err
-    if kind != "missing":
-        assert "AudioLoader" in err
+    if kind == "float":
+        assert "unsupported encoding tag3/16" in err
+    elif kind == "flac":
+        assert "WAV, RF64 and W64 only" in err
 
 
 @pytest.mark.parametrize("args", [["-j", "2"], ["--mesh", "4"], ["-p"],

@@ -64,3 +64,63 @@ def test_bad_out_buffer_raises(tmp_path, pcm):
                 np.zeros((3, 10), np.int16).T):
         with pytest.raises(ValueError, match="out must be"):
             twav.read_frames_raw16(path, 0, 10, info, out)
+
+
+WRITE_MD = {"BEXT": {"Description": "field", "OriginationDate": "2026-03-04",
+                     "OriginationTime": "05:06:07", "TimeReference": 96000,
+                     "CodingHistory": "A=PCM,F=48000,W=16,M=3ch"},
+            "Comment": "writers", "Artist": "audian", "IXYZ": "four"}
+
+
+@pytest.mark.parametrize("encoding", ["PCM_16", "PCM_24", "PCM_32",
+                                      "PCM_U8", "FLOAT", "DOUBLE"])
+@pytest.mark.parametrize("fmt", ["WAV", "RF64"])
+def test_write_audio_writes_the_jax_packages_bytes(tmp_path, pcm, encoding,
+                                                   fmt):
+    """The port's ``write_audio`` (the region export's writer) writes the
+    bytes of the JAX package's, metadata and markers included, for int16
+    codes and for floats; and reads them back to the same values."""
+    x = np.random.default_rng(3).uniform(-1.0, 1.0, (777, 3))
+    locs = np.array([[10, 5], [300, 0], [700, 77]])
+    labels = np.array([["song", "trill"], ["start", ""], ["", "note"]],
+                      dtype=object)
+    for data in (pcm[:777], x):
+        got, want = tmp_path / "t.wav", tmp_path / "j.wav"
+        assert twav.write_audio(got, data, 48000.0, metadata=WRITE_MD,
+                                locs=locs, labels=labels, encoding=encoding,
+                                format=fmt) == got
+        jwav.write_audio(want, data, 48000.0, metadata=WRITE_MD, locs=locs,
+                         labels=labels, encoding=encoding, format=fmt)
+        assert got.read_bytes() == want.read_bytes()
+        back, rate = twav.load_audio(got)
+        jback, jrate = jwav.load_audio(got)
+        assert rate == jrate == 48000.0
+        np.testing.assert_array_equal(back, jback)
+        assert twav.scan_wav(got)[1] == jwav.scan_wav(got)[1]
+
+
+def test_metadata_helpers_equal_jax(tmp_path, pcm):
+    import copy
+
+    for fmt in ("WAV", "FLAC", None):
+        assert twav.available_encodings(fmt) == jwav.available_encodings(fmt)
+    for args in (("PCM_24", 96000.0, 1), ("FLOAT", 44100.4, 2),
+                 ("FLAC_16", 48000, 16), (None, 8000, 3)):
+        assert twav.bext_history_str(*args) == jwav.bext_history_str(*args)
+        assert twav.bext_history_str(*args, text="cut") == \
+            jwav.bext_history_str(*args, text="cut")
+    for md in (WRITE_MD, {"Date": "2026-01-02T03:04:05"}, {}):
+        a, b = copy.deepcopy(md), copy.deepcopy(md)
+        assert twav.update_starttime(a, 61.25, 48000.0) == \
+            jwav.update_starttime(b, 61.25, 48000.0)
+        for key in ("CodingHistory", "BEXT.CodingHistory"):
+            assert twav.add_history(a, "x", key, "pre") == \
+                jwav.add_history(b, "x", key, "pre")
+    with pytest.raises(twav.WavError, match="Queue 1 #6"):
+        twav.write_audio(tmp_path / "x.flac", pcm, 48000.0)
+    with pytest.raises(twav.WavError, match="Queue 1 #6"):
+        twav.write_audio(tmp_path / "x.wav", pcm, 48000.0, format="FLAC")
+    with pytest.raises(ValueError, match="unsupported format"):
+        twav.write_audio(tmp_path / "x.wav", pcm, 48000.0, format="OGG")
+    with pytest.raises(twav.WavError, match="unsigned"):
+        twav.write_audio(tmp_path / "x.wav", pcm.astype(np.uint16), 48000.0)
