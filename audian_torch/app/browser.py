@@ -1083,8 +1083,10 @@ class DataBrowser:
     def save_region(self, t0, t1, file_path=None):
         """Export the selected region to a WAV with shifted start time,
         coding history, and the contained markers
-        (`databrowser.py:1860-1921`).  WAV only: a ``.flac`` target
-        raises (FLAC export is not ported, ROADMAP.md Queue 1 #6)."""
+        (`databrowser.py:1860-1921`); a ``.flac`` target writes FLAC at
+        the source's depth (a float source at 24 bits) with the metadata
+        as VORBIS_COMMENT tags, and raises where the region holds a marker
+        (FLAC has no cue chunk), as the JAX package does."""
         rate = self.data.rate
         i0 = max(int(np.round(t0 * rate)), 0)
         i1 = min(int(np.round(t1 * rate)), len(self.data.data))
@@ -1117,10 +1119,14 @@ class DataBrowser:
         if encoding not in wavio.available_encodings(
                 "FLAC" if to_flac else "WAV"):
             encoding = "PCM_16"
-        # the history goes into the bext chunk, created when the source
-        # has none: the WAV writer has no other place for it (the JAX
-        # package files it at the top level, where write_audio drops it)
+        # in a WAV the history goes into the bext chunk, created when the
+        # source has none: the WAV writer has no other place for it (the
+        # JAX package files it at the top level, where write_audio drops
+        # it).  FLAC keeps every key as a tag, filed as the JAX package
+        # files it
         hkey = "BEXT.CodingHistory"
+        if to_flac and "BEXT" not in md:
+            hkey = "CodingHistory"
         # the history line describes the file being WRITTEN: post-remap
         # encoding, the selected channel count — not the source
         bext_code = wavio.bext_history_str(encoding, rate,

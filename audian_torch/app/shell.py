@@ -21,31 +21,10 @@ import os
 import sys
 
 from ..analysis import Plugins
+from ..cli.compress import parse_load_kwargs
 from ..utils import resolve_device
 from ..version import __version__, __year__
 from .browser import DataBrowser, Signal
-
-
-def parse_load_kwargs(pairs):
-    """Parse ``key=value`` strings (comma-separated, repeatable) into
-    loader keyword arguments, numbers converted (copied from
-    ``audian_tpu/cli/compress.py``)."""
-    kwargs = {}
-    for item in pairs:
-        for part in str(item).split(","):
-            if not part.strip():
-                continue
-            key, _, value = part.partition("=")
-            value = value.strip()
-            try:
-                value = int(value)
-            except ValueError:
-                try:
-                    value = float(value)
-                except ValueError:
-                    pass
-            kwargs[key.strip()] = value
-    return kwargs
 
 
 def parse_channels(spec):

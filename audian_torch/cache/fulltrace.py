@@ -11,9 +11,14 @@ package's.
 
 A recording the loader's window holds whole reduces at once on the
 overview's device (the CUDA card unless the caller names another).  A
-longer one is scanned from the files on the host in numpy
-(:meth:`FullTraceData._compute_python`, :func:`_interleaved_minmax`); the
-native C++ scan of the JAX package is not ported (ROADMAP.md, Queue 1 #6).
+longer one is scanned from the files on the host: a WAV by the native C++
+threads (:func:`audian_torch.native.file_minmax`, in step-aligned ~16 MiB
+slices so that ``close()`` stops it between two), and so is a multi-file
+recording whose file boundaries fall on the overview's segment grid, one
+file at a time; the rest in numpy (:meth:`FullTraceData._compute_python`,
+:func:`_interleaved_minmax`): an unwrapped recording, a FLAC or another
+container without a byte offset, unaligned files, or a host where the
+native library does not build.
 """
 
 from __future__ import annotations
@@ -28,12 +33,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import native
 from ..data import wavio
 from ..ops.minmax import minmax_interleaved
 from ..utils import resolve_device
 from ..version import audian_dirs
 
 __all__ = ["FullTraceData"]
+
+#: bytes of source frames a native min/max call reads on the single-file
+#: path: the granularity at which close() stops a background scan
+_NATIVE_SLICE_BYTES = 16 << 20
 
 
 def _read_index(index_path):
@@ -194,16 +204,40 @@ class FullTraceData:
             pass
 
     def _compute_body(self, step):
-        """The numpy scan: one file through :meth:`_compute_python`, a
-        multi-file recording as one sequential block scan of the
-        concatenated stream (per-file decimation would restart the
-        segment grid at every file boundary and shift the overview in
-        time)."""
+        """One file: the native scan in step-aligned slices where it
+        applies, else :meth:`_compute_python`.  Several files: the native
+        scan file by file where every boundary falls on the segment grid,
+        else one sequential block scan of the concatenated stream
+        (per-file decimation would restart the segment grid at every file
+        boundary and shift the overview in time)."""
         out = self.datas
+        infos = self.data._infos
+        plain = self.data.unwrap_thresh <= 1e-3
         if len(self.data.file_paths) == 1:
+            rate, channels, frames, enc, data_off = infos[0]
+            if plain and data_off is not None and self._native_slices(
+                    step, frames, enc, channels, data_off):
+                return
+            if self._stop.is_set():
+                return
             part = self._compute_python(0, step)
             n = min(len(part), len(out))
             out[:n] = part[:n]
+            return
+        if plain and all(i[4] is not None for i in infos) and all(
+                i[2] % step == 0 for i in infos[:-1]):
+            row = 0
+            for k, path in enumerate(self.data.file_paths):
+                if self._stop.is_set():
+                    return
+                info = infos[k]
+                part = native.file_minmax(path, info[4], info[3], info[1],
+                                          info[2], step)
+                if part is None:
+                    part = self._compute_python(k, step)
+                n = min(len(part), len(out) - row)
+                out[row : row + n] = part[:n]
+                row += n
             return
         frames = self.data.frames
         nblock = max(step, (1 << 20) // step * step)
@@ -233,6 +267,28 @@ class FullTraceData:
             seg = _interleaved_minmax(buf, step)
             r = 2 * (start // step)
             out[r : r + len(seg)] = seg
+
+    def _native_slices(self, step, frames, enc, channels, data_off):
+        """The native scan of the single file in step-aligned ~16 MiB
+        slices, stopping between two when close() asks; False where the
+        native library cannot serve it (the caller scans in numpy)."""
+        out = self.datas
+        tb = native._TAGS.get(enc)
+        bpf = max(channels * ((tb[1] if tb else 16) // 8), 1)
+        seg = max(step, _NATIVE_SLICE_BYTES // bpf // step * step)
+        row = 0
+        for s0 in range(0, frames, seg):
+            if self._stop.is_set():
+                return True
+            part = native.file_minmax(self.data.file_paths[0], data_off,
+                                      enc, channels, min(seg, frames - s0),
+                                      step, start=s0)
+            if part is None:
+                return False
+            n = min(len(part), len(out) - row)
+            out[row : row + n] = part[:n]
+            row += n
+        return True
 
     def _compute_python(self, k, step):
         """Fallback: block-strided numpy reduction over one file."""

@@ -9,9 +9,11 @@ the same CSV table.
 
     python -m audian_torch.cli.songdetector recording.wav [-o songs.csv]
 
-Recordings (WAV, RF64, W64) are read through the port's
-:class:`~audian_torch.data.loader.AudioLoader`: PCM-16 as raw int16 codes
-(dequantized on the card), every other encoding decoded to float32.  The
+Recordings (WAV, RF64, W64, FLAC, and other containers where soundfile or
+the system FFmpeg libraries read them) are read through the port's
+:class:`~audian_torch.data.loader.AudioLoader`: PCM-16 WAV and 16-bit FLAC
+as int16 codes (dequantized on the card), every other encoding decoded to
+float32.  The
 interactive viewer (``-p``, ``--plot-png``), ``-j`` and ``--mesh`` are not
 ported yet and stop with a message (ROADMAP.md, Queue 1).
 """

@@ -7,8 +7,9 @@ card through :class:`audian_torch.graph.GraphExecutor` and kept there.
 
 The raw window lives on the card as a mirror of the loader's host window.
 A scroll slides it (one copy into a fresh tensor) and uploads only the
-newly exposed frames: PCM-16 codes read from the files into pinned int16
-staging buffers, copied without blocking and dequantized on the card.
+newly exposed frames: the int16 codes of PCM-16 WAVs and 16-bit FLACs
+read from the files into pinned int16 staging buffers (other sources
+upload the loader's float32 window), copied without blocking and dequantized on the card.
 The derived windows slide the same way, with a halo'd sub-window
 recomputed and stitched in (:meth:`Data._try_delta_update`).  Host code
 pulls only the slices it renders.  There is no host fallback: a CUDA
@@ -530,7 +531,7 @@ class Data:
         self._recompute_buffer()
 
     def _upload_raw16(self, gstart, n):
-        """The PCM-16 codes of frames [gstart, gstart + n) on the device.
+        """The 16-bit codes of frames [gstart, gstart + n) on the device.
 
         On the card they are read from the files into a pinned int16
         staging buffer and copied without blocking.  Two buffers per shape
@@ -568,10 +569,10 @@ class Data:
         """Upload the loader-window slice ``hbuf`` (global frames from
         ``gstart``) to the device as float32.
 
-        PCM-16 sources without unwrap cross as int16 codes read straight
-        from the files (half the bytes, no float decode on the host) and
-        dequantize on the card: every PCM-16 sample is k / 2**15, so both
-        paths give the same values bit for bit.  Other sources upload the
+        16-bit sources without unwrap (PCM-16 WAVs, 16-bit FLACs) cross as
+        int16 codes read straight from the files (half the bytes, no float
+        decode on the host) and dequantize on the card: every such sample
+        is k / 2**15, so both paths give the same values bit for bit.  Other sources upload the
         loader's float32 window (a copy: the loader recycles its
         buffers)."""
         if self.data.raw16_capable:

@@ -1,12 +1,16 @@
 """Out-of-core audio loading with a sliding buffer window.
 
 The counterpart of ``audian_tpu/data/loader.py``: a windowed view over one
-or more concatenated WAV files that keeps ``buffer_time`` seconds in host
+or more concatenated recordings that keeps ``buffer_time`` seconds in host
 memory with ``back_time`` seconds retained behind the cursor, loading
 frames on demand through a block prefetcher.  Host-side by design: the
-device gets its window from :meth:`AudioLoader.read_raw16_into` (PCM-16
-codes, dequantized on the card) or from the float buffer.  WAV, RF64 and
-W64 only (:mod:`audian_torch.data.wavio`); there is no native fast path.
+device gets its window from :meth:`AudioLoader.read_raw16_into` (the
+int16 codes of PCM-16 WAVs and 16-bit FLACs, dequantized on the card) or
+from the float buffer.  WAV, RF64, W64 and FLAC, and other containers
+where ``soundfile`` or the system FFmpeg libraries read them
+(:mod:`audian_torch.data.wavio`).  Float32 reads of WAV files go through
+the native C++ decoder (:func:`audian_torch.native.read_frames`) straight
+into the window where that library builds, else through numpy.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from pathlib import Path
 import numpy as np
 
 from . import wavio
+from .. import native
 from ..stream import BlockPrefetcher
 
 
@@ -137,7 +142,9 @@ class AudioLoader:
                 np.zeros((0, 2), dtype=object))
 
     def format_dict(self):
-        return dict(format="WAV", encoding=self.encoding,
+        fmt = ("WAV" if self._infos[0][4] is not None
+               else self.filepath.suffix.upper().lstrip(".") or "AUDIO")
+        return dict(format=fmt, encoding=self.encoding,
                     rate=f"{self.rate:.0f}Hz", channels=str(self.channels),
                     frames=str(self.frames),
                     duration=f"{self.frames / self.rate:.3f}s")
@@ -237,8 +244,21 @@ class AudioLoader:
             avail = int(self.end_indices[k]) - g
             n = min(nframes - pos, avail)
             dst = out[pos : pos + n]
-            chunk = wavio.read_frames(self.file_paths[k], local, n,
-                                      self._infos[k])
+            info = self._infos[k]
+            chunk = None
+            if (self.dtype == np.float32 and info[4] is not None
+                    and dst.flags.c_contiguous):
+                # native read and decode straight into the output (WAV
+                # only: other containers have no byte offset to seek to)
+                chunk = native.read_frames(self.file_paths[k], info[4],
+                                           info[3], info[1], local, n,
+                                           out=dst)
+                if chunk is not None:
+                    if len(chunk) < n:  # file shorter than header claims
+                        dst[len(chunk):] = 0.0
+                    pos += n
+                    continue
+            chunk = wavio.read_frames(self.file_paths[k], local, n, info)
             m = min(len(chunk), n)
             dst[:m] = chunk[:m]
             if m < n:  # file shorter than header claims: zero-fill
@@ -249,24 +269,27 @@ class AudioLoader:
     @property
     def raw16_capable(self):
         """True when :meth:`read_raw16_into` can serve reads: every file
-        is a PCM-16 WAV and unwrapping is off (unwrap rescales samples, so
-        raw quantized values would be wrong)."""
+        stores 16-bit codes readable without a float pass (a PCM-16 WAV
+        with a seekable data chunk, or a 16-bit FLAC, whose decoder gives
+        the codes) and unwrapping is off (unwrap rescales samples, so raw
+        quantized values would be wrong)."""
         return (self.unwrap_thresh <= 1e-3
-                and all(i[3] == "PCM_16" for i in self._infos))
+                and all((i[3] == "PCM_16" and i[4] is not None)
+                        or i[3] == "FLAC_16" for i in self._infos))
 
     def read_raw16_into(self, start, nframes, out):
         """Fill ``out`` (C-contiguous ``(>=nframes, channels)`` int16)
-        with the raw quantized PCM-16 samples of [start, start+nframes).
+        with the 16-bit codes of [start, start+nframes).
 
         The device upload (``Data._put_raw``) dequantizes as ``k /
-        2**15``, exactly how :func:`wavio.read_frames` decodes PCM-16, so
-        skipping the float decode is bit-exact.  Bypasses the block
+        2**15``, exactly how :func:`wavio.read_frames` decodes PCM-16 WAV
+        and 16-bit FLAC, so skipping the float decode is bit-exact.  Bypasses the block
         prefetcher (the OS page cache covers re-reads).  Check
         :attr:`raw16_capable` first.
         """
         if not self.raw16_capable:
-            raise wavio.WavError("raw16 reads need all-PCM-16-WAV sources "
-                                 "without unwrap")
+            raise wavio.WavError("raw16 reads need all-PCM-16-WAV or "
+                                 "16-bit-FLAC sources without unwrap")
         start = max(0, min(int(start), self.frames))
         nframes = max(0, min(int(nframes), self.frames - start))
         pos = 0

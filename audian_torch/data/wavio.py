@@ -1,19 +1,26 @@
-"""WAV reads (RIFF, RF64/BW64, Sony Wave64) and writes, with metadata and
-markers.
+"""Audio reads and writes: WAV (RIFF, RF64/BW64, Sony Wave64) and FLAC,
+with metadata and markers, and other containers through optional
+libraries.
 
-The batch chain's read path: :func:`wav_info` scans the chunk headers,
-and :func:`read_frames_raw16` reads a frame range as little-endian int16
-straight into a caller's buffer (sample = k / 2**15, dequantized on the
-device).  The loader's float path: :func:`read_frames` decodes PCM_U8/16/
-24/32, FLOAT and DOUBLE frames to float64.  :func:`scan_wav` reads the
-metadata (LIST-INFO tags, the broadcast-wave ``bext`` chunk) and the
-markers (``cue`` plus LIST-adtl ``labl``/``note``/``ltxt``) without the
-payload.  :func:`write_audio` writes PCM_16/24/32, PCM_U8, FLOAT and
-DOUBLE WAV (RF64 past 4 GiB) with the same metadata and markers, and
-:func:`update_starttime`, :func:`bext_history_str` and :func:`add_history`
-edit the metadata of a region export.  Pure numpy and the standard
-library, copied from ``audian_tpu/data/wavio.py``; FLAC and other
-containers are neither read nor written here.
+The batch chain's read path: :func:`wav_info` scans the headers, and
+:func:`read_frames_raw16` reads a frame range of a PCM-16 WAV or a 16-bit
+FLAC as int16 codes straight into a caller's buffer (sample = k / 2**15,
+dequantized on the device).  The loader's float path: :func:`read_frames`
+decodes PCM_U8/16/24/32, FLOAT and DOUBLE WAV frames and FLAC frames to
+float64.  :func:`scan_wav` reads the metadata (LIST-INFO tags, the
+broadcast-wave ``bext`` chunk, FLAC's VORBIS_COMMENT) and the markers
+(``cue`` plus LIST-adtl ``labl``/``note``/``ltxt``) without the payload.
+:func:`write_audio` writes PCM_16/24/32, PCM_U8, FLOAT and DOUBLE WAV
+(RF64 past 4 GiB) with the same metadata and markers, and FLAC through
+:mod:`audian_torch.data.flac`; :class:`WavWriter` appends frames to a WAV
+as they come.  :func:`update_starttime`, :func:`bext_history_str` and
+:func:`add_history` edit the metadata of a region export.
+
+Other containers (OGG, AIFF, MP3, ...) are read through the optional
+``soundfile`` package, else through the system FFmpeg libraries
+(:func:`audian_torch.native.ff_audio_decode`), which also write them.
+Pure numpy and the standard library, copied from
+``audian_tpu/data/wavio.py``.
 """
 
 from __future__ import annotations
@@ -25,14 +32,77 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["WavError", "add_history", "available_encodings",
-           "bext_history_str", "get_datetime", "load_audio", "markers",
-           "metadata", "read_frames", "read_frames_raw16", "scan_wav",
-           "unwrap", "update_starttime", "wav_info", "write_audio"]
+__all__ = ["WavError", "WavWriter", "add_history", "available_encodings",
+           "available_formats", "bext_history_str", "get_datetime",
+           "load_audio", "load_wav", "markers", "metadata", "read_frames",
+           "read_frames_raw16", "scan_wav", "unwrap", "update_starttime",
+           "wav_info", "write_audio"]
 
 
 class WavError(ValueError):
     pass
+
+
+_SF = 0  # 0 = untried, None = unavailable, the module otherwise
+
+
+def _soundfile():
+    """The optional ``soundfile`` (libsndfile) package, or None.  Files it
+    reads carry a ``None`` data offset in their info tuple."""
+    global _SF
+    if _SF == 0:
+        try:
+            import soundfile
+
+            _SF = soundfile
+        except ImportError:
+            _SF = None
+    return _SF
+
+
+def _sf_unavailable(path):
+    return WavError(
+        f"{path}: not a RIFF/WAVE or FLAC file (WAV and FLAC decode "
+        "natively; other containers need the 'soundfile' package or "
+        "the system FFmpeg libraries)")
+
+
+_FF_CACHE = {}  # (path, mtime, size) -> (float32 samples, rate)
+_FF_CACHE_BYTES = 1 << 30
+
+
+def _ff_decode_cached(p):
+    """Whole-file decode of a container that is neither WAV nor FLAC
+    through the system FFmpeg libraries, cached so that the loader's
+    windowed reads do not decode it again.  None when FFmpeg is
+    unavailable; a file FFmpeg tried and failed raises :class:`WavError`
+    with its reason."""
+    try:
+        st = p.stat()
+    except OSError:
+        return None
+    key = (str(p), st.st_mtime_ns, st.st_size)
+    hit = _FF_CACHE.get(key)
+    if hit is None:
+        from .. import native
+
+        try:
+            hit = native.ff_audio_decode(p)
+        except OSError:
+            return None
+        except ValueError as e:
+            raise WavError(f"{p}: FFmpeg failed to decode: {e}") from e
+        if hit is None:
+            return None
+        # bound the entries and the bytes: a decode above the cap is
+        # served uncached
+        if hit[0].nbytes > _FF_CACHE_BYTES:
+            return hit
+        total = sum(v[0].nbytes for v in _FF_CACHE.values())
+        if len(_FF_CACHE) > 4 or total + hit[0].nbytes > _FF_CACHE_BYTES:
+            _FF_CACHE.clear()
+        _FF_CACHE[key] = hit
+    return hit
 
 
 # Standard RIFF caps every chunk size at 32 bits (4 GiB); RF64 and BW64
@@ -150,12 +220,6 @@ def _parse_fmt(buf, off, size):
     return tag, channels, rate, bits
 
 
-def _not_wave(path, head):
-    kind = "FLAC" if head[:4] == b"fLaC" else "this container"
-    return WavError(f"{path}: {kind} is not read by audian_torch "
-                    f"(WAV, RF64 and W64 only)")
-
-
 def wav_info(path):
     """Header scan: ``(rate, channels, frames, encoding, data_offset)``.
 
@@ -167,7 +231,21 @@ def wav_info(path):
     with p.open("rb") as f:
         head = f.read(16)
         if _wave_container(head) is None:
-            raise _not_wave(path, head)
+            if head[:4] == b"fLaC":
+                from . import flac
+
+                return flac.flac_info(p)
+            sf = _soundfile()
+            if sf is None:
+                got = _ff_decode_cached(p)
+                if got is not None:
+                    samples, rate = got
+                    return (float(rate), int(samples.shape[1]),
+                            int(samples.shape[0]), "FFMPEG", None)
+                raise _sf_unavailable(path)
+            i = sf.info(str(p))
+            return (float(i.samplerate), int(i.channels), int(i.frames),
+                    f"SF:{i.subtype}", None)
         fmt = None
         for cid, size, off in _walk_wave_chunks(f, path):
             if cid == b"fmt ":
@@ -185,21 +263,28 @@ def wav_info(path):
 
 
 def read_frames_raw16(path, start, nframes, info, out):
-    """Read PCM-16 frames as raw little-endian int16, without a float
-    decode, into ``out`` (a C-contiguous ``(>= nframes, channels)`` int16
-    array) with one ``readinto``.
+    """Read 16-bit frames as int16 codes, without a float decode, into
+    ``out`` (a C-contiguous ``(>= nframes, channels)`` int16 array): a
+    PCM-16 WAV with one ``readinto``, a 16-bit FLAC decoded straight to
+    its codes.
 
     Returns the number of frames read (short files return fewer; the
-    caller zero-fills).  Raises :class:`WavError` for anything but PCM-16.
+    caller zero-fills).  Raises :class:`WavError` for anything but PCM-16
+    WAV and 16-bit FLAC.
     """
     rate, channels, frames, enc, data_off = info
-    if enc != "PCM_16" or data_off is None:
+    if enc not in ("PCM_16", "FLAC_16") or (enc == "PCM_16"
+                                            and data_off is None):
         raise WavError(f"{path}: raw16 read needs PCM_16 WAV, got {enc}")
     if (out.dtype != np.int16 or out.ndim != 2
             or out.shape[1] != channels or out.shape[0] < nframes
             or not out.flags.c_contiguous):
         raise ValueError("out must be C-contiguous int16 "
                          f"(>= {nframes}, {channels})")
+    if enc == "FLAC_16":
+        from . import flac
+
+        return flac.read_frames_raw16(path, start, nframes, out)
     bpf = channels * 2
     start = max(0, min(start, frames))
     nframes = max(0, min(nframes, frames - start))
@@ -248,11 +333,28 @@ def _decode(raw, tag, bits, channels):
 
 
 def read_frames(path, start, nframes, info=None):
-    """Decode frames [start, start + nframes) of a WAV file (without
+    """Decode frames [start, start + nframes) of a recording (without
     reading the rest) to float values in [-1, 1]."""
     if info is None:
         info = wav_info(path)
     rate, channels, frames, enc, data_off = info
+    if enc.startswith("FLAC"):
+        from . import flac
+
+        return flac.read_frames(path, start, nframes)
+    if enc == "FFMPEG":
+        got = _ff_decode_cached(Path(path))
+        if got is None:
+            raise _sf_unavailable(path)
+        start = max(0, min(start, frames))
+        nframes = max(0, min(nframes, frames - start))
+        return got[0][start : start + nframes].astype(np.float64)
+    if data_off is None:  # read by soundfile
+        start = max(0, min(start, frames))
+        nframes = max(0, min(nframes, frames - start))
+        with _soundfile().SoundFile(str(path)) as f:
+            f.seek(start)
+            return f.read(nframes, dtype="float64", always_2d=True)
     tag, bits = _ENCODINGS.get(enc, (None, None))
     if tag is None:
         raise WavError(f"{path}: unsupported encoding {enc}")
@@ -263,13 +365,6 @@ def read_frames(path, start, nframes, info=None):
         f.seek(data_off + start * bpf)
         raw = f.read(nframes * bpf)
     return _decode(raw, tag, bits, channels)
-
-
-def load_audio(path):
-    """``(data, rate)`` of a whole WAV file, decoded to float values in
-    [-1, 1] (float32 for FLOAT files, float64 otherwise)."""
-    info = wav_info(path)
-    return read_frames(path, 0, info[2], info), info[0]
 
 
 def _cstr(b):
@@ -366,7 +461,19 @@ def scan_wav(path):
     with p.open("rb") as f:
         head = f.read(16)
         if _wave_container(head) is None:
-            raise _not_wave(path, head)
+            locs, labels = _marker_arrays({}, {}, {}, {})
+            if head[:4] == b"fLaC":
+                from . import flac
+
+                return (flac.flac_info(p)[0], flac.flac_metadata(p),
+                        locs, labels)
+            sf = _soundfile()
+            if sf is None:
+                got = _ff_decode_cached(p)
+                if got is None:
+                    raise _sf_unavailable(path)
+                return float(got[1]), {}, locs, labels
+            return float(sf.info(str(p)).samplerate), {}, locs, labels
         for cid, size, off in _walk_wave_chunks(f, path):
             if cid == b"data":
                 continue  # the walker seeks past the payload
@@ -383,6 +490,41 @@ def scan_wav(path):
         raise WavError(f"{path}: missing fmt chunk")
     locs, labels = _marker_arrays(cues, lengths, names, notes)
     return float(fmt[2]), md, locs, labels
+
+
+def load_wav(path):
+    """Read a whole recording: ``(data, rate, md, locs, labels)`` with the
+    data as float values in [-1, 1] (float32 for FLOAT WAVs, float64
+    otherwise), the metadata as :func:`scan_wav` gives it and the markers
+    (FLAC and the other containers have none)."""
+    p = Path(path)
+    with p.open("rb") as f:
+        head = f.read(16)
+    if _wave_container(head) is None:
+        locs, labels = _marker_arrays({}, {}, {}, {})
+        if head[:4] == b"fLaC":
+            from . import flac
+
+            data, rate = flac.read_flac(path)
+            return data, rate, flac.flac_metadata(path), locs, labels
+        sf = _soundfile()
+        if sf is None:
+            got = _ff_decode_cached(p)
+            if got is None:
+                raise _sf_unavailable(path)
+            return got[0].astype(np.float64), float(got[1]), {}, locs, labels
+        data, rate = sf.read(str(path), always_2d=True, dtype="float64")
+        return data, float(rate), {}, locs, labels
+    info = wav_info(path)
+    rate, md, locs, labels = scan_wav(path)
+    return read_frames(path, 0, info[2], info), rate, md, locs, labels
+
+
+def load_audio(path):
+    """``(data, rate)`` of a whole recording, decoded to float values in
+    [-1, 1]."""
+    data, rate, _, _, _ = load_wav(path)
+    return data, rate
 
 
 def metadata(path):
@@ -449,6 +591,22 @@ def unwrap(data, thresh=1.5, clips=False, ampl_max=1.0, start_shift=0.0,
 # ---------------------------------------------------------------------------
 
 _RIFF_MAX = 0xFFFFFFFE
+
+
+def available_formats():
+    """The formats :func:`write_audio` writes: WAV, FLAC and RF64 natively,
+    the FFmpeg export formats where the system libraries are likely
+    present (asked without starting a build), and what ``soundfile``
+    knows where it is installed."""
+    base = ["WAV", "FLAC", "RF64"]
+    from .. import native
+
+    if native.ffm_probable():
+        base += sorted(native.FF_EXPORT_FORMATS)
+    sf = _soundfile()
+    if sf is not None:
+        base += sorted(f for f in sf.available_formats() if f not in base)
+    return base
 
 
 def available_encodings(format="WAV"):
@@ -552,22 +710,34 @@ def _marker_chunks(locs, labels):
 
 def write_audio(path, data, rate, metadata=None, locs=None, labels=None,
                 encoding="PCM_16", format="WAV"):
-    """Write a WAV file with optional metadata and markers (audioio's
+    """Write a recording with optional metadata and markers (audioio's
     ``write_audio`` call shape).
 
     ``data`` is float in [-1, 1] or signed integer PCM codes at the
     dtype's width.  Payloads past the 32-bit RIFF size cap are written as
     RF64 (EBU tech 3306: ``RF64`` magic plus a ``ds64`` chunk with the
-    64-bit sizes); ``format="RF64"`` forces that container.  A ``.flac``
-    target or any other format raises: the port writes WAV only (FLAC
-    export waits for the FLAC codec, ROADMAP.md Queue 1 #6)."""
+    64-bit sizes); ``format="RF64"`` forces that container.
+
+    A ``.flac`` suffix writes FLAC even under the default ``format="WAV"``
+    (the suffix is the caller's signal, as in audioio); there
+    ``encoding`` picks the stored depth (``PCM_16``/``PCM_24``/``PCM_32``,
+    or ``FLAC`` for the input dtype's) and float encodings and markers
+    raise.  OGG, AIFF, MP3 and Opus (by ``format`` or suffix) go through
+    the system FFmpeg libraries and raise where those are missing."""
     fmt = (format or "WAV").upper()
     if (fmt == "FLAC" or str(encoding).upper() == "FLAC"
-            or str(path).lower().endswith(".flac")):
-        raise WavError(f"{path}: audian_torch writes WAV only; FLAC export "
-                       f"is not ported yet (ROADMAP.md, Queue 1 #6)")
-    if fmt not in ("WAV", "RF64"):
-        raise ValueError(f"unsupported format: {format}")
+            or (fmt == "WAV" and str(path).lower().endswith(".flac"))):
+        return _write_flac(path, data, rate, metadata, locs, encoding)
+    suffix_fmt = None
+    if fmt == "WAV":
+        # like the .flac rule, a target suffix is the caller's signal
+        sfx = str(path).lower().rsplit(".", 1)
+        suffix_fmt = {"ogg": "OGG", "oga": "OGG", "aiff": "AIFF",
+                      "aif": "AIFF", "mp3": "MP3", "opus": "OPUS"}.get(
+                          sfx[-1] if len(sfx) > 1 else "")
+    if fmt not in ("WAV", "RF64") or suffix_fmt:
+        return _write_ffmpeg(path, data, rate, metadata, locs,
+                             suffix_fmt or fmt, format)
     if encoding not in _ENCODINGS:
         raise WavError(f"unsupported encoding {encoding}")
     data = np.asarray(data)
@@ -619,6 +789,168 @@ def write_audio(path, data, rate, metadata=None, locs=None, labels=None,
         f.write(raw)
         f.write(pad)
     return Path(path)
+
+
+def _write_flac(path, data, rate, metadata, locs, encoding):
+    from . import flac
+
+    if locs is not None and len(locs):
+        raise ValueError("FLAC has no cue-marker chunk; export markers to "
+                         "CSV/XLSX or write a WAV")
+    flac_bits = {"FLAC": None, "PCM_16": 16, "PCM_24": 24, "PCM_32": 32}
+    enc = (encoding or "FLAC").upper()
+    if enc not in flac_bits:
+        raise ValueError(f"FLAC cannot store encoding {encoding}: FLAC is "
+                         "integer-only (PCM_16/PCM_24/PCM_32)")
+    flac.write_flac(path, np.asarray(data), rate, metadata=metadata,
+                    bits=flac_bits[enc])
+    return Path(path)
+
+
+def _write_ffmpeg(path, data, rate, metadata, locs, fmt, format):
+    """OGG/AIFF/MP3/Opus export through the system FFmpeg libraries."""
+    from .. import native
+
+    if fmt not in native.FF_EXPORT_FORMATS:
+        raise ValueError(f"unsupported format: {format}")
+    if locs is not None and len(locs):
+        raise ValueError(f"{fmt} has no cue-marker chunk; export markers "
+                         "to CSV/XLSX or write a WAV")
+    arr = np.asarray(data)
+    if np.issubdtype(arr.dtype, np.unsignedinteger):
+        raise WavError("unsigned integer samples are ambiguous; pass "
+                       "signed PCM codes or float")
+    if np.issubdtype(arr.dtype, np.integer):
+        # integer input is PCM codes (the _encode convention)
+        arr = arr.astype(np.float64) / float(2 ** (arr.dtype.itemsize * 8
+                                                   - 1))
+    if native.ff_audio_encode(path, arr.astype(np.float32), rate,
+                              format=fmt, metadata=metadata):
+        return Path(path)
+    raise WavError(f"{path}: {fmt} export needs the system FFmpeg "
+                   "libraries (libavformat/libavcodec), which are not "
+                   "available; write a WAV or FLAC instead")
+
+
+class WavWriter:
+    """Incremental WAV writer, promoted to RF64 past 4 GiB.
+
+    Appends frames as they arrive without holding the recording in
+    memory.  The header reserves a 28-byte ``JUNK`` chunk after the RIFF
+    id; :meth:`close` patches the true sizes in place, and where the file
+    outgrew the 32-bit RIFF sizes it rewrites the magic to ``RF64`` and
+    the ``JUNK`` into the ``ds64`` chunk with the 64-bit sizes (EBU tech
+    3306's promotion, so the bytes before the payload never move)::
+
+        with WavWriter(path, rate, channels) as w:
+            for block in blocks:
+                w.write(block)
+
+    ``write`` takes float frames in [-1, 1] or integer PCM codes (the
+    :func:`write_audio` convention); int16 input under ``PCM_16`` is
+    appended without a float round trip.  :meth:`skip_frames` extends
+    the file with silence sparsely (zero codes without writing them).
+    """
+
+    def __init__(self, path, rate, channels, encoding="PCM_16"):
+        if encoding not in _ENCODINGS:
+            raise WavError(f"unsupported encoding {encoding}")
+        self.path = Path(path)
+        self.rate = float(rate)
+        self.channels = int(channels)
+        self.encoding = encoding
+        tag, bits = _ENCODINGS[encoding]
+        self._bpf = self.channels * (bits // 8)
+        self._frames = 0
+        byte_rate = min(int(round(self.rate)) * self._bpf, 0xFFFFFFFF)
+        f = self.path.open("wb")
+        try:
+            # 0xFFFFFFFF placeholders, not zeros: if the process dies
+            # before close() patches the sizes, readers clamp the data by
+            # the file size and every written frame is still read
+            f.write(b"RIFF" + struct.pack("<I", 0xFFFFFFFF) + b"WAVE")
+            f.write(b"JUNK" + struct.pack("<I", 28) + b"\x00" * 28)
+            f.write(_chunk_exact(b"fmt ", struct.pack(
+                "<HHIIHH", tag, self.channels, int(round(self.rate)),
+                byte_rate, self._bpf, bits)))
+            self._data_hdr = f.tell()
+            f.write(b"data" + struct.pack("<I", 0xFFFFFFFF))
+            self._data_off = f.tell()
+        except BaseException:
+            f.close()
+            raise
+        self._f = f
+
+    @property
+    def frames(self):
+        return self._frames
+
+    def write(self, data):
+        """Append frames (shape ``(n,)`` or ``(n, channels)``)."""
+        if self._f is None:
+            raise WavError(f"{self.path}: writer is closed")
+        data = np.asarray(data)
+        if data.ndim == 1:
+            data = data[:, None]
+        if data.shape[1] != self.channels:
+            raise WavError(
+                f"expected {self.channels} channels, got {data.shape[1]}")
+        if data.dtype == np.int16 and self.encoding == "PCM_16":
+            raw = np.ascontiguousarray(data, "<i2").tobytes()
+        else:
+            raw = _encode(data, self.encoding)[0]
+        self._f.write(raw)
+        self._frames += len(data)
+        return self
+
+    def skip_frames(self, n):
+        """Extend with ``n`` silent frames without writing their bytes (a
+        sparse hole; zero codes decode as silence in every encoding)."""
+        if self._f is None:
+            raise WavError(f"{self.path}: writer is closed")
+        n = int(n)
+        if n < 0:
+            raise ValueError(f"cannot skip {n} frames")
+        if n:
+            self._f.seek(n * self._bpf - 1, 1)
+            self._f.write(b"\x00")
+        self._frames += n
+        return self
+
+    def close(self):
+        """Patch the deferred sizes (promoting to RF64 if needed)."""
+        f, self._f = self._f, None
+        if f is None:
+            return
+        try:
+            true_size = self._frames * self._bpf
+            padded = true_size + (true_size & 1)
+            if true_size & 1:  # odd bytes a frame (PCM_24 mono): pad
+                f.seek(self._data_off + true_size)
+                f.write(b"\x00")
+            riff_size = self._data_off + padded - 8
+            if riff_size <= _RIFF_MAX:
+                f.seek(4)
+                f.write(struct.pack("<I", riff_size))
+                f.seek(self._data_hdr + 4)
+                f.write(struct.pack("<I", true_size))
+            else:
+                f.seek(0)
+                f.write(b"RF64" + struct.pack("<I", 0xFFFFFFFF))
+                f.seek(12)
+                f.write(b"ds64" + struct.pack("<I", 28))
+                f.write(struct.pack("<QQQI", riff_size, true_size,
+                                    self._frames, 0))
+                f.seek(self._data_hdr + 4)
+                f.write(struct.pack("<I", 0xFFFFFFFF))
+        finally:
+            f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 def update_starttime(md, deltat, rate):

@@ -88,6 +88,22 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     shifted into the cut and the CodingHistory line, and the overview
     after ``FullTraceData.wait()`` equal to numpy's interleaved min/max of
     the file.  Times on the host clock, each beside the card.
+13. recordings in FLAC, 8 channels (a FLAC stream holds at most 8): the
+    native host library (built in phase 1 beside the kernels) is required;
+    phase 10's 8-channel recording, phase 8's song recording (its first 8
+    channels) and the first 30 s of the former at 24 bits are encoded in
+    parallel by the port's encoder; the 16-bit files decode exactly and
+    carry the MD5 of their codes, the 24-bit one reads as float32 codes /
+    2^23.  ``Data`` on the 16-bit FLAC takes the int16 upload, and phase
+    11's 50 pages on it give raw windows, trace windows and tiles equal to
+    the WAV's session bit for bit; ``audian-songdetector`` on the FLAC
+    writes the WAV run's CSV with envdet launched; phase 4's disk -> chain
+    run over the FLAC (``AudioLoader.read_raw16_into`` into pinned int16
+    buffers) gives the WAV run's outputs bit for bit with chain launched;
+    ``audian-compress`` on the WAV (native scan) and the FLAC writes
+    overviews equal to numpy's; ``save_region`` of 10 s x 3 channels to a
+    ``.flac`` from the shell on the FLAC gives the source codes.  Launch
+    counters are zeroed before each FLAC run and read after it.
 
 Phase 4 starts with both TF32 flags on and checks that they are still on
 after it: the port scopes full float32 to its own calls.
@@ -101,6 +117,8 @@ time of one PyTorch call computing the same function where there is one.
 The three tensor-core kernels also carry ``bound_tc_ms``: the same
 true-tap operations in three TF32 passes at 495 TFLOP/s, or the bytes at
 3.35 TB/s, whichever is larger.
+Chain and envdet also carry ``flac_launches``, their launches on the FLAC
+runs of phase 13.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -115,6 +133,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -453,11 +472,14 @@ class Refresh:
         self.levels = None
 
     def __call__(self, d, t0, t1):
+        """Compute the tiles of the view [t0, t1]; returns them by
+        (trace, channel)."""
         from audian_torch.view.render import noise_level_stats
 
+        tiles = {}
         for name in ("filtered", "envelope"):
             for c in range(d.channels):
-                self.traces.tile(d[name], t0, t1, channel=c)
+                tiles[name, c] = self.traces.tile(d[name], t0, t1, channel=c)
         spec = d["spectrogram"]
         if self.levels is None:
             nf = max(spec.buffer.shape[-1] // 16, 1)
@@ -468,8 +490,10 @@ class Refresh:
             zmin = np.maximum(zmin, zmax - 80.0)
             self.levels = np.stack([zmin, zmax], axis=1).astype(np.float32)
         for c in range(d.channels):
-            self.spec.tile(spec, c, self.levels[c, 0], self.levels[c, 1],
-                           quantize=True, t0=t0, t1=t1, levels=self.levels)
+            tiles["spec", c] = self.spec.tile(
+                spec, c, self.levels[c, 0], self.levels[c, 1], quantize=True,
+                t0=t0, t1=t1, levels=self.levels)
+        return tiles
 
 
 def timed_move(d, refresh, t0):
@@ -1164,9 +1188,331 @@ def browser_phase(card, dev, tmp, path, path8):
                   + f" ms  [{card}]")
     print(f"    play_region {1e3 * play_s:.3f} ms  analyze_region "
           f"{1e3 * analyze_s:.3f} ms  save_region {1e3 * save_s:.3f} ms  "
-          f"overview of {IA_SECONDS} s x {C} ch (numpy scan) "
+          f"overview of {IA_SECONDS} s x {C} ch (native scan) "
           f"{overview_s:.3f} s  [{card}]")
     print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phase 13: recordings in FLAC -------------------------------------------
+
+#: FLAC stores at most 8 channels (STREAMINFO's channel count has 3 bits),
+#: so the FLAC phase takes the first 8 channels of each recording
+FL_C = 8
+FL_PREFIX = 30           # s, the 24-bit FLAC
+FL_SAVE = (10.0, (0, 3, 7))   # s, channels of the FLAC region export
+
+
+def flac_md5(codes):
+    """The MD5 STREAMINFO carries for 16-bit codes: of the interleaved
+    little-endian samples."""
+    import hashlib
+
+    return hashlib.md5(np.ascontiguousarray(codes, "<i2").tobytes()).digest()
+
+
+def read_codes(path):
+    """Every frame of a 16-bit recording as int16 codes."""
+    from audian_torch.data.wavio import read_frames_raw16, wav_info
+
+    info = wav_info(path)
+    out = np.empty((info[2], info[1]), np.int16)
+    require(read_frames_raw16(path, 0, info[2], info, out) == info[2],
+            f"read {path}")
+    return out
+
+
+def disk_chain(bio, path, dev):
+    """Phase 4's disk -> chain run over a whole recording: halo'd
+    FILE_CHUNK-frame chunks read by ``AudioLoader.read_raw16_into`` into
+    two pinned int16 buffers (each reused only after its upload's event),
+    each chunk through ``chain_cf`` with stats.  Returns the outputs on the
+    card, the wall seconds and the host seconds spent reading."""
+    from audian_torch.data import AudioLoader
+
+    ck = bio.chain_kernel
+    hb, ha = ck.hb, ck.ha
+    span = hb + FILE_CHUNK + ha
+    ld = AudioLoader(path, prefetch=False)
+    require(ld.raw16_capable, f"{path} serves int16 reads")
+    nfile, ch = ld.frames, ld.channels
+    pinned = [torch.empty((span, ch), dtype=torch.int16).pin_memory()
+              for _ in range(2)]
+    uploaded = [None, None]
+    outs = []
+    read_s = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(-(-nfile // FILE_CHUNK)):
+        buf = pinned[k % 2]
+        if uploaded[k % 2] is not None:
+            uploaded[k % 2].synchronize()
+        start = k * FILE_CHUNK - hb
+        host = buf.numpy()
+        lo = max(start, 0)
+        a = time.perf_counter()
+        host[: lo - start] = 0
+        got = ld.read_raw16_into(lo, span - (lo - start), host[lo - start:])
+        host[lo - start + len(got):] = 0
+        read_s += time.perf_counter() - a
+        dev_raw = buf.to(dev, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        uploaded[k % 2] = ev
+        n = min(FILE_CHUNK, nfile - k * FILE_CHUNK)
+        outs.append(bio.chain_cf(dev_raw.T.contiguous(), n, stats=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ld.close()
+    return outs, wall, read_s
+
+
+def flac_phase(card, dev, tmp, path8, det_codes, bio):
+    """Phase 13: recordings in FLAC on the card's paths.  ``path8`` is
+    phase 10's 8-channel copy of its recording, ``det_codes`` the first 8
+    channels of phase 8's song recording, ``bio`` phase 4's bioacoustics
+    chain.  Returns the chain and envdet launches of the FLAC runs."""
+    import concurrent.futures
+
+    from audian_torch import native
+    from audian_torch.analysis import events
+    from audian_torch.app import audian_cli
+    from audian_torch.cache import FullTraceData
+    from audian_torch.cache.fulltrace import _interleaved_minmax
+    from audian_torch.cli import compress, songdetector
+    from audian_torch.data import AudioLoader, flac
+    from audian_torch.data.wavio import (load_audio, read_frames_raw16,
+                                         wav_info)
+    from audian_torch.ops.cuda.chain import chain
+    from audian_torch.ops.cuda.envdet import envdet
+
+    print(f"phase 13: recordings in FLAC ({FL_C} ch: FLAC holds at most 8), "
+          f"{IA_SECONDS} s and {DETECT_SECONDS} s x 96 kHz")
+    t_phase = time.perf_counter()
+    require(native.available() and native.get_lib() is not None,
+            "the native host library is loaded (no numpy fallback here)")
+    print(f"  native host library {native.build_dir()} (built in phase 1)")
+
+    # -- the encodes, in parallel (the encoder releases the GIL) ----------
+    ia = read_codes(path8)
+    files = {"ia16": (os.path.join(tmp, "interactive8-16.flac"), ia, 16),
+             "det16": (os.path.join(tmp, "songs8.flac"), det_codes, 16),
+             "ia24": (os.path.join(tmp, "interactive8-24.flac"),
+                      ia[: int(FL_PREFIX * RATE)].astype(np.int32) << 8, 24)}
+
+    def encode(item):
+        fpath, codes, bits = item
+        a = time.perf_counter()
+        flac.write_flac(fpath, codes, RATE, bits=bits)
+        return time.perf_counter() - a
+
+    a = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(files)) as pool:
+        enc_s = dict(zip(files, pool.map(encode, files.values())))
+    enc_wall = time.perf_counter() - a
+    for key, (fpath, codes, bits) in files.items():
+        raw = open(fpath, "rb").read(8 + 34)
+        ratio = codes.shape[0] * codes.shape[1] * bits / 8 / os.path.getsize(
+            fpath)
+        info = wav_info(fpath)
+        require(info == (RATE, FL_C, len(codes), f"FLAC_{bits}", None),
+                f"{key} info {info}")
+        if bits == 16:
+            require(raw[8 + 18 : 8 + 34] == flac_md5(codes),
+                    f"{key} STREAMINFO MD5")
+            flac._OPEN.clear()
+            a = time.perf_counter()
+            back = read_codes(fpath)
+            dec_s = time.perf_counter() - a
+            require(np.array_equal(back, codes), f"{key} decodes exactly")
+            del back
+            print(f"  {key}: {codes.shape[0] / RATE:.0f} s x {FL_C} ch, "
+                  f"encode {enc_s[key]:.3f} s, whole decode {dec_s:.3f} s "
+                  f"({codes.size / dec_s / 1e6:.1f} M samples/s), ratio "
+                  f"{ratio:.4f}, decode == codes, MD5 ok")
+        else:
+            ld = AudioLoader(fpath, prefetch=False)
+            require(not ld.raw16_capable, "a 24-bit FLAC reads as float32")
+            got = ld[0 : ld.frames]
+            ld.close()
+            require(got.dtype == np.float32 and np.array_equal(
+                got, (codes >> 8) / np.float32(32768.0)),
+                f"{key}: float32 reads == codes / 2^23")
+            print(f"  {key}: {codes.shape[0] / RATE:.0f} s x {FL_C} ch, "
+                  f"encode {enc_s[key]:.3f} s, ratio {ratio:.4f}; the "
+                  f"loader's float32 reads == codes / 2^23")
+    print(f"  the three encodes in parallel took {enc_wall:.3f} s  [{card}]")
+    fl16, fdet = files["ia16"][0], files["det16"][0]
+
+    # -- Data: the 50-page session on the FLAC against the WAV ------------
+    sessions = {}
+    for label, p in (("wav", path8), ("flac", fl16)):
+        refresh = Refresh(dev)
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        d = open_interactive(p, dev)
+        d.update_times(0.0, IA_VIEW)
+        refresh(d, 0.0, IA_VIEW)
+        torch.cuda.synchronize()
+        sessions[label] = [d, refresh, time.perf_counter() - a, [], None]
+    dw, df = sessions["wav"][0], sessions["flac"][0]
+    require(df.data.raw16_capable and df.data.encoding == "FLAC_16",
+            "the FLAC session takes the int16 upload")
+    fwd, back = IA_PAGES
+    starts = ([IA_VIEW * k for k in range(1, fwd + 1)]
+              + [IA_VIEW * (fwd - k) for k in range(1, back + 1)])
+    for t0 in starts:
+        for label, sess in sessions.items():
+            d, refresh = sess[0], sess[1]
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            d.update_times(t0, t0 + IA_VIEW)
+            sess[4] = refresh(d, t0, t0 + IA_VIEW)
+            torch.cuda.synchronize()
+            sess[3].append(time.perf_counter() - a)
+        require(torch.equal(dw["data"].buffer, df["data"].buffer),
+                f"raw window at {t0} s == the WAV session's")
+        for name in IA_NAMES:
+            require(dw[name].offset == df[name].offset and torch.equal(
+                dw[name].buffer, df[name].buffer),
+                f"{name} window at {t0} s == the WAV session's")
+        require(tiles_equal(sessions["wav"][4], sessions["flac"][4]),
+                f"tiles at {t0} s == the WAV session's")
+    for label, (d, _, open_s, lat, _) in sessions.items():
+        ms = 1e3 * np.asarray(lat)
+        print(f"  {label} session ({FL_C} ch): open + first render "
+              f"{1e3 * open_s:.3f} ms, {len(lat)} pages p50 "
+              f"{np.percentile(ms, 50):.3f} ms p95 {np.percentile(ms, 95):.3f}"
+              f" ms  [{card}]")
+        d.close()
+    print(f"  every raw window, trace window and tile of the {len(starts)} "
+          f"pages == the WAV session's, bit for bit")
+    del sessions, dw, df
+
+    # -- the song detector on a FLAC --------------------------------------
+    csv = {}
+    walls = {}
+    det_launches = None
+    for label, p in (("wav", os.path.join(tmp, "songs8.wav")), ("flac", fdet)):
+        if label == "wav":
+            scipy.io.wavfile.write(p, int(RATE), det_codes)
+        out_csv = os.path.join(tmp, f"songs8-{label}.csv")
+        chain.launches = envdet.launches = 0
+        a = time.perf_counter()
+        rc = songdetector.main([p, "-o", out_csv])
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - a
+        if label == "flac":
+            det_launches = envdet.launches
+        require(rc == 0, f"songdetector on the {label}: {rc}")
+        with open(out_csv) as f:
+            csv[label] = f.read()
+    require(csv["flac"] == csv["wav"], "the FLAC CSV == the WAV CSV")
+    rows = [r.split(",") for r in csv["flac"].strip().splitlines()[1:]]
+    require(len(rows) == FL_C * len(SONG_STARTS),
+            f"{len(rows)} songs, planted {FL_C * len(SONG_STARTS)}")
+    require(det_launches > 0, "envdet launched on the FLAC run")
+    t0 = time.perf_counter()
+    data, _ = songdetector.load_recording(fdet)
+    t1 = time.perf_counter()
+    require(data.dtype == np.int16, "a 16-bit FLAC reaches detect as int16")
+    events.band_env(data, RATE, *DETECT_BAND, DETECT_ENV,
+                    return_filtered=False, fused=True, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    events.detect(data, RATE, *DETECT_BAND, DETECT_ENV, return_filtered=False,
+                  device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del data
+    print(f"  audian-songdetector on the {DETECT_SECONDS} s FLAC: CSV == the "
+          f"WAV run's ({len(rows)} songs), envdet launches {det_launches}; "
+          f"wall {walls['flac']:.3f} s (WAV {walls['wav']:.3f} s)  [{card}]")
+    print(f"  wall split (host clock, s): read (FLAC decode) {t1 - t0:.4f}  "
+          f"band_env {t2 - t1:.4f}  events {(t3 - t2) - (t2 - t1):.4f}")
+
+    # -- disk -> chain over the FLAC --------------------------------------
+    chain.launches = 0
+    fl_out, fl_wall, fl_read = disk_chain(bio, fl16, dev)
+    chain_launches = chain.launches
+    require(chain_launches > 0, "chain launched on the FLAC run")
+    wv_out, wv_wall, wv_read = disk_chain(bio, path8, dev)
+    for k, (a, b) in enumerate(zip(fl_out, wv_out)):
+        require(all(torch.equal(x, y) for x, y in zip(a[:3], b[:3]))
+                and all(torch.equal(a[3][key], b[3][key]) for key in a[3]),
+                f"chunk {k}: FLAC outputs == WAV outputs")
+    hours = IA_SECONDS / 3600.0
+    print(f"  disk -> chain_cf over {len(fl_out)} chunks: outputs == the "
+          f"WAV run's bit for bit; chain launches {chain_launches}")
+    print(f"    FLAC {fl_wall / hours:.4f} s per recording hour, host decode "
+          f"{100 * fl_read / fl_wall:.1f} % of it; WAV {wv_wall / hours:.4f} "
+          f"s, host read {100 * wv_read / wv_wall:.1f} %  [{card}]")
+    del fl_out, wv_out
+
+    # -- audian-compress --------------------------------------------------
+    codes = read_codes(path8)
+    comp = {}
+    for label, p in (("wav", path8), ("flac", fl16)):
+        a = time.perf_counter()
+        require(compress.main([p]) == 0, f"audian-compress on the {label}")
+        comp[label] = time.perf_counter() - a
+        art = os.path.splitext(p)[0] + "-fulltrace.wav"
+        got, _ = load_audio(art)
+        step = len(codes) // 6000
+        require(np.array_equal(got, _interleaved_minmax(codes, step)
+                               / 32768.0),
+                f"the {label} fulltrace == numpy's min/max of the file")
+    get_lib = native.get_lib
+    native.get_lib = lambda: None
+    try:
+        ld = AudioLoader(path8, prefetch=False)
+        ft = FullTraceData(ld, device=dev)
+        a = time.perf_counter()
+        ft.start(6000, background=False)
+        numpy_s = time.perf_counter() - a
+        ld.close()
+    finally:
+        native.get_lib = get_lib
+    require(np.array_equal(ft.datas, _interleaved_minmax(codes, ft.step)
+                           / 32768.0), "the numpy scan == numpy")
+    print(f"  audian-compress: -fulltrace.wav == numpy's interleaved min/max "
+          f"for both; WAV (native scan) {comp['wav']:.3f} s, FLAC (decode + "
+          f"numpy scan) {comp['flac']:.3f} s, the WAV's numpy scan "
+          f"{numpy_s:.3f} s  [{card}]")
+
+    # -- the FLAC region export from the shell ----------------------------
+    cache_env = os.environ.get("XDG_CACHE_HOME")
+    os.environ["XDG_CACHE_HOME"] = os.path.join(tmp, "cache")
+    try:
+        shell = audian_cli([fl16, "-f", "2000", "-l", "40000"])
+        shell.load_files()
+        require(not shell.errors and len(shell) == 1,
+                f"shell {shell.errors}")
+        b = shell.browsers[0]
+        seconds, chans = FL_SAVE
+        b.select_channels(list(chans))
+        t0 = min(20.0, IA_SECONDS - seconds - 1.0)
+        a = time.perf_counter()
+        out = b.save_region(t0, t0 + seconds, os.path.join(tmp, "cut.flac"))
+        save_s = time.perf_counter() - a
+        info = wav_info(out)
+        require(info[2] == int(seconds * RATE) and info[3] == "FLAC_16",
+                f"saved {info}")
+        got = np.empty((info[2], len(chans)), np.int16)
+        read_frames_raw16(out, 0, info[2], info, got)
+        s0 = int(round(t0 * RATE))
+        require(np.array_equal(got, codes[s0 : s0 + info[2], list(chans)]),
+                "the FLAC region == the source's codes")
+        shell.close()
+    finally:
+        if cache_env is None:
+            os.environ.pop("XDG_CACHE_HOME", None)
+        else:
+            os.environ["XDG_CACHE_HOME"] = cache_env
+    print(f"  save_region {seconds:.0f} s x channels {list(chans)} to .flac "
+          f"from the shell on the FLAC: codes == source; "
+          f"{1e3 * save_s:.3f} ms  [{card}]")
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {"chain": chain_launches, "envdet": det_launches}
 
 
 def main():
@@ -1181,6 +1527,7 @@ def main():
           f"python {sys.version.split()[0]}  device {kind}")
     dev = torch.device("cuda", 0)
 
+    from audian_torch import native
     from audian_torch.analysis import events
     from audian_torch.cli import songdetector
     from audian_torch.data.wavio import read_frames_raw16, wav_info
@@ -1202,10 +1549,25 @@ def main():
     from audian_torch.ops.raw16 import dequant16
 
     # -- phase 1: build ------------------------------------------------------
+    # the native host library (g++) builds on a thread beside the kernels
+    # (nvcc); the card run requires it: no numpy fallback here
+    native_build = {}
+
+    def build_native():
+        a = time.perf_counter()
+        native_build["ok"] = native.available()
+        native_build["s"] = time.perf_counter() - a
+
+    native_thread = threading.Thread(target=build_native)
     t0 = time.perf_counter()
+    native_thread.start()
     lib = _build.load_library()
     print(f"phase 1: built {_build.build_dir()} in "
           f"{time.perf_counter() - t0:.2f} s")
+    native_thread.join()
+    require(native_build["ok"], "the native host library builds")
+    print(f"  native host library {native.build_dir()} built in "
+          f"{native_build['s']:.2f} s")
     resources = kernel_resources(_build.ptxas_report())
     for line in resources:
         print("  " + line)
@@ -1700,6 +2062,7 @@ def main():
     require(eo <= TOL_DETECT_ORACLE * scale, f"band_env vs scipy {eo}")
     print(f"  band_env (2 ch) vs scipy float64: {eo:.3e} (scale "
           f"{scale:.4f})")
+    det_codes = np.ascontiguousarray(pcm[:, :FL_C])   # for phase 13
     del pcm, env2, env64
 
     # -- phase 9: detect times -----------------------------------------------
@@ -1754,10 +2117,12 @@ def main():
           f"kernel {hour_det_ms / 1e3:.4f} s per recording hour  plain "
           f"{hour_det_plain_ms / 1e3:.4f} s  [{card}]")
 
-    # -- phases 10-12: the interactive path and the headless browser -------
+    # -- phases 10-13: the interactive path, the headless browser, FLAC ----
     with tempfile.TemporaryDirectory() as tmp:
         path, path8 = interactive_phases(card, dev, tmp)
         browser_phase(card, dev, tmp, path, path8)
+        flac_launches = flac_phase(card, dev, tmp, path8, det_codes, bio)
+    del det_codes
 
     wm_bound = bound(wm_flop, wm_bytes)
     wm_bound_tc = bound_tc(wm_flop, wm_bytes)
@@ -1771,7 +2136,7 @@ def main():
          "launches": launches["chain"], "max_abs_err": chain_err,
          "ms": ch_ms, "plain_ms": ch_plain_ms, "bound_ms": ch_bound[0],
          "bound_by": ch_bound[1], "bound_tc_ms": ch_bound_tc,
-         "library_ms": None},
+         "library_ms": None, "flac_launches": flac_launches["chain"]},
         {"name": "window_matmul", "route": "cuda",
          "source": "audian_torch/csrc/window_matmul.cu",
          "replaces": "audian_tpu/ops/pallas/window_matmul.py:41",
@@ -1785,7 +2150,7 @@ def main():
          "launches": det_launches["envdet"], "max_abs_err": env_err,
          "ms": env_ms, "plain_ms": env_plain_ms, "bound_ms": env_bound[0],
          "bound_by": env_bound[1], "bound_tc_ms": env_bound_tc,
-         "library_ms": None},
+         "library_ms": None, "flac_launches": flac_launches["envdet"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

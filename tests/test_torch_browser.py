@@ -339,11 +339,28 @@ def test_save_region_matches_jax(pair, tmp_path):
     # the song marker ends before the cut; the others shift by its start
     assert labels.tolist() == [["start", ""], ["mark", "inside"]]
     assert locs.tolist() == [[60000 - i0, 0], [13230 - i0, 0]]
-    # the default name, and a FLAC target the port does not write
+    # the default name, and a FLAC target: the source codes in the JAX
+    # browser's bytes (the history under BEXT, as a tag); a marker in the
+    # region has no place in FLAC
     default = tb.save_region(0.5, 1.0)
     assert default.name == "song-0.5s-1s.wav" and default.exists()
-    with pytest.raises(twav.WavError, match="Queue 1 #6"):
-        tb.save_region(0.5, 1.0, tmp_path / "t.flac")
+    got = tb.save_region(0.5, 1.0, tmp_path / "t" / "cut.flac")
+    want = jb.save_region(0.5, 1.0, tmp_path / "j" / "cut.flac")
+    assert got.read_bytes()[:4] == b"fLaC"
+    assert got.read_bytes() == want.read_bytes()
+    info = twav.wav_info(got)
+    assert info[3] == "FLAC_16" and info[2] == int(round(0.5 * 44100))
+    codes = np.empty((info[2], 1), np.int16)
+    twav.read_frames_raw16(got, 0, info[2], info, codes)
+    i0 = int(round(0.5 * tb.data.rate))
+    q = np.empty((info[2], 2), np.int16)
+    tb.data.data.read_raw16_into(i0, info[2], q)
+    np.testing.assert_array_equal(codes[:, 0], q[:, 1])
+    md = twav.metadata(got)
+    assert "cut out 0.5s-1s: cut.flac" in md["BEXT.CodingHistory"]
+    assert md == jwav.metadata(want)
+    with pytest.raises(ValueError, match="cue-marker"):
+        tb.save_region(0.2, 1.0, tmp_path / "t" / "marked.flac")
 
 
 def test_region_modes_and_scroll_match_jax(pair, tmp_path):

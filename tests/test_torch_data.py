@@ -304,3 +304,51 @@ def test_data_defaults_to_cuda(wav):
         pytest.skip("checks the behaviour of a host without CUDA")
     with pytest.raises(RuntimeError, match="CUDA"):
         Data(wav)
+
+
+def test_flac16_session_equals_the_wav_session(wav, tmp_path):
+    """A 16-bit FLAC of the WAV's codes takes the int16 upload, and every
+    window of a paging session equals the WAV session's bit for bit (the
+    same codes through the same torch ops) and the JAX package's ``Data``
+    on the FLAC at this file's tolerances."""
+    codes = np.empty((int(SECONDS * RATE), 2), np.int16)
+    wavio.read_frames_raw16(wav, 0, len(codes), wavio.wav_info(wav), codes)
+    flac = tmp_path / "rec.flac"
+    jwav.write_audio(flac, codes, RATE, metadata=jwav.metadata(wav))
+    f, w = (open_data(Data, tgraph, p, device="cpu") for p in (flac, wav))
+    j = open_data(JData, jgraph, flac)
+    assert f.data.raw16_capable and f.data.encoding == "FLAC_16"
+    for t0 in (0.0, 0.5, 6.5, 0.4):
+        for d in (f, w, j):
+            d.update_times(t0, t0 + 0.5)
+        label = f"view {t0}"
+        assert f["data"].buffer.dtype == torch.float32
+        np.testing.assert_array_equal(window(f["data"]), window(w["data"]))
+        for name in NAMES:
+            assert f[name].offset == w[name].offset
+            np.testing.assert_array_equal(window(f[name]), window(w[name]),
+                                          err_msg=f"{label} {name}")
+        check_windows(f, j, label)
+    for d in (f, w, j):
+        d.close()
+
+
+def test_flac24_uploads_the_loader_window(tmp_path):
+    x = signal(np.random.default_rng(4), 3.0, channels=1)
+    p = tmp_path / "r24.flac"
+    jwav.write_audio(p, x, RATE, encoding="PCM_24")
+    t = Data(p, buffer_time=1.0, back_time=0.25, device="cpu")
+    t.add_trace(tgraph.FilterNode("filtered", "data"))
+    t.open()
+    assert t.data.encoding == "FLAC_24" and not t.data.raw16_capable
+    for t0 in (0.0, 0.5, 2.0):
+        t.update_times(t0, t0 + 0.5)
+        np.testing.assert_array_equal(t["data"].buffer.numpy(),
+                                      t.data.buffer)
+        i0 = t.data.offset
+        q = np.round(x[i0 : i0 + len(t.data.buffer)] * 2 ** 23)
+        np.testing.assert_array_equal(
+            t.data.buffer, (np.clip(q, -2 ** 23, 2 ** 23 - 1) / 2 ** 23)
+            .astype(np.float32))
+    assert t["data"].buffer.dtype == torch.float32
+    t.close()

@@ -112,12 +112,28 @@ def test_entry_twin_matches_graft_entry():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port imports without JAX (nor pandas,
+    matplotlib, PyQt5), the native bindings, the FLAC codec and the
+    compress CLI among them, and no import starts a process (a compiler
+    run) or loads a kernel or native library."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, subprocess, sys\n"
+        "import numpy, scipy.signal, torch\n"
+        "def no_process(*a, **k):\n"
+        "    raise AssertionError(f'process started at import: {a}')\n"
+        "subprocess.run = subprocess.Popen = no_process\n"
         "import audian_torch\n"
-        "for m in pkgutil.walk_packages(audian_torch.__path__,"
-        " 'audian_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "audian_torch.__path__, 'audian_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'audian_torch.native', 'audian_torch.data.flac',"
+        " 'audian_torch.cli.compress'} <= set(names), names\n"
+        "from audian_torch import native\n"
+        "from audian_torch.ops.cuda import _build\n"
+        "assert native._lib is None and native._ffm is None\n"
+        "assert not native._tried and not native._ffm_tried\n"
+        "assert _build._lib is None\n"
         "bad = [k for k in sys.modules if k in ('jax', 'pandas',"
         " 'matplotlib', 'PyQt5') or k.startswith(('jax.', 'audian_tpu',"
         " 'pandas.', 'matplotlib.', 'PyQt5.'))]\n"

@@ -65,6 +65,28 @@ def test_cli_reads_other_encodings_as_jax(tmp_path, small_chunks, encoding):
     assert got.read_text() == want.read_text()
 
 
+@pytest.mark.parametrize("encoding", ["PCM_16", "PCM_24"])
+def test_cli_reads_flac_as_jax(tmp_path, small_chunks, encoding):
+    """A 16-bit FLAC arrives as int16 codes (the raw route into detect),
+    a 24-bit one as float32; both CSVs equal the JAX CLI's, and the 16-bit
+    one equals the CSV of a WAV of the same codes."""
+    path = tmp_path / "songs.flac"
+    jwav.write_audio(path, _recording(), RATE, encoding=encoding)
+    data, rate = tcli.load_recording(path)
+    assert rate == RATE
+    assert data.dtype == (np.int16 if encoding == "PCM_16" else np.float32)
+    want, got = tmp_path / "jax.csv", tmp_path / "torch.csv"
+    assert jcli.main(["-o", str(want), str(path)]) == 0
+    assert tcli.main(["-o", str(got), str(path)], device="cpu") == 0
+    assert len(got.read_text().strip().splitlines()) == 1 + 2 * 3
+    assert got.read_text() == want.read_text()
+    if encoding == "PCM_16":
+        wav, csv = tmp_path / "songs.wav", tmp_path / "wav.csv"
+        jwav.write_audio(wav, _recording(), RATE, encoding=encoding)
+        assert tcli.main(["-o", str(csv), str(wav)], device="cpu") == 0
+        assert csv.read_text() == got.read_text()
+
+
 def test_cli_default_output_name(tmp_path, small_chunks, capsys):
     path = tmp_path / "rec.wav"
     jwav.write_audio(path, _recording(nsongs=1), RATE, encoding="PCM_16")
@@ -109,8 +131,8 @@ def test_config_tolerates_bad_values(tmp_path, capsys):
 @pytest.mark.parametrize("kind", ["float", "flac", "missing"])
 def test_unreadable_input_names_the_loader(tmp_path, capsys, kind):
     """What the loader does not read stops with its reason: a 16-bit float
-    WAV (an IEEE-float tag no reader decodes), a FLAC file, a missing
-    file."""
+    WAV (an IEEE-float tag no reader decodes), a corrupt FLAC file (the
+    JAX CLI's message), a missing file."""
     path = tmp_path / "rec.wav"
     if kind == "float":
         jwav.write_audio(path, _recording(nsongs=1), RATE, encoding="PCM_16")
@@ -127,7 +149,9 @@ def test_unreadable_input_names_the_loader(tmp_path, capsys, kind):
     if kind == "float":
         assert "unsupported encoding tag3/16" in err
     elif kind == "flac":
-        assert "WAV, RF64 and W64 only" in err
+        assert "truncated FLAC stream" in err
+        assert jcli.main([str(path)]) == 1
+        assert capsys.readouterr().err == err
 
 
 @pytest.mark.parametrize("args", [["-j", "2"], ["--mesh", "4"], ["-p"],

@@ -37,6 +37,9 @@ def test_wav_info_and_raw16_match(tmp_path, pcm, fmt):
 
 
 def test_non_pcm16_and_flac_raise(tmp_path, pcm):
+    """A FLOAT WAV and a 24-bit FLAC have no int16 codes to read and
+    raise; a 16-bit FLAC reads its codes as the JAX package does; junk is
+    refused."""
     path = tmp_path / "f.wav"
     jwav.write_audio(path, pcm.astype(np.float32) / 32768.0, 8000.0,
                      encoding="FLOAT")
@@ -47,8 +50,17 @@ def test_non_pcm16_and_flac_raise(tmp_path, pcm):
         twav.read_frames_raw16(path, 0, 10, info, out)
     flac = tmp_path / "x.flac"
     jwav.write_audio(flac, pcm, 8000.0, encoding="PCM_16", format="FLAC")
-    with pytest.raises(twav.WavError, match="FLAC"):
-        twav.wav_info(flac)
+    info = twav.wav_info(flac)
+    assert info == jwav.wav_info(flac) == (8000.0, 3, 5000, "FLAC_16", None)
+    got, want = np.zeros((300, 3), np.int16), np.zeros((300, 3), np.int16)
+    assert twav.read_frames_raw16(flac, 4800, 300, info, got) == \
+        jwav.read_frames_raw16(flac, 4800, 300, info, want) == 200
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:200], pcm[4800:])
+    flac24 = tmp_path / "x24.flac"
+    jwav.write_audio(flac24, pcm, 8000.0, encoding="PCM_24")
+    with pytest.raises(twav.WavError, match="PCM_16"):
+        twav.read_frames_raw16(flac24, 0, 10, twav.wav_info(flac24), out)
     junk = tmp_path / "junk.wav"
     junk.write_bytes(b"not a wave file at all")
     with pytest.raises(twav.WavError):
@@ -116,11 +128,63 @@ def test_metadata_helpers_equal_jax(tmp_path, pcm):
         for key in ("CodingHistory", "BEXT.CodingHistory"):
             assert twav.add_history(a, "x", key, "pre") == \
                 jwav.add_history(b, "x", key, "pre")
-    with pytest.raises(twav.WavError, match="Queue 1 #6"):
-        twav.write_audio(tmp_path / "x.flac", pcm, 48000.0)
-    with pytest.raises(twav.WavError, match="Queue 1 #6"):
-        twav.write_audio(tmp_path / "x.wav", pcm, 48000.0, format="FLAC")
+    # FLAC by suffix and by format: the JAX package's bytes
+    for name, kw in (("x.flac", {}), ("x.wav", {"format": "FLAC"})):
+        got, want = tmp_path / f"t_{name}", tmp_path / f"j_{name}"
+        assert twav.write_audio(got, pcm, 48000.0, **kw) == got
+        jwav.write_audio(want, pcm, 48000.0, **kw)
+        assert got.read_bytes()[:4] == b"fLaC"
+        assert got.read_bytes() == want.read_bytes()
     with pytest.raises(ValueError, match="unsupported format"):
-        twav.write_audio(tmp_path / "x.wav", pcm, 48000.0, format="OGG")
+        twav.write_audio(tmp_path / "x.wav", pcm, 48000.0, format="XYZ")
     with pytest.raises(twav.WavError, match="unsigned"):
         twav.write_audio(tmp_path / "x.wav", pcm.astype(np.uint16), 48000.0)
+
+
+@pytest.mark.parametrize("promote", [False, True])
+@pytest.mark.parametrize("encoding", ["PCM_16", "PCM_24", "FLOAT"])
+def test_wav_writer_writes_the_jax_packages_bytes(tmp_path, pcm, monkeypatch,
+                                                  encoding, promote):
+    """Blocks appended one by one, a sparse gap, and (with the RIFF cap
+    lowered) the promotion to RF64 at close."""
+    if promote:
+        for mod in (twav, jwav):
+            monkeypatch.setattr(mod, "_RIFF_MAX", 4000)
+    x = pcm[:1001] if encoding == "PCM_16" else pcm[:1001] / 32768.0
+    paths = []
+    for mod, name in ((twav, "t.wav"), (jwav, "j.wav")):
+        with mod.WavWriter(tmp_path / name, 22050.0, 3, encoding) as w:
+            w.write(x[:500]).skip_frames(17)
+            w.write(x[500:])
+            assert w.frames == 1018
+        paths.append(tmp_path / name)
+    assert paths[0].read_bytes() == paths[1].read_bytes()
+    assert paths[0].read_bytes()[:4] == (b"RF64" if promote else b"RIFF")
+    back, rate = twav.load_audio(paths[0])
+    assert rate == 22050.0 and back.shape == (1018, 3)
+    np.testing.assert_array_equal(back[500:517], 0.0)
+
+
+@pytest.mark.parametrize("fmt", ["OGG", "AIFF"])
+def test_other_containers_go_through_ffmpeg_as_in_jax(tmp_path, pcm, fmt):
+    """Where the system FFmpeg libraries are present both packages write
+    and read the container through them (the same samples back);
+    where they are not, both refuse with the same message."""
+    from audian_tpu import native as jnative
+
+    assert twav.available_formats() == jwav.available_formats()
+    got, want = tmp_path / f"t.{fmt.lower()}", tmp_path / f"j.{fmt.lower()}"
+    if not jnative.ffm_available():
+        with pytest.raises(twav.WavError) as e:
+            twav.write_audio(got, pcm, 48000.0)
+        with pytest.raises(jwav.WavError) as je:
+            jwav.write_audio(got, pcm, 48000.0)
+        assert str(e.value) == str(je.value)
+        return
+    assert twav.write_audio(got, pcm, 48000.0, format=fmt) == got
+    jwav.write_audio(want, pcm, 48000.0, format=fmt)
+    assert twav.wav_info(got) == jwav.wav_info(want)
+    np.testing.assert_array_equal(twav.load_audio(got)[0],
+                                  jwav.load_audio(want)[0])
+    with pytest.raises(ValueError, match="cue-marker"):
+        twav.write_audio(got, pcm, 48000.0, locs=[[1, 0]])
