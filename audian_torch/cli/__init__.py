@@ -1,2 +1,3 @@
-"""Command-line tools of the port: ``audian-songdetector``
-(:mod:`.songdetector`)."""
+"""Command-line tools of the port: ``audian`` (:mod:`.audian`),
+``audian-songdetector`` (:mod:`.songdetector`) and ``audian-compress``
+(:mod:`.compress`)."""

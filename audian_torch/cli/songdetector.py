@@ -13,9 +13,10 @@ Recordings (WAV, RF64, W64, FLAC, and other containers where soundfile or
 the system FFmpeg libraries read them) are read through the port's
 :class:`~audian_torch.data.loader.AudioLoader`: PCM-16 WAV and 16-bit FLAC
 as int16 codes (dequantized on the card), every other encoding decoded to
-float32.  The
-interactive viewer (``-p``, ``--plot-png``), ``-j`` and ``--mesh`` are not
-ported yet and stop with a message (ROADMAP.md, Queue 1).
+float32.  ``-p`` opens the interactive viewer
+(:class:`~audian_torch.gui.songplot.SongPlot`, matplotlib) after each
+file and ``--plot-png`` renders it to a PNG.  ``-j`` and ``--mesh`` are
+not ported yet and stop with a message (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -105,10 +106,11 @@ def main(cargs=None, device=None):
                         help="write detected events to this CSV file "
                         "(default: <file>-songs.csv)")
     parser.add_argument("-p", "--plot", action="store_true",
-                        help="open the interactive viewer (not ported yet)")
+                        help="open the interactive viewer (the reference's "
+                        "SignalPlot) for each file")
     parser.add_argument("--plot-png", dest="plot_png", default=None,
                         metavar="FILE", type=str,
-                        help="render the viewer to a PNG (not ported yet)")
+                        help="render the viewer to a PNG file (headless)")
     parser.add_argument("-j", dest="jobs", default=1, type=int,
                         metavar="N",
                         help="process files data-parallel across devices "
@@ -134,9 +136,7 @@ def main(cargs=None, device=None):
         return 0
     if not args.files:
         parser.error("no input files")
-    for flag, used in (("-p/--plot", args.plot),
-                       ("--plot-png", args.plot_png is not None),
-                       ("-j", args.jobs != 1), ("--mesh", args.mesh != 1)):
+    for flag, used in (("-j", args.jobs != 1), ("--mesh", args.mesh != 1)):
         if used:
             parser.error(f"{flag} is not ported to audian_torch yet "
                          f"(ROADMAP.md, Queue 1)")
@@ -166,7 +166,9 @@ def main(cargs=None, device=None):
             minthreshfac=cfg.value("minthreshfac"),
             minduration=cfg.value("minduration"),
             verbose=args.verbose,
-            return_filtered=False,
+            # only the viewer plots the full-rate filtered stream; batch
+            # runs skip pulling it from the device
+            return_filtered=bool(args.plot or args.plot_png),
             device=device,
         )
         table = ResultTable()
@@ -182,6 +184,18 @@ def main(cargs=None, device=None):
                 nsongs += 1
         out = args.output or Path(path).with_suffix("").as_posix() + "-songs.csv"
         table.write(out)
+        if args.plot or args.plot_png:
+            from ..gui.songplot import SongPlot
+
+            win = SongPlot(data, rate, result, cfg=cfg, filename=path,
+                           device=device)
+            if args.plot_png:
+                win.savefig(args.plot_png)
+                print(f"saved viewer figure to {args.plot_png}")
+            if args.plot:
+                import matplotlib.pyplot as plt
+
+                plt.show()
         return (path, nsongs, out)
 
     status = 0

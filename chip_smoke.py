@@ -104,6 +104,39 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     overviews equal to numpy's; ``save_region`` of 10 s x 3 channels to a
     ``.flac`` from the shell on the FLAC gives the source codes.  Launch
     counters are zeroed before each FLAC run and read after it.
+14. the frontends on phase 12's recordings.  The Qt adapter
+    (``audian_torch.gui.qt``) runs on the fake toolkit of
+    ``tests/fakeqt.py`` (this machine has no Qt), whose items keep what
+    the adapter hands them; a torch tensor handed over fails the run.
+    ``audian_torch.cli.audian.main([16 ch, 8 ch, "-f", "2000", "-l",
+    "40000"])`` from a working directory holding a plugin file with the
+    envelope trace returns 0 after building the window over the first
+    recording (timed: open to first window).  A window over an
+    ``audian_cli`` shell of both recordings with ``default_traces()`` is
+    driven by its own actions: 40 pages forward and 10 back, end and
+    home, a drag of the lowpass handle (both linked tabs re-design their
+    filter), an NFFT step up and down, a rect zoom and the zoom back;
+    after every move the curves and images every tab handed to the
+    toolkit equal a direct refresh of its browser bit for bit (and the
+    power side plots the browser's ``power_spectrum``).  Pages at 16 ch
+    are timed from the move to the end of the adapter's refresh, each of
+    the action's two refreshes apart, and 10 more pages with the power
+    side panel on (it is off by default) give the panel's share of a
+    page.  A screenshot through the window's
+    action holds the view; a drop of it and ``main([png])`` restore it.
+    The song viewer's envelope keys ``e`` and ``E`` (500 Hz to 333.3 and
+    750 Hz, decimation steps 29 and 13) run, without matplotlib, what
+    ``SongPlot._recompute`` runs on phase 8's recording: ``band_env`` on
+    the decimating path, with envdet launched once per interior chunk
+    (counters zeroed just before each key, read just after), its
+    envelope within ``TOL_DETECT`` of the exact chunk path's, and the
+    kernel built for each key's geometry held against its plain version
+    and float64 on the first interior window.
+    Where this machine has matplotlib, under Agg: ``audian --screenshot``,
+    ``audian-songdetector --plot-png`` on phase 8's recording (phase 8's
+    CSV) and the song viewer's envelope key (envdet launched, the
+    envelope held against the exact path); otherwise one line says so.
+    No kernel lies on the Qt path.
 
 Phase 4 starts with both TF32 flags on and checks that they are still on
 after it: the port scopes full float32 to its own calls.
@@ -118,13 +151,15 @@ The three tensor-core kernels also carry ``bound_tc_ms``: the same
 true-tap operations in three TF32 passes at 495 TFLOP/s, or the bytes at
 3.35 TB/s, whichever is larger.
 Chain and envdet also carry ``flac_launches``, their launches on the FLAC
-runs of phase 13.
+runs of phase 13, and envdet ``viewer_launches``, its launches on the song
+viewer's envelope keys of phase 14.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import copy
+import importlib.util
 import itertools
 import json
 import math
@@ -1515,6 +1550,525 @@ def flac_phase(card, dev, tmp, path8, det_codes, bio):
     return {"chain": chain_launches, "envdet": det_launches}
 
 
+# -- phase 14: the frontends ----------------------------------------------
+
+FE_PAGES = (40, 10)      # page downs, then page ups, through the Qt actions
+FE_POWER_PAGES = 10      # pages with the power side panel on (off by default)
+FE_DRAG_LP = 30000.0     # Hz, where the lowpass handle is dragged
+FE_ZOOM = (0.5, 1.5)     # s into the view, the rect zoom
+#: the envelope of phase 12's default_traces(), as a user's plugin file in
+#: the working directory: audian's own default factory adds the filter
+#: and the spectrogram
+FE_PLUGIN = """from audian_torch.graph import EnvelopeNode
+
+
+def audian_traces(browser):
+    browser.add_trace(EnvelopeNode("envelope", "filtered"))
+"""
+
+
+class Handed:
+    """Records what the Qt adapter hands to the fake toolkit: each
+    ``setData`` / ``setImage`` keeps its arrays on the item (``handed``),
+    and a torch tensor there fails the run (it would pass the fake and
+    break real pyqtgraph)."""
+
+    def __init__(self, fakeqt):
+        self.calls = 0
+        self.saved = [(cls, name, getattr(cls, name)) for cls, name in (
+            (fakeqt.FakeCurve, "setData"),
+            (fakeqt.ScatterPlotItem, "setData"),
+            (fakeqt.FakeImageItem, "setImage"))]
+        for cls, name, orig in self.saved:
+            setattr(cls, name, self._wrap(orig))
+
+    def _wrap(self, orig):
+        def handed(item, *args, **kw):
+            for a in args:
+                require(not isinstance(a, torch.Tensor) and not (
+                    isinstance(a, (list, tuple))
+                    and any(isinstance(v, torch.Tensor) for v in a)),
+                    "host data handed to the toolkit")
+            self.calls += 1
+            item.handed = args
+            return orig(item, *args, **kw)
+        return handed
+
+    def restore(self):
+        for cls, name, orig in self.saved:
+            setattr(cls, name, orig)
+
+
+def trigger(win, shortcut):
+    """Fire the enabled window action bound to ``shortcut``, as the key
+    would (the fake toolkit's menus)."""
+    for menu in win.menuBar().menus:
+        for act in menu.actions:
+            if act.isEnabled() and shortcut in win._keys(act):
+                act.trigger()
+                return
+    raise RuntimeError(f"no action with shortcut {shortcut!r}")
+
+
+def adapter_equals_direct(win, direct, dev):
+    """The arrays every tab of ``win`` handed to the toolkit on its last
+    refresh equal a direct refresh of its browser bit for bit: the trace
+    and envelope curves of every shown channel, the u8 spectrogram images
+    and their rects; the power side plots, where shown, equal the
+    browser's ``power_spectrum``.  Returns the number of arrays
+    compared."""
+    n = 0
+    for i in range(win.tabs.count()):
+        tab = win.tabs.widget(i)
+        b = tab.browser
+        want = direct.setdefault(id(b), DirectRefresh(dev))(b)
+        for c, (pt, curve) in tab.trace_plots.items():
+            if not pt.isVisible():
+                continue
+            pairs = [(curve, "filtered")]
+            if b.data.is_visible("envelope"):
+                pairs.append((tab.env_curves[c], "envelope"))
+            for item, name in pairs:
+                x, y = item.handed
+                wx, wy = want[name, c]
+                require(np.array_equal(x, wx) and np.array_equal(y, wy),
+                        f"tab {i} {name} {c}: handed == direct refresh")
+                n += 1
+        for c, (ps, img) in tab.spec_images.items():
+            if not ps.isVisible():
+                continue
+            tile, rect = want["spec", c]
+            r = img.rect
+            require(np.array_equal(img.handed[0], tile)
+                    and (r.x, r.y, r.w, r.h) == tuple(rect),
+                    f"tab {i} spectrogram {c}: handed == direct refresh")
+            n += 1
+            pp, pcurve = tab.power_plots[c]
+            if pp.isVisible():
+                freqs, db = b.power_spectrum(c)
+                finite = np.isfinite(db)
+                x, y = pcurve.handed
+                require(np.array_equal(x, db[finite])
+                        and np.array_equal(y, freqs[finite]),
+                        f"tab {i} power {c}: handed == power_spectrum")
+                n += 1
+    return n
+
+
+def frontend_phase(card, dev, tmp, path, path8, song):
+    """Phase 14: the frontends on the card.  The Qt adapter runs on the
+    fake toolkit of ``tests/fakeqt.py`` (this machine has neither Qt nor,
+    perhaps, matplotlib).  ``song`` is phase 8's recording (int16 codes)
+    and its CSV rows, for the song viewer's envelope keys and the
+    matplotlib paths.  Returns envdet's launches on the viewer's keys."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import fakeqt
+
+    from audian_torch.analysis import Plugins
+    from audian_torch.app import audian_cli, parse_view_metadata
+    from audian_torch.cli import audian
+    from audian_torch.data import default_traces
+
+    print(f"phase 14: the frontends, the Qt adapter on the fake toolkit "
+          f"over phase 12's recordings ({C} ch and 8 ch)")
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    work = os.path.join(tmp, "frontends")
+    os.makedirs(work)
+    with open(os.path.join(work, "audian_envelope.py"), "w") as f:
+        f.write(FE_PLUGIN)
+    fakeqt.install()
+    handed = Handed(fakeqt)
+    import audian_torch.gui.qt as qt_gui
+    try:
+        qt_gui = importlib.reload(qt_gui)
+        require(qt_gui.HAVE_QT, "the Qt adapter on the fake toolkit")
+        direct = {}
+        built = []
+        Window = qt_gui.AudianWindow
+
+        class Recorded(Window):
+            """The window ``main`` builds, checked as it comes up: the
+            first recording only, on the card, its refresh == direct."""
+
+            def __init__(self, shell):
+                super().__init__(shell)
+                torch.cuda.synchronize()
+                b = shell.current
+                built.append({
+                    "s": time.perf_counter(), "tabs": self.tabs.count(),
+                    "device": b.device, "traces": b.data.keys(),
+                    "view": (b.toffset, b.twindow, list(b.show_channels)),
+                    "arrays": adapter_equals_direct(self, {}, dev)})
+
+        qt_gui.AudianWindow = Recorded
+        os.chdir(work)
+        try:
+            # -- the entry point, as a user types it ------------------------
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            rc = audian.main([path, path8, "-f", "2000", "-l", "40000"])
+            main_s = time.perf_counter() - a
+            fakeqt.QTimer.single_shots = []   # the closed window's pump
+            require(rc == 0, f"audian exit status {rc}")
+            require(len(built) == 1, f"{len(built)} windows built")
+            first = built[0]
+            require(first["tabs"] == 1, "main opens only the first "
+                    "recording before the window shows")
+            require(first["device"].type == dev.type,
+                    f"browser on {first['device']}")
+            require(first["traces"] == ["data", "filtered", "spectrogram",
+                                        "envelope"],
+                    f"traces with the plugin file {first['traces']}")
+            open_s = first["s"] - a
+            print(f"  audian.main([{C} ch, 8 ch, -f 2000, -l 40000]) rc 0: "
+                  f"the window over the first recording on {dev}, the "
+                  f"envelope from a plugin file, {first['arrays']} arrays "
+                  f"handed == direct refresh; open to first window "
+                  f"{1e3 * open_s:.3f} ms, main {1e3 * main_s:.3f} ms  "
+                  f"[{card}]")
+
+            # -- a window over an audian_cli shell of both recordings -----
+            plugins = Plugins()
+            plugins.clear_trace_factories()
+            plugins.add_trace_factory(
+                lambda b: [b.add_trace(n) for n in default_traces()])
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            shell = audian_cli([path, path8, "-f", "2000", "-l", "40000"],
+                               plugins=plugins)
+            shell.load_files()
+            win = Window(shell)
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - a
+            require(win.tabs.count() == 2 and not shell.errors,
+                    f"two tabs {win.tabs.count()} {shell.errors}")
+            b0, b1 = shell.browsers
+            tab0 = win.tabs.widget(0)
+            compared = [adapter_equals_direct(win, direct, dev)]
+            moves = {}
+            power = []
+            refreshes = []
+
+            # the tab's refreshes and its power side panel, timed inside
+            # a move (the tab calls both through its instance)
+            def timed_power(*args, orig=tab0._refresh_power):
+                t = time.perf_counter()
+                orig(*args)
+                power.append(time.perf_counter() - t)
+
+            def timed_refresh(orig=tab0.refresh):
+                t = time.perf_counter()
+                orig()
+                torch.cuda.synchronize()
+                refreshes.append(time.perf_counter() - t)
+            tab0._refresh_power = timed_power
+            tab0.refresh = timed_refresh
+
+            def move(label, fn):
+                power.clear()
+                refreshes.clear()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                moves.setdefault(label, []).append(
+                    (dt, sum(power), list(refreshes)))
+                compared[0] += adapter_equals_direct(win, direct, dev)
+
+            fwd, back = FE_PAGES
+            for _ in range(fwd):
+                move("page", lambda: trigger(win, "PgDown"))
+            for _ in range(back):
+                move("page", lambda: trigger(win, "PgUp"))
+            # the power side panel is off by default: pages with it on
+            move("power panel on", lambda: trigger(win, "Ctrl+P"))
+            require(tab0.power_plots[b0.show_channels[0]][0].isVisible(),
+                    "the power side panel is shown")
+            for k in range(FE_POWER_PAGES):
+                move("page, power panel on", lambda k=k: trigger(
+                    win, "PgDown" if k % 2 == 0 else "PgUp"))
+            move("power panel off", lambda: trigger(win, "Ctrl+P"))
+            move("end", lambda: trigger(win, "End"))
+            move("home", lambda: trigger(win, "Home"))
+            require(b0.toffset == 0.0, f"home at {b0.toffset}")
+            c0 = b0.show_channels[0]
+            move("lowpass handle drag (both tabs)",
+                 lambda: tab0.lp_lines[c0].drag_to(FE_DRAG_LP))
+            for b in (b0, b1):
+                f = b.data["filtered"]
+                require((f.highpass_cutoff, f.lowpass_cutoff)
+                        == (2000.0, FE_DRAG_LP),
+                        f"the dragged filter {f.highpass_cutoff} "
+                        f"{f.lowpass_cutoff}")
+            tab1 = win.tabs.widget(1)
+            require(tab1.lp_lines[b1.show_channels[0]].value() == FE_DRAG_LP,
+                    "the linked tab's handle follows")
+            move("NFFT up", lambda: trigger(win, "Shift+R"))
+            require(b0.data["spectrogram"].nfft == 512, "NFFT 512")
+            move("NFFT down", lambda: trigger(win, "R"))
+            require(b0.data["spectrogram"].nfft == 256, "NFFT 256")
+            trigger(win, "Z")                 # the zoom region mode
+            t0 = b0.toffset
+            vb = tab0.trace_plots[c0][0].vb
+            move("region zoom", lambda: vb.mouseDragEvent(
+                fakeqt.FakeMouseEvent(
+                    1, fakeqt.FakePoint(t0 + FE_ZOOM[1], 0.5),
+                    fakeqt.FakePoint(t0 + FE_ZOOM[0], -0.5))))
+            require(abs(b0.twindow - (FE_ZOOM[1] - FE_ZOOM[0])) < 1e-9,
+                    f"zoomed to {b0.twindow} s")
+            move("zoom back", lambda: trigger(win, "Backspace"))
+            require(b0.twindow == IA_VIEW, f"zoomed back to {b0.twindow} s")
+            print(f"  {compared[0]} arrays handed to the toolkit over "
+                  f"{sum(len(v) for v in moves.values())} moves equal a "
+                  f"direct refresh bit for bit; {handed.calls} toolkit "
+                  f"calls, no tensor among them")
+
+            # -- screenshot and restore --------------------------------------
+            trigger(win, "3")                 # hide channel 3
+            b0.set_times(BR_JUMP, IA_VIEW)
+            shot = os.path.join(work, "view.png")
+            fakeqt.QFileDialog.save_name = (shot, "PNG (*.png)")
+            trigger(win, "Ctrl+Alt+S")
+            saved = (b0.toffset, b0.twindow, list(b0.show_channels))
+            view = parse_view_metadata(shot)
+            require(view is not None and view["file"] == path
+                    and abs(view["toffset"] - saved[0]) < 1e-6
+                    and abs(view["twindow"] - saved[1]) < 1e-6
+                    and view["channels"] == saved[2],
+                    f"the screenshot's view {view} of {saved}")
+            trigger(win, "Home")
+            ev = fakeqt.FakeDropEvent([shot])
+            win.dropEvent(ev)
+            require(ev.accepted and (b0.toffset, b0.twindow,
+                                     b0.show_channels) == saved,
+                    "a dropped screenshot restores its view")
+            compared[0] += adapter_equals_direct(win, direct, dev)
+            for i in range(win.tabs.count()):
+                win.tabs.widget(i).teardown()
+            shell.close()
+            built.clear()
+            rc = audian.main([shot])
+            fakeqt.QTimer.single_shots = []
+            require(rc == 0 and len(built) == 1, f"audian on the PNG rc {rc}")
+            got = built[0]["view"]
+            require(abs(got[0] - saved[0]) < 1e-6
+                    and abs(got[1] - saved[1]) < 1e-6 and got[2] == saved[2],
+                    f"main([png]) restored {got}, saved {saved}")
+            print(f"  screenshot (Ctrl+Alt+S) of {saved[0]:.1f} s + "
+                  f"{saved[1]:.1f} s, channels without 3: the drop and "
+                  f"main([png]) restore it; window over both recordings "
+                  f"{1e3 * window_s:.3f} ms  [{card}]")
+            for label, ts in moves.items():
+                ms = 1e3 * np.array([t for t, _, _ in ts])
+                share = np.array([p / t for t, p, _ in ts])
+                if len(ms) > 2:
+                    # an action refreshes the tab twice: on the browser's
+                    # signal, then the window's own refresh after the verb
+                    split = "  ".join(
+                        f"refresh {k + 1} p50 " + format(1e3 * np.percentile(
+                            [r[k] for _, _, r in ts if len(r) > k], 50),
+                            ".3f") + " ms"
+                        for k in range(max(len(r) for _, _, r in ts)))
+                    print(f"    {label} x{len(ms)} ({C} ch, move to the end "
+                          f"of the adapter's refresh): p50 "
+                          f"{np.percentile(ms, 50):.3f} ms  p95 "
+                          f"{np.percentile(ms, 95):.3f} ms  max "
+                          f"{ms.max():.3f} ms; {split}; the power side "
+                          f"panel p50 {100 * np.percentile(share, 50):.1f} "
+                          f"% of a page  [{card}]")
+                else:
+                    print(f"    {label}: " + "  ".join(f"{v:.3f}" for v in ms)
+                          + f" ms  [{card}]")
+
+            # -- the song viewer's envelope keys, without matplotlib --------
+            viewer = viewer_keys_phase(card, dev, song[0])
+
+            # -- matplotlib, where this machine has it ------------------------
+            if importlib.util.find_spec("matplotlib") is None:
+                print("  matplotlib is not installed here: audian "
+                      "--screenshot, the song viewer and songdetector "
+                      "--plot-png are held by the tier-1 tests on the CPU "
+                      "(tests/test_torch_{screenshot,songplot,gui_mpl}.py)")
+            else:
+                mpl_phase(card, dev, work, path, song)
+        finally:
+            os.chdir(cwd)
+    finally:
+        handed.restore()
+        fakeqt.uninstall()
+        importlib.reload(qt_gui)
+    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return viewer
+
+
+#: the song viewer's envelope keys from the detect design: ``e`` divides
+#: the cutoff by 1.5, ``E`` multiplies it (gui/songplot.py)
+VIEWER_KEYS = (("e", DETECT_ENV / 1.5), ("E", DETECT_ENV * 1.5))
+
+
+def viewer_env(data, cutoff, fused):
+    """The envelope ``SongPlot._recompute`` computes after an envelope
+    key (``fused=True``); ``fused=False`` is the exact chunk path, the
+    one the JAX viewer runs."""
+    from audian_torch.analysis import events
+
+    return events.band_env(data, RATE, *DETECT_BAND, cutoff,
+                           return_filtered=False, fused=fused)[1]
+
+
+def hold_viewer_env(env, data, cutoff, label):
+    """The viewer's decimated envelope against the exact chunk path on
+    the same samples: equal shape, finite, within TOL_DETECT of the
+    scale.  Returns the largest error."""
+    want = viewer_env(data, cutoff, fused=False)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(env.astype(np.float64) - want).max())
+    require(env.shape == want.shape and np.isfinite(env).all(),
+            f"{label}: envelope shape {env.shape} vs {want.shape}")
+    require(err <= TOL_DETECT * scale,
+            f"{label}: decimating vs exact path {err} (scale {scale})")
+    return err
+
+
+def viewer_keys_phase(card, dev, pcm):
+    """The song viewer's envelope keys on the card, with no matplotlib:
+    ``SongPlot._recompute`` after ``e`` and ``E`` runs ``band_env`` on the
+    viewer's float32 samples on the decimating path, whose interior
+    chunks launch envdet at the key's decimation step.  The launch
+    counters are zeroed just before each key's call and read just after;
+    envdet must run once per interior chunk.  The envelope is held
+    against the exact chunk path, and the kernel built for the key's
+    geometry against its plain version and float64 on the recording's
+    first interior window.  Returns envdet's launches over the keys."""
+    from audian_torch.analysis import events
+    from audian_torch.ops.cuda.chain import chain
+    from audian_torch.ops.cuda.envdet import EnvDetKernel, envdet
+    from audian_torch.ops.cuda.window_matmul import window_matmul
+
+    data = pcm.astype(np.float32)
+    data /= 32768.0          # the viewer's samples (gui/songplot.py)
+    n = data.shape[0]
+    made = events._make_envdet
+    built = []
+
+    def capture(*args, **kw):
+        out = made(*args, **kw)
+        built.append((out, args[3]))
+        return out
+
+    total = 0
+    events._make_envdet = capture
+    try:
+        for key, cutoff in VIEWER_KEYS:
+            built.clear()
+            torch.cuda.synchronize()
+            chain.launches = window_matmul.launches = envdet.launches = 0
+            a = time.perf_counter()
+            env = viewer_env(data, cutoff, fused=True)
+            torch.cuda.synchronize()
+            key_s = time.perf_counter() - a
+            launches = {"envdet": envdet.launches,
+                        "window_matmul": window_matmul.launches,
+                        "chain": chain.launches}
+            require(len(built) == 1 and built[0][0] is not None,
+                    f"key {key}: the decimating path was built")
+            (ed, chunk), halo = built[0]
+            require(isinstance(ed, EnvDetKernel),
+                    f"key {key}: the geometry takes the envdet kernel")
+            W = events._CHUNK + 2 * halo
+            interior = [pos for pos in range(0, n, chunk)
+                        if pos - halo >= 0 and pos - halo + W <= n]
+            require(launches == {"envdet": len(interior),
+                                 "window_matmul": 0, "chain": 0},
+                    f"key {key}: launches {launches}, interior chunks "
+                    f"{len(interior)}")
+            total += launches["envdet"]
+            err = hold_viewer_env(env, data, cutoff, f"key {key}")
+            print(f"  song viewer key {key!r} ({DETECT_ENV:.0f} -> "
+                  f"{cutoff:.1f} Hz, step {ed.step}, taps {ed.lb} + "
+                  f"{ed.ll}): envdet launched {launches['envdet']} times "
+                  f"({len(interior)} interior chunks), band_env "
+                  f"{1e3 * key_s:.3f} ms; vs the exact path {err:.3e}  "
+                  f"[{card}]")
+            a0 = interior[0] - halo
+            check_envdet(ed, torch.from_numpy(data[a0:a0 + W]).to(dev),
+                         f"key {key!r} kernel on the first interior "
+                         f"window")
+    finally:
+        events._make_envdet = made
+    return total
+
+
+def mpl_phase(card, dev, work, path, song):
+    """Phase 14's matplotlib part, under Agg: ``audian --screenshot`` and
+    ``audian-songdetector --plot-png`` on phase 8's recording, then the
+    song viewer's envelope key on the card."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from audian_torch.app import parse_view_metadata
+    from audian_torch.cli import audian, songdetector
+    from audian_torch.gui.songplot import SongPlot
+    from audian_torch.ops.cuda.envdet import envdet
+
+    shot = os.path.join(work, "agg.png")
+    rc = audian.main([path, "--screenshot", shot])
+    view = parse_view_metadata(shot)
+    require(rc == 0 and view is not None and view["file"] == path,
+            f"audian --screenshot rc {rc} view {view}")
+    pcm, rows = song
+    wav = os.path.join(work, "songs.wav")
+    scipy.io.wavfile.write(wav, int(RATE), pcm)
+    png, csv = os.path.join(work, "songs.png"), os.path.join(work, "p.csv")
+    rc = songdetector.main([wav, "--plot-png", png, "-o", csv])
+    with open(csv) as f:
+        got = [line.strip().split(",") for line in f if line.strip()]
+    require(rc == 0 and os.path.getsize(png) > 0, f"--plot-png rc {rc}")
+    require(got == rows, "--plot-png writes phase 8's CSV")
+    data, _ = songdetector.load_recording(wav)
+    from audian_torch.analysis import events
+
+    result = events.detect(data, RATE, *DETECT_BAND, DETECT_ENV)
+    win = SongPlot(data, RATE, result, filename=wav)
+    # the envelope band_env hands the viewer (which refines it in place)
+    got = []
+    band_env = events.band_env
+
+    def capture(*args, **kw):
+        out = band_env(*args, **kw)
+        got.append(np.array(out[1]))
+        return out
+
+    class Key:
+        key = "e"
+
+    events.band_env = capture
+    try:
+        torch.cuda.synchronize()
+        envdet.launches = 0
+        a = time.perf_counter()
+        win.keypress(Key())
+        torch.cuda.synchronize()
+        key_s = time.perf_counter() - a
+        launches = envdet.launches
+    finally:
+        events.band_env = band_env
+    win.plt.close(win.fig)
+    require(launches > 0, "the viewer's envelope key launched envdet")
+    require(len(got) == 1, f"the envelope key ran band_env {len(got)} times")
+    err = hold_viewer_env(got[0], win.data, win.envelopecutofffreq,
+                          "the viewer's envelope key")
+    print(f"  matplotlib (Agg): audian --screenshot writes the view; "
+          f"--plot-png on {DETECT_SECONDS} s x {C} ch writes phase 8's CSV "
+          f"({len(rows) - 1} songs) and a PNG; the viewer's envelope key "
+          f"(500 -> {win.envelopecutofffreq:.1f} Hz) launched envdet "
+          f"{launches} times, {1e3 * key_s:.3f} ms, vs the exact path "
+          f"{err:.3e}  [{card}]")
+
+
 def main():
     # -- phase 0: the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -2063,6 +2617,9 @@ def main():
     print(f"  band_env (2 ch) vs scipy float64: {eo:.3e} (scale "
           f"{scale:.4f})")
     det_codes = np.ascontiguousarray(pcm[:, :FL_C])   # for phase 13
+    # phase 14 runs the song viewer's envelope keys on this recording and,
+    # where this machine has matplotlib, the song detector's --plot-png
+    song = (pcm, rows)
     del pcm, env2, env64
 
     # -- phase 9: detect times -----------------------------------------------
@@ -2117,12 +2674,14 @@ def main():
           f"kernel {hour_det_ms / 1e3:.4f} s per recording hour  plain "
           f"{hour_det_plain_ms / 1e3:.4f} s  [{card}]")
 
-    # -- phases 10-13: the interactive path, the headless browser, FLAC ----
+    # -- phases 10-14: the interactive path, the browser, FLAC, frontends --
     with tempfile.TemporaryDirectory() as tmp:
         path, path8 = interactive_phases(card, dev, tmp)
         browser_phase(card, dev, tmp, path, path8)
         flac_launches = flac_phase(card, dev, tmp, path8, det_codes, bio)
-    del det_codes
+        del det_codes
+        viewer_launches = frontend_phase(card, dev, tmp, path, path8, song)
+    del song
 
     wm_bound = bound(wm_flop, wm_bytes)
     wm_bound_tc = bound_tc(wm_flop, wm_bytes)
@@ -2150,7 +2709,8 @@ def main():
          "launches": det_launches["envdet"], "max_abs_err": env_err,
          "ms": env_ms, "plain_ms": env_plain_ms, "bound_ms": env_bound[0],
          "bound_by": env_bound[1], "bound_tc_ms": env_bound_tc,
-         "library_ms": None, "flac_launches": flac_launches["envdet"]},
+         "library_ms": None, "flac_launches": flac_launches["envdet"],
+         "viewer_launches": viewer_launches},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -113,9 +113,10 @@ def test_entry_twin_matches_graft_entry():
 
 def test_port_imports_no_jax():
     """Every module of the port imports without JAX (nor pandas,
-    matplotlib, PyQt5), the native bindings, the FLAC codec and the
-    compress CLI among them, and no import starts a process (a compiler
-    run) or loads a kernel or native library."""
+    matplotlib, PyQt5, pyqtgraph), the native bindings, the FLAC codec,
+    the compress CLI, the frontends and the ``audian`` CLI among them, and
+    no import starts a process (a compiler run) or loads a kernel or
+    native library."""
     code = (
         "import importlib, pkgutil, subprocess, sys\n"
         "import numpy, scipy.signal, torch\n"
@@ -128,15 +129,19 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {'audian_torch.native', 'audian_torch.data.flac',"
-        " 'audian_torch.cli.compress'} <= set(names), names\n"
+        " 'audian_torch.cli.compress', 'audian_torch.app.screenshot',"
+        " 'audian_torch.gui', 'audian_torch.gui.qt', 'audian_torch.gui.mpl',"
+        " 'audian_torch.gui.songplot', 'audian_torch.cli.audian'}"
+        " <= set(names), names\n"
         "from audian_torch import native\n"
         "from audian_torch.ops.cuda import _build\n"
         "assert native._lib is None and native._ffm is None\n"
         "assert not native._tried and not native._ffm_tried\n"
         "assert _build._lib is None\n"
         "bad = [k for k in sys.modules if k in ('jax', 'pandas',"
-        " 'matplotlib', 'PyQt5') or k.startswith(('jax.', 'audian_tpu',"
-        " 'pandas.', 'matplotlib.', 'PyQt5.'))]\n"
+        " 'matplotlib', 'PyQt5', 'pyqtgraph') or k.startswith(('jax.',"
+        " 'audian_tpu', 'pandas.', 'matplotlib.', 'PyQt5.',"
+        " 'pyqtgraph.'))]\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules"
         " if k.startswith('audian_torch')]))\n")

@@ -4,7 +4,8 @@ same small ``_CHUNK``, so interior chunks take the decimating envelope),
 and so do PCM-24 and float recordings, read through the port's
 ``AudioLoader``; ``-c`` writes the same configuration, malformed config
 values warn and keep the defaults, and what the port cannot read or run
-yet stops with a message that names it."""
+yet (``-j``, ``--mesh``) stops with a message that names it.  The viewer
+options ``-p`` / ``--plot-png`` are held in ``test_torch_songplot.py``."""
 
 import numpy as np
 import pytest
@@ -154,8 +155,7 @@ def test_unreadable_input_names_the_loader(tmp_path, capsys, kind):
         assert capsys.readouterr().err == err
 
 
-@pytest.mark.parametrize("args", [["-j", "2"], ["--mesh", "4"], ["-p"],
-                                  ["--plot-png", "x.png"]])
+@pytest.mark.parametrize("args", [["-j", "2"], ["--mesh", "4"]])
 def test_unported_options_stop_with_a_message(tmp_path, capsys, args):
     path = tmp_path / "rec.wav"
     jwav.write_audio(path, _recording(nsongs=1), RATE, encoding="PCM_16")
