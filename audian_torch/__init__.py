@@ -11,7 +11,8 @@ chain and the decimating detect envelope, ``ops/cuda/`` the hand-written
 kernels with their plain PyTorch versions, ``analysis/`` the song-detection
 pipeline and its CSV table, ``cli/`` ``audian-songdetector``,
 ``data/wavio.py`` the raw PCM-16 reader, ``config.py`` the configuration
-files and ``models.py`` the chain presets.  Every entry point runs on the
+files, ``models.py`` the chain presets, ``parallel/`` the multi-device
+paths and ``utils/trace.py`` the trace spans.  Every entry point runs on the
 CUDA card unless it is given ``device="cpu"``.
 """
 

@@ -30,6 +30,7 @@ from ..ops.envdet import EnvDet
 from ..ops.raw16 import dequant16
 from ..ops.sos import sosfiltfilt_fir
 from ..utils import resolve_device
+from ..utils import trace as _trace
 
 
 def _upload(x, device):
@@ -165,8 +166,11 @@ def _band_env_chunks(fdesign, edesign, x, step, return_filtered, device,
             g0 = -(-pos // step) * step
             if g0 < pos + L:
                 cnt = (pos + L - 1 - g0) // step + 1
-                env = envdet(_upload(x[a : a + W], device), g0 - a)
-                outs_e.append(env[:cnt].cpu().numpy())
+                with _trace.timed("detect.upload", frames=W):
+                    xw = _upload(x[a : a + W], device)
+                with _trace.timed("detect.chunk", frames=L):
+                    env = envdet(xw, g0 - a)[:cnt].cpu().numpy()
+                outs_e.append(env)
             continue
         a = min(max(pos - halo, 0), n - W)
         hb = pos - a
@@ -174,17 +178,19 @@ def _band_env_chunks(fdesign, edesign, x, step, return_filtered, device,
         # (chunk starts are not step-aligned here)
         g0 = -(-pos // step) * step
         r = (g0 - a) % step
-        yd, ed = _band_env_device(fdesign, edesign,
-                                  _upload(x[a : a + W], device))
-        if g0 < pos + L:
-            j0 = (g0 - a - r) // step
-            cnt = (pos + L - 1 - g0) // step + 1
+        j0 = (g0 - a - r) // step
+        cnt = (pos + L - 1 - g0) // step + 1 if g0 < pos + L else 0
+        with _trace.timed("detect.upload", frames=W):
+            xw = _upload(x[a : a + W], device)
+        with _trace.timed("detect.chunk", frames=L):
+            yd, ed = _band_env_device(fdesign, edesign, xw)
             # decimate on the device (the JAX package gathers with a
             # traced offset to keep one compiled program; eager torch
-            # slices)
-            outs_e.append(ed[r::step][j0 : j0 + cnt].cpu().numpy())
-        if return_filtered:
-            outs_y.append(yd[hb : hb + L].cpu().numpy())
+            # slices) and pull only the chunk's own samples
+            if cnt:
+                outs_e.append(ed[r::step][j0 : j0 + cnt].cpu().numpy())
+            if return_filtered:
+                outs_y.append(yd[hb : hb + L].cpu().numpy())
     return (np.concatenate(outs_y) if return_filtered else None,
             np.concatenate(outs_e))
 
@@ -522,7 +528,7 @@ def analyse_songs(onsets, offsets, envelopes, rate, envfreqs, thresholds,
 
 
 def band_env(data, rate, highpassfreq, lowpassfreq, envelopecutofffreq,
-             return_filtered=True, fused=False, device=None):
+             return_filtered=True, fused=False, mesh=None, device=None):
     """Zero-phase band-pass + decimated squared-RMS envelope on the
     chunked device path: the front half of :func:`detect`.
 
@@ -535,6 +541,12 @@ def band_env(data, rate, highpassfreq, lowpassfreq, envelopecutofffreq,
     computes the interior chunks' envelope on the decimating path
     (:mod:`audian_torch.ops.envdet`, :mod:`audian_torch.ops.cuda.envdet`):
     only the decimated envelope is written on the device.
+
+    ``mesh`` (with ``return_filtered=False``) shards the time axis over
+    the mesh's ``"seq"`` devices with halo exchange and exact-patched
+    recording edges (:mod:`audian_torch.parallel.detect`, the
+    ``audian-songdetector --mesh`` path); recordings too short to shard
+    usefully fall through to the chunked driver on ``device``.
 
     ``device`` is the CUDA card by default ("cpu" runs the plain
     versions).  Recordings no longer than one chunk window run on host
@@ -561,6 +573,12 @@ def band_env(data, rate, highpassfreq, lowpassfreq, envelopecutofffreq,
     _KERNEL_BUDGET["env"] = max(_KERNEL_BUDGET["env"], edesign.fir.length)
     envrate_t = min(envelopecutofffreq * 10, rate)
     step = int(np.round(rate / envrate_t))
+    if mesh is not None and not return_filtered:
+        from ..parallel.detect import sharded_band_env
+
+        env = sharded_band_env(mesh, fdesign, edesign, data, step)
+        if env is not None:
+            return None, env, rate / step
     fdata, env = _band_env_chunks(fdesign, edesign, data, step,
                                   return_filtered, device, fused=fused)
     return fdata, env, rate / step
@@ -569,7 +587,8 @@ def band_env(data, rate, highpassfreq, lowpassfreq, envelopecutofffreq,
 def detect(data, rate, highpassfreq=1000.0, lowpassfreq=10000.0,
            envelopecutofffreq=500.0, envelopepeakthresh=10.0,
            envelopefilter="apply", thresholdfactor=8.0, minthreshfac=1.0,
-           minduration=0.5, verbose=0, return_filtered=True, device=None):
+           minduration=0.5, verbose=0, return_filtered=True, mesh=None,
+           device=None):
     """The full songdetector pipeline (`songdetector.py:745-767`).
 
     Returns a dict with the filtered data, fast and slow envelopes,
@@ -577,7 +596,8 @@ def detect(data, rate, highpassfreq=1000.0, lowpassfreq=10000.0,
     ``return_filtered=False`` skips pulling the full-rate filtered stream
     to the host (``result["filtered"] is None``) and runs the envelope on
     the decimating fused path (see :func:`band_env`).  ``int16`` input is
-    raw PCM-16.  ``device`` is the CUDA card by default.
+    raw PCM-16.  ``mesh`` shards that envelope's time axis over a mesh
+    (see :func:`band_env`).  ``device`` is the CUDA card by default.
     """
     device = resolve_device(device)
     log = print if verbose else (lambda *a, **k: None)
@@ -585,7 +605,8 @@ def detect(data, rate, highpassfreq=1000.0, lowpassfreq=10000.0,
     fdata, env, envrate = band_env(data, rate, highpassfreq, lowpassfreq,
                                    envelopecutofffreq,
                                    return_filtered=return_filtered,
-                                   fused=not return_filtered, device=device)
+                                   fused=not return_filtered, mesh=mesh,
+                                   device=device)
     log("low-pass filter envelope ...")
     slowenv = lowpass_filter(env, envrate, 1.0 / minduration)
     log("estimate thresholds ...")

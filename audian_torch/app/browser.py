@@ -37,9 +37,11 @@ from ..data import Data, wavio
 from ..graph import RAW, SpectrogramNode
 from ..ops.mix import prepare_playback
 from ..ops.sweep import FULL_NFFTS
+from ..parallel.shard import ChannelShards
 from ..utils import resolve_device
+from ..utils import trace as _trace
 from ..view.render import (SpecTiler, TraceTiler, mean_power_db_slice,
-                           noise_level_stats)
+                           noise_level_stats, pull_groups)
 from .markers import MarkerData, MarkerLabel
 
 
@@ -104,10 +106,11 @@ class DataBrowser:
     def __init__(self, file_path, channels=None, plugins=None,
                  buffer_time=60.0, back_time=20.0, load_kwargs=None,
                  unwrap=0.0, unwrap_clip=False, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DataBrowser(mesh=...) is not ported to audian_torch yet "
-                "(ROADMAP.md, Queue 1 #8)")
+        # mesh: channel-shard the interactive session across the mesh's
+        # devices (Data's docstring; the browser itself is
+        # sharding-agnostic); the browser's device is then the mesh's first
+        if device is None and mesh is not None:
+            device = mesh.devices[0, 0]
         self.device = resolve_device(device)
         self.file_path = file_path
         self.load_kwargs = dict(load_kwargs or {})
@@ -115,7 +118,7 @@ class DataBrowser:
         self.unwrap_clip = unwrap_clip
         self.plugins = plugins or Plugins()
         self.data = Data(file_path, buffer_time=buffer_time,
-                         back_time=back_time, device=self.device,
+                         back_time=back_time, mesh=mesh, device=self.device,
                          **self.load_kwargs)
         self._requested_channels = channels
         self.show_channels = []
@@ -1237,7 +1240,8 @@ class DataBrowser:
         `plotranges.py:461-478`)."""
         trace = self.data[self.spectrogram] if self.spectrogram else None
         buf = trace.buffer if trace is not None else None
-        if not isinstance(buf, torch.Tensor) or buf.numel() == 0:
+        if (not isinstance(buf, (torch.Tensor, ChannelShards))
+                or buf.numel() == 0):
             return (-100.0, 0.0)
         node = trace._node
         nf = max(buf.shape[2] // 16, 1)
@@ -1254,7 +1258,10 @@ class DataBrowser:
         if cached is None or cached[0] != key \
                 or cached[3]() is not trace or (
                 epoch is None and cached[1]() is not buf):
-            stats = noise_level_stats(buf, nf).cpu().numpy()
+            stats = pull_groups(buf, lambda t, *_: noise_level_stats(t, nf),
+                                axis=0)
+            _trace.trace_event("render.pull", op="noise_levels",
+                               bytes=stats.nbytes)
             # weak refs: a strong one would pin the superseded
             # spectrogram window (~200 MB) on the device; the trace
             # ref guards the recycled-id case (id(trace) in the key)

@@ -15,8 +15,11 @@ the system FFmpeg libraries read them) are read through the port's
 as int16 codes (dequantized on the card), every other encoding decoded to
 float32.  ``-p`` opens the interactive viewer
 (:class:`~audian_torch.gui.songplot.SongPlot`, matplotlib) after each
-file and ``--plot-png`` renders it to a PNG.  ``-j`` and ``--mesh`` are
-not ported yet and stop with a message (ROADMAP.md, Queue 1).
+file and ``--plot-png`` renders it to a PNG.  ``-j N`` runs N files at
+once, spread over the devices (:func:`audian_torch.parallel.map_files`);
+``--mesh N`` shards each recording's time axis over N distinct devices
+(:func:`audian_torch.parallel.sharded_band_env`), and runs single-device
+where fewer than 2 exist, as on a machine with one card.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..analysis.events import detect
 from ..analysis.table import ResultTable
 from ..config import ConfigFile
 from ..data.loader import AudioLoader
+from ..parallel import local_devices, make_mesh, map_files
 from ..utils import resolve_device
 
 
@@ -114,11 +118,14 @@ def main(cargs=None, device=None):
     parser.add_argument("-j", dest="jobs", default=1, type=int,
                         metavar="N",
                         help="process files data-parallel across devices "
-                        "(not ported yet)")
+                        "(N workers; 0 means one per device)")
     parser.add_argument("--mesh", dest="mesh", default=1, type=int,
                         metavar="N",
                         help="shard each recording's time axis over N "
-                        "devices (not ported yet)")
+                        "devices (0 means all; halo exchange between "
+                        "neighbouring shards) — for recordings much longer "
+                        "than one device's memory; combines with -j only "
+                        "trivially (use one or the other)")
     parser.add_argument("files", nargs="*", default=[], type=str,
                         help="files with the time series data")
     args = parser.parse_args(cargs)
@@ -136,18 +143,31 @@ def main(cargs=None, device=None):
         return 0
     if not args.files:
         parser.error("no input files")
-    for flag, used in (("-j", args.jobs != 1), ("--mesh", args.mesh != 1)):
-        if used:
-            parser.error(f"{flag} is not ported to audian_torch yet "
-                         f"(ROADMAP.md, Queue 1)")
-    if args.output and len(args.files) > 1:
-        parser.error("-o names ONE output file but multiple inputs were "
-                     "given (each would overwrite it); drop -o to get "
-                     "per-file <stem>-songs.csv tables")
 
-    def process(path):
-        """Detect songs in one file; returns (path, nsongs, out) or the
-        error message of a file that could not be read."""
+    devices = local_devices(device)
+    mesh = None
+    if args.mesh != 1:
+        if args.plot or args.plot_png:
+            # the viewer needs the full-rate filtered stream, which the
+            # sharded path never materializes — say so, like -j does
+            print("--mesh is ignored with --plot/--plot-png "
+                  "(the viewer needs the unsharded filtered stream)",
+                  file=sys.stderr)
+        else:
+            ndev = (len(devices) if args.mesh == 0
+                    else min(args.mesh, len(devices)))
+            if ndev > 1:
+                mesh = make_mesh(devices[:ndev])
+                if args.verbose:
+                    print(f"sequence-sharding over {ndev} devices")
+            else:
+                print(f"--mesh {args.mesh}: only {len(devices)} device(s) "
+                      "available, running single-device",
+                      file=sys.stderr)
+
+    def process(path, dev=device):
+        """Detect songs in one file on ``dev``; returns (path, nsongs,
+        out) or the error message of a file that could not be read."""
         try:
             data, rate = load_recording(path)
         except Exception as e:
@@ -169,7 +189,8 @@ def main(cargs=None, device=None):
             # only the viewer plots the full-rate filtered stream; batch
             # runs skip pulling it from the device
             return_filtered=bool(args.plot or args.plot_png),
-            device=device,
+            mesh=mesh,
+            device=dev,
         )
         table = ResultTable()
         table.append("channel", "", "%.0f")
@@ -199,7 +220,28 @@ def main(cargs=None, device=None):
         return (path, nsongs, out)
 
     status = 0
-    for r in map(process, args.files):
+    jobs = args.jobs
+    if jobs != 1 and (args.plot or args.plot_png):
+        print("-j ignored with --plot/--plot-png (matplotlib is "
+              "single-threaded)", file=sys.stderr)
+        jobs = 1
+    if args.output and len(args.files) > 1:
+        parser.error("-o names ONE output file but multiple inputs were "
+                     "given (each would overwrite it); drop -o to get "
+                     "per-file <stem>-songs.csv tables")
+    if jobs == 1 or len(args.files) <= 1:
+        results = [process(p) for p in args.files]
+    else:
+        # data-parallel across devices: one recording per device at a
+        # time, the host event logic of one file beside the device work
+        # of the others; a worker on a card runs on the card map_files
+        # made its current one, which the default device (None) is
+        work = process if device.type != "cuda" else (
+            lambda path: process(path, None))
+        results = map_files(work, args.files, devices=devices,
+                            max_workers=(jobs if jobs > 0 else None),
+                            verbose=args.verbose)
+    for r in results:
         if isinstance(r, str):
             print(f"error: {r}", file=sys.stderr)
             status = 1

@@ -6,7 +6,8 @@ The JAX package's ``FusedChainCF`` holds its design as arrays
 those as numpy values, :func:`chain_from_arrays` builds the port's module
 with exactly the same coefficients, so both packages compute with one
 design.  :func:`envdet_from_arrays` does the same for the song-detection
-envelope from its symmetric kernels and geometry.
+envelope from its symmetric kernels and geometry, and
+:func:`sharded_pipeline_from_arrays` for the JAX ``ShardedPipeline``.
 """
 
 from __future__ import annotations
@@ -18,10 +19,12 @@ from .ops.cuda.envdet import EnvDetKernel
 from .ops.design import FilterDesign, FirKernels
 from .ops.envdet import EnvDet
 from .ops.fused import FusedChainCF
+from .parallel import ShardedPipeline, make_mesh
 from .utils import resolve_device
 
-__all__ = ["ARRAY_KEYS", "DESIGN_KEYS", "ENVDET_KEYS", "chain_from_arrays",
-           "envdet_from_arrays", "node_params_from_arrays"]
+__all__ = ["ARRAY_KEYS", "DESIGN_KEYS", "ENVDET_KEYS", "SHARDED_KEYS",
+           "chain_from_arrays", "envdet_from_arrays",
+           "node_params_from_arrays", "sharded_pipeline_from_arrays"]
 
 #: the state a chain is rebuilt from
 ARRAY_KEYS = ("rate", "nfft", "hop", "env_clamp", "_h_filt", "_g_env",
@@ -32,6 +35,13 @@ ARRAY_KEYS = ("rate", "nfft", "hop", "env_clamp", "_h_filt", "_g_env",
 #: ``filtfilt_sym_kernel(design.sos, pad_to=design.fir.length)``), the
 #: decimation step, outputs per window and the window headroom
 ENVDET_KEYS = ("g_bp", "d_bp", "g_lp", "d_lp", "step", "nout", "hb")
+
+#: the state a sharded pipeline is rebuilt from: the filter's truncated
+#: impulse response (the JAX pipeline's ``filt.fir.h``, ``None`` without a
+#: filter), the envelope's symmetric kernel and delay (its ``_env_sym``,
+#: ``None`` without an envelope) and the geometry
+SHARDED_KEYS = ("rate", "h_filt", "g_env", "env_delay", "env_clamp", "nfft",
+                "hop", "spectrogram", "minmax_step")
 
 #: the leaves of a filter or envelope node's design (the JAX package's
 #: ``FilterDesign`` pytree: the SOS cascade, ``sosfilt_zi``, the
@@ -105,3 +115,19 @@ def node_params_from_arrays(node, arrays, device=None):
     return device_params(FilterDesign(sos=arr("sos"), zi0=arr("zi0"),
                                       padlen=int(arrays["padlen"]), fir=fir),
                          device)
+
+
+def sharded_pipeline_from_arrays(arrays, mesh, device=None):
+    """The port's :class:`ShardedPipeline` over ``arrays`` (a dict holding
+    :data:`SHARDED_KEYS`) on ``mesh``: a port
+    :class:`~audian_torch.parallel.Mesh`, or a ``(seq, ch)`` shape for a
+    mesh of ``seq * ch`` entries of ``device`` (the CUDA card by
+    default)."""
+    missing = set(SHARDED_KEYS) - set(arrays)
+    if missing:
+        raise KeyError(f"missing sharded pipeline arrays: {sorted(missing)}")
+    if isinstance(mesh, tuple):
+        seq, ch = mesh
+        mesh = make_mesh([resolve_device(device)] * (seq * ch), seq=seq,
+                         ch=ch)
+    return ShardedPipeline.from_arrays(mesh, arrays)

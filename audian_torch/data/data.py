@@ -14,6 +14,12 @@ The derived windows slide the same way, with a halo'd sub-window
 recomputed and stitched in (:meth:`Data._try_delta_update`).  Host code
 pulls only the slices it renders.  There is no host fallback: a CUDA
 error raises.
+
+Over a mesh (``Data(mesh=...)``) whose ``ch`` axis divides the channel
+count, every window is held as channel groups, one a device of the mesh's
+first ``seq`` row (:class:`audian_torch.parallel.ChannelShards`), and the
+graph runs group by group: the chain is channel-independent.  Reads and
+tiles give what the unsharded session gives.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from ..graph import (
     TraceSpec,
 )
 from ..ops.raw16 import dequant16
+from ..parallel.shard import ChannelShards
 from ..utils import pow2_at_least as _pow2ceil
 from ..utils import resolve_device
 from . import wavio
@@ -47,7 +54,9 @@ def _slide_window(old, new, shift):
     (``len(new) >= |shift|``, so every frame the slide exposes lies in
     ``new``).  One copy into a fresh tensor: torch refuses an in-place
     shift of a tensor onto itself, and a window handed out earlier is
-    never written."""
+    never written.  Channel-sharded windows slide group by group."""
+    if isinstance(old, ChannelShards):
+        return old.map(lambda o, nw: _slide_window(o, nw, shift), new)
     out = torch.empty_like(old)
     n, nb = old.shape[0], new.shape[0]
     if shift > 0:
@@ -64,6 +73,8 @@ def _slide_patch(old, delta, shift, pos):
     recomputed ``delta`` frames patched in at ``pos``; every frame outside
     the patch is ``old``'s (the caller checks that the patch covers the
     edge the slide exposes).  A fresh tensor, as :func:`_slide_window`."""
+    if isinstance(old, ChannelShards):
+        return old.map(lambda o, d: _slide_patch(o, d, shift, pos), delta)
     out = torch.empty_like(old)
     n, length = old.shape[0], delta.shape[0]
     out[:pos] = old[shift : shift + pos]
@@ -79,7 +90,8 @@ class Trace:
     channels, frames, shape, offset, buffer, buffer_changed, name, panel,
     color...``) plus ``__getitem__`` that serves any range, computing
     out-of-window requests on demand.  ``buffer`` is a tensor on the
-    card; reads pull only the requested slice.  Node attributes
+    card (channel groups on their devices over a mesh); reads pull only
+    the requested slice.  Node attributes
     (``nfft``, ``frequencies``, cutoffs, ...) are reachable through
     attribute delegation.
     """
@@ -310,11 +322,20 @@ class RawTrace:
 class Data:
     """Owns the raw loader plus the derived-trace DAG and drives windowed
     updates on ``device`` (the CUDA card unless the caller names another;
-    without CUDA the constructor raises)."""
+    without CUDA the constructor raises).
+
+    ``mesh`` (an :class:`audian_torch.parallel.Mesh` with a ``ch`` axis)
+    shards every window channel-wise over the devices of the mesh's first
+    ``seq`` row; ``device`` then defaults to the mesh's first device.
+    Channel counts the ``ch`` axis does not divide stay unsharded on
+    ``device``."""
 
     def __init__(self, file_path, buffer_time=60.0, back_time=20.0,
-                 follow_time=0.0, device=None, **load_kwargs):
+                 follow_time=0.0, mesh=None, device=None, **load_kwargs):
+        if device is None and mesh is not None:
+            device = mesh.devices[0, 0]
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.file_path = file_path
         self.load_kwargs = load_kwargs
         self.buffer_time = buffer_time
@@ -330,6 +351,9 @@ class Data:
         self.tafter = 0.0
         self.graph = TraceGraph()
         self.executor = None
+        # over a mesh: (c0, c1, device) per channel group and its executor
+        self._groups = None
+        self._group_executors = None
         self._traces = {}         # name -> Trace (derived only)
         self._content_epoch = {}  # trace name -> generation of its VALUES
         self._dirty = set()       # traces with stale content (hidden at
@@ -447,8 +471,22 @@ class Data:
         self.meta_data = dict(Format=self.data.format_dict())
         self.meta_data.update(self.data.metadata())
         self.start_time = wavio.get_datetime(self.meta_data)
+        self._groups = self._channel_groups()
         self._reopen_graph(reset=True)
         return self
+
+    def _channel_groups(self):
+        """``(c0, c1, device)`` per channel group over the mesh's ``ch``
+        axis, or None for an unsharded session (no mesh, or a channel
+        count the axis does not divide)."""
+        if self.mesh is None:
+            return None
+        nch = self.mesh.shape["ch"]
+        if self.channels % nch:
+            return None
+        w = self.channels // nch
+        return [(j * w, (j + 1) * w, resolve_device(self.mesh.devices[0, j]))
+                for j in range(nch)]
 
     def _reopen_graph(self, reset=False):
         """Re-derive node specs and the executor.  ``reset`` (a fresh
@@ -458,6 +496,10 @@ class Data:
         of traces mid-session keeps the existing windows instead."""
         self.tbefore, self.tafter = self.graph.open(self._raw.spec)
         self.executor = GraphExecutor(self.graph, device=self.device)
+        self._group_executors = (
+            None if self._groups is None else
+            [GraphExecutor(self.graph, device=dev)
+             for _c0, _c1, dev in self._groups])
         new = {}
         for node in self.graph.order:
             key = node.name.lower()
@@ -561,7 +603,7 @@ class Data:
         self.data.read_raw16_into(gstart, n, host.numpy())
         dev = host.to(self.device, non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
+        done.record(torch.cuda.current_stream(self.device))
         ring.append((host, done))
         return dev
 
@@ -574,10 +616,33 @@ class Data:
         decode on the host) and dequantize on the card: every such sample
         is k / 2**15, so both paths give the same values bit for bit.  Other sources upload the
         loader's float32 window (a copy: the loader recycles its
-        buffers)."""
+        buffers).  Over a mesh the upload lands on ``device`` and each
+        channel group is copied to its device from there (int16 codes
+        cross as int16) and converted there."""
         if self.data.raw16_capable:
-            return dequant16(self._upload_raw16(int(gstart), len(hbuf)))
-        return torch.tensor(np.ascontiguousarray(hbuf), device=self.device)
+            raw = self._upload_raw16(int(gstart), len(hbuf))
+        else:
+            raw = torch.tensor(np.ascontiguousarray(hbuf), device=self.device)
+
+        def floats(t):
+            return (dequant16(t) if t.dtype == torch.int16
+                    else t).contiguous()
+
+        if self._groups is None:
+            return floats(raw)
+        return ChannelShards([
+            floats(raw[:, c0:c1].to(dev, non_blocking=True))
+            for c0, c1, dev in self._groups])
+
+    def _run(self, raw, offset, targets):
+        """The executor's run over a raw window; a channel-sharded window
+        runs group by group and its outputs come back sharded alike."""
+        if not isinstance(raw, ChannelShards):
+            return self.executor.run(raw, offset, targets=targets)
+        outs = [ex.run(part, offset, targets=targets)
+                for ex, part in zip(self._group_executors, raw.parts)]
+        return {name: (off, ChannelShards([o[name][1] for o in outs]))
+                for name, (off, _arr) in outs[0].items()}
 
     def _device_raw(self):
         """Device mirror of the loader's host window.
@@ -635,7 +700,7 @@ class Data:
             tr = self._traces.get(name)
             if tr is None:
                 continue
-            if (not isinstance(tr.buffer, torch.Tensor)
+            if (not isinstance(tr.buffer, (torch.Tensor, ChannelShards))
                     or len(tr.buffer) != g.n_out
                     or name in self._dirty):
                 return False  # geometry changed / stale -> full recompute
@@ -651,7 +716,7 @@ class Data:
         if W >= cap:
             return False
         a = cap - W if rs > 0 else 0
-        out = self.executor.run(dev[a : a + W], off + a, targets=targets)
+        out = self._run(dev[a : a + W], off + a, targets)
         # every tracked trace must have produced output: a sub-window
         # shorter than a node's geometry (e.g. a huge NFFT against a small
         # scroll) yields no frames for it, and skipping the patch would
@@ -688,8 +753,7 @@ class Data:
         when there is no raw window to compute from."""
         if self.data is None or len(self.data.buffer) == 0:
             return False
-        out = self.executor.run(self._device_raw(), self.data.offset,
-                                targets=[name])
+        out = self._run(self._device_raw(), self.data.offset, [name])
         for n, (off, arr) in out.items():
             if n != RAW and n in self._traces:
                 self._traces[n]._set_window(off, arr)
@@ -742,7 +806,7 @@ class Data:
         dev = self._device_raw()
         if self._try_delta_update(dev, targets):
             return
-        out = self.executor.run(dev, self.data.offset, targets=targets)
+        out = self._run(dev, self.data.offset, targets)
         for name, (off, arr) in out.items():
             if name != RAW:
                 self._traces[name]._set_window(off, arr)

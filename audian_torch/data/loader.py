@@ -22,6 +22,7 @@ import numpy as np
 
 from . import wavio
 from .. import native
+from ..utils import trace as _trace
 from ..stream import BlockPrefetcher
 
 
@@ -233,6 +234,7 @@ class AudioLoader:
         return data
 
     def _read_raw(self, start, nframes, out=None):
+        _trace.trace_event("loader.read", start=start, frames=nframes)
         if out is None:
             out = np.empty((nframes, self.channels), self.dtype)
         pos = 0
@@ -290,6 +292,8 @@ class AudioLoader:
         if not self.raw16_capable:
             raise wavio.WavError("raw16 reads need all-PCM-16-WAV or "
                                  "16-bit-FLAC sources without unwrap")
+        _trace.trace_event("loader.read_raw16", start=start,
+                           frames=nframes)
         start = max(0, min(int(start), self.frames))
         nframes = max(0, min(int(nframes), self.frames - start))
         pos = 0

@@ -24,6 +24,7 @@ import torch
 
 from ..ops.raw16 import dequant16
 from ..utils import resolve_device
+from ..utils import trace as _trace
 from .graph import RAW, TraceGraph
 from .nodes import device_params
 
@@ -147,14 +148,22 @@ class GraphExecutor:
         if nodes is None:
             nodes = [n for n in self.graph.order if n.name.lower() in plan]
             self._plans[key] = nodes
-        raw = dequant16(raw) if raw.dtype == torch.int16 else raw.to(
-            torch.float32)
-        bufs = {RAW: (int(raw_offset), raw)}
-        for node in nodes:
-            g = plan[node.name.lower()]
-            src = bufs[node.source_name.lower()][1][g.rel_s0 : g.rel_s1]
-            bufs[node.name.lower()] = (
-                g.o0, node.compute(src, g.lead, g.n_out, self._params(node)))
+            _trace.trace_event("graph.build", frames=raw_frames,
+                               nodes=",".join(sorted(plan)))
+        params = {node.name.lower(): self._params(node) for node in nodes}
+        # the structured replacement for the reference's per-chunk print
+        # (`src/audian/buffereddata.py:92`); it times the launches
+        with _trace.timed("graph.run", offset=int(raw_offset),
+                          frames=raw_frames, nodes=len(plan)):
+            raw = dequant16(raw) if raw.dtype == torch.int16 else raw.to(
+                torch.float32)
+            bufs = {RAW: (int(raw_offset), raw)}
+            for node in nodes:
+                g = plan[node.name.lower()]
+                src = bufs[node.source_name.lower()][1][g.rel_s0 : g.rel_s1]
+                bufs[node.name.lower()] = (
+                    g.o0, node.compute(src, g.lead, g.n_out,
+                                       params[node.name.lower()]))
         if pull:
             return {k: (off, arr.cpu().numpy()) for k, (off, arr)
                     in bufs.items()}

@@ -1,6 +1,7 @@
 """Chain presets: the named processing chains of audian.  Each builds the
-trace nodes of the interactive graph (:meth:`ChainPreset.nodes`) and the
-matching batch chain (:meth:`ChainPreset.fused`), so interactive and batch
+trace nodes of the interactive graph (:meth:`ChainPreset.nodes`), the
+matching batch chain (:meth:`ChainPreset.fused`) and the mesh-sharded
+pipeline (:meth:`ChainPreset.sharded`), so interactive, batch and sharded
 runs of one analysis agree by construction."""
 
 from __future__ import annotations
@@ -8,8 +9,9 @@ from __future__ import annotations
 import dataclasses
 
 from .graph import EnvelopeNode, FilterNode, SpectrogramNode
-from .ops.design import design_envelope_filter, design_filter
+from .ops.design import FilterDesign, design_envelope_filter, design_filter
 from .ops.fused import FusedChainCF
+from .parallel import ShardedPipeline
 
 __all__ = ["ChainPreset", "PRESETS", "get_preset"]
 
@@ -56,6 +58,23 @@ class ChainPreset:
         hop = max(int(round((1 - self.overlap_frac) * self.nfft)), 1)
         return FusedChainCF(rate, filt_sos=filt, env_sos=env,
                             nfft=self.nfft, hop=hop, eps=eps, device=device)
+
+    def sharded(self, mesh, rate, eps=1e-7, minmax_step=None):
+        """The matching mesh-sharded pipeline (on the devices of
+        ``mesh``).  Its designs use the default truncation; ``eps`` is
+        accepted as the JAX package's ``sharded`` accepts it, and has no
+        effect there either."""
+        filt = design_filter(rate, self.highpass_cutoff,
+                             self.lowpass_cutoff, self.filter_order)
+        env = (design_envelope_filter(rate, self.envelope_cutoff)
+               if self.envelope_cutoff else None)
+        hop = max(int(round((1 - self.overlap_frac) * self.nfft)), 1)
+        return ShardedPipeline(
+            mesh, rate,
+            filt=None if filt is None else FilterDesign.from_sos(filt),
+            env=None if env is None else FilterDesign.from_sos(env),
+            nfft=self.nfft, hop=hop, minmax_step=minmax_step,
+        )
 
 
 PRESETS = {

@@ -20,8 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SMEM_LIMIT", "build_dir", "check", "load_library",
-           "ptxas_report"]
+__all__ = ["SMEM_LIMIT", "build_dir", "check", "count_launch",
+           "load_library", "ptxas_report"]
 
 #: shared memory one block may use on Hopper (232,448 bytes); above 48 KB
 #: the launchers opt in with cudaFuncSetAttribute
@@ -55,6 +55,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+#: guards the wrappers' launch counters, which threads share
+_count_lock = threading.Lock()
 
 
 def _sources():
@@ -143,3 +145,10 @@ def check(code, what):
     if code != 0:
         msg = load_library().audian_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def count_launch(wrapper):
+    """Add one to ``wrapper.launches`` (thread-safe: the per-device
+    workers of :func:`audian_torch.parallel.map_files` launch at once)."""
+    with _count_lock:
+        wrapper.launches += 1

@@ -28,7 +28,7 @@ from ...utils import resolve_device, round_up
 from ..raw16 import dequant16
 from ..sos import _fir_valid_cf, full_fp32
 from ..stft import frame_signal
-from ._build import SMEM_LIMIT, check, load_library
+from ._build import SMEM_LIMIT, check, count_launch, load_library
 
 __all__ = ["ALL_OUTPUTS", "ChainKernel", "chain", "chain_plain",
            "split_tf32"]
@@ -281,7 +281,8 @@ def chain_plain(ck, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
 def chain(ck, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
     """The single-pass chain of ``ck`` over ``x_ext = [hb | n | ha...]``.
 
-    A CUDA tensor runs the kernel (counted in ``chain.launches``); a CPU
+    A CUDA tensor runs the kernel on its own device (counted in
+    ``chain.launches``); a CPU
     tensor runs :func:`chain_plain`.  ``outputs`` is the static mask: a
     stage not requested is neither computed nor written, returns ``None``
     and reports zero stats.
@@ -318,16 +319,19 @@ def chain(ck, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
     pp, gp = empty(C, ntiles), empty(C, ntiles)
     qp = empty(C, ntiles, ck.nbins)
     lib = load_library()
-    code = lib.chain_launch(
-        x_ext.data_ptr(), int(x_ext.dtype == torch.int16), xlen, C, n,
-        ck.h_split.data_ptr(), len(ck.h), ck.g_split.data_ptr(), len(ck.g),
-        ck.delay, ck.lead, ck.tail, ck.hb, ck.ws_pairs.data_ptr(), ck.nfft,
-        int(ck.env_clamp), int(want_f), int(want_e), int(want_s),
-        0 if y is None else y.data_ptr(), 0 if e is None else e.data_ptr(),
-        0 if s is None else s.data_ptr(), pp.data_ptr(), gp.data_ptr(),
-        qp.data_ptr(), torch.cuda.current_stream(x_ext.device).cuda_stream)
+    # launched on the tensor's device: the current device may be another
+    with torch.cuda.device(x_ext.device):
+        code = lib.chain_launch(
+            x_ext.data_ptr(), int(x_ext.dtype == torch.int16), xlen, C, n,
+            ck.h_split.data_ptr(), len(ck.h), ck.g_split.data_ptr(),
+            len(ck.g), ck.delay, ck.lead, ck.tail, ck.hb,
+            ck.ws_pairs.data_ptr(), ck.nfft, int(ck.env_clamp), int(want_f),
+            int(want_e), int(want_s), 0 if y is None else y.data_ptr(),
+            0 if e is None else e.data_ptr(),
+            0 if s is None else s.data_ptr(), pp.data_ptr(), gp.data_ptr(),
+            qp.data_ptr(), torch.cuda.current_stream(x_ext.device).cuda_stream)
     check(code, "chain")
-    chain.launches += 1
+    count_launch(chain)
     return _result(y, e, s, stats, pp.sum(dim=1), gp.sum(dim=1),
                    qp.sum(dim=1))
 

@@ -27,7 +27,7 @@ from ...utils import round_up
 from ..envdet import EnvDetDesign, _float_window
 from ..raw16 import dequant16
 from ..sos import _fir_valid_cf, full_fp32
-from ._build import SMEM_LIMIT, check, load_library
+from ._build import SMEM_LIMIT, check, count_launch, load_library
 from .chain import _split_taps
 
 __all__ = ["EnvDetKernel", "envdet", "envdet_plain", "geometry",
@@ -175,13 +175,16 @@ def envdet(ed, xw):
     env = torch.empty((C, ed.nout), dtype=torch.float32, device=xw.device)
     if C == 0:
         return env.T
-    code = load_library().envdet_launch(
-        x.data_ptr(), int(x.dtype == torch.int16), W, C,
-        ed.bp_split.data_ptr(), ed.lb, ed.d_bp, ed.lp_split.data_ptr(),
-        ed.ll, ed.d_lp, ed.step, ed.nout, ed.hb, ed.tile, env.data_ptr(),
-        torch.cuda.current_stream(xw.device).cuda_stream)
+    lib = load_library()
+    # launched on the tensor's device: the current device may be another
+    with torch.cuda.device(xw.device):
+        code = lib.envdet_launch(
+            x.data_ptr(), int(x.dtype == torch.int16), W, C,
+            ed.bp_split.data_ptr(), ed.lb, ed.d_bp, ed.lp_split.data_ptr(),
+            ed.ll, ed.d_lp, ed.step, ed.nout, ed.hb, ed.tile, env.data_ptr(),
+            torch.cuda.current_stream(xw.device).cuda_stream)
     check(code, "envdet")
-    envdet.launches += 1
+    count_launch(envdet)
     return env.T
 
 

@@ -22,7 +22,7 @@ import torch
 
 from ..raw16 import dequant16
 from ..sos import full_fp32
-from ._build import check, load_library
+from ._build import check, count_launch, load_library
 
 __all__ = ["PREMAPS", "window_matmul", "window_matmul_plain"]
 
@@ -120,13 +120,15 @@ def window_matmul(x, w, stride, nframes, premap=None, out_layout="fco"):
     # w split into its TF32 parts, padded, for this call
     scratch = torch.empty(lib.window_matmul_scratch_words(K, O),
                           dtype=torch.int32, device=x.device)
-    code = lib.window_matmul_launch(
-        x.data_ptr(), int(x.dtype == torch.int16), n, C, w.data_ptr(), K, O,
-        S, nframes, PREMAPS.index(premap), _LAYOUTS.index(out_layout),
-        y.data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    # launched on the tensor's device: the current device may be another
+    with torch.cuda.device(x.device):
+        code = lib.window_matmul_launch(
+            x.data_ptr(), int(x.dtype == torch.int16), n, C, w.data_ptr(), K,
+            O, S, nframes, PREMAPS.index(premap), _LAYOUTS.index(out_layout),
+            y.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
     check(code, "window_matmul")
-    window_matmul.launches += 1
+    count_launch(window_matmul)
     return y.reshape(C, nframes * O) if out_layout == "cf" else y
 
 

@@ -26,7 +26,7 @@ from .cuda.window_matmul import window_matmul
 from .sos import _toeplitz_bank_np
 from .stft import _dft_matrices, hann_window, one_sided_doubling
 
-__all__ = ["FusedChainCF", "design_arrays"]
+__all__ = ["FusedChainCF", "design_arrays", "kernel_arrays"]
 
 
 def design_arrays(rate, filt_sos=None, env_sos=None, env_clamp=True,
@@ -37,20 +37,34 @@ def design_arrays(rate, filt_sos=None, env_sos=None, env_clamp=True,
     kernel ``_g_env`` with its delay and bank ``env_w``, and the analysis
     matrix ``spec_w`` (periodic Hann, density scale and one-sided doubling
     folded in)."""
+    h = g = None
+    delay = 0
+    if filt_sos is not None:
+        h = design.impulse_response(
+            filt_sos, design.effective_impulse_length(filt_sos, eps))
+    if env_sos is not None:
+        g, delay = design.filtfilt_sym_kernel(env_sos, eps=eps)
+    return kernel_arrays(rate, h, g, delay, env_clamp, nfft, hop, block)
+
+
+def kernel_arrays(rate, h_filt=None, g_env=None, env_delay=0,
+                  env_clamp=True, nfft=256, hop=128, block=128):
+    """:func:`design_arrays` over given kernels: the causal filter
+    response ``h_filt`` and the symmetric envelope kernel ``g_env`` of
+    group delay ``env_delay`` (either may be None)."""
     rate = float(rate)
     nfft = int(nfft)
     a = {"rate": rate, "nfft": nfft, "hop": int(hop),
          "env_clamp": bool(env_clamp), "_h_filt": None, "filt_w": None,
          "_g_env": None, "env_w": None, "env_delay": 0}
-    if filt_sos is not None:
-        h = design.impulse_response(
-            filt_sos, design.effective_impulse_length(filt_sos, eps))
+    if h_filt is not None:
+        h = np.asarray(h_filt, np.float64)
         a["_h_filt"] = h
         a["filt_w"] = _toeplitz_bank_np(h.astype(np.float32), block).T
-    if env_sos is not None:
-        g, delay = design.filtfilt_sym_kernel(env_sos, eps=eps)
+    if g_env is not None:
+        g = np.asarray(g_env, np.float64)
         a["_g_env"] = g
-        a["env_delay"] = int(delay)
+        a["env_delay"] = int(env_delay)
         a["env_w"] = _toeplitz_bank_np(g.astype(np.float32), block).T
     nbins = nfft // 2 + 1
     win = hann_window(nfft, np.float64)

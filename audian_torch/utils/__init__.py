@@ -1,4 +1,4 @@
-"""Shared small helpers."""
+"""Shared small helpers; structured tracing lives in :mod:`.trace`."""
 
 import torch
 

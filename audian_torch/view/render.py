@@ -9,7 +9,12 @@ widths, columns on a global grid), so a scroll reuses the cached columns
 and pulls only the newly exposed ones.
 
 Slices follow ``lax.dynamic_slice`` (:func:`_dslice`): a start that would
-run past the end is clamped so the slice keeps its width.
+run past the end is clamped so the slice keeps its width.  A
+channel-sharded window (:class:`audian_torch.parallel.ChannelShards`, a
+``Data`` session over a mesh) is tiled group by group where each group
+lies, and the pulled pieces join along the channel axis
+(:func:`pull_groups`).  Every pull is a ``render.pull`` trace event
+(:mod:`audian_torch.utils.trace`).
 """
 
 from __future__ import annotations
@@ -20,12 +25,14 @@ import numpy as np
 import torch
 
 from ..ops.sweep import db_normalize
+from ..parallel.shard import ChannelShards, channel_shards
 from ..utils import pow2_at_least as _pow2_at_least
 from ..utils import resolve_device
+from ..utils import trace as _trace
 
 __all__ = ["SpecTiler", "TraceTiler", "mean_power_db_slice",
            "noise_level_stats", "pick_amplitude", "power_value",
-           "window_extrema"]
+           "pull_groups", "window_extrema"]
 
 
 def _dslice(buf, start, width):
@@ -79,6 +86,14 @@ def _slice_tile_i16(buf, start, width):
 
 def _pull(t):
     return t.cpu().numpy()
+
+
+def pull_groups(buf, fn, axis=1):
+    """``fn(tensor, c0, c1)`` over each channel group ``[c0, c1)`` of a
+    window (the whole window for a tensor), each computed where its group
+    lies, pulled, and joined along the result's channel ``axis``."""
+    parts = [_pull(fn(t, c0, c1)) for c0, c1, t in channel_shards(buf)]
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=axis)
 
 
 def _delta_columns(cache, key, trace, buf, g0, w, unit, r, fetch, hi_g,
@@ -138,8 +153,9 @@ def _device_buffer(trace, device):
     device: the tilers compute where the window lies and never copy a
     window to another device."""
     buf = trace.buffer
-    if not isinstance(buf, torch.Tensor) or buf.device.type != device.type:
-        where = buf.device if isinstance(buf, torch.Tensor) else type(buf)
+    windows = (torch.Tensor, ChannelShards)
+    if not isinstance(buf, windows) or buf.device.type != device.type:
+        where = buf.device if isinstance(buf, windows) else type(buf)
         raise ValueError(f"the trace window lies on {where}, the tiler "
                          f"works on {device}")
     return buf
@@ -180,7 +196,9 @@ class TraceTiler:
 
         def fetch(gs, wc):
             args = (gs - boff, step, wc) if minmax else (gs - boff, wc)
-            raw = _pull(kernel(buf, *args))
+            raw = pull_groups(buf, lambda t, *_: kernel(t, *args))
+            _trace.trace_event("render.pull", op=kernel.__name__,
+                               bytes=raw.nbytes)
             return _unpack_scaled_i16(raw) if self.quantize else raw
 
         key = (kernel.__name__, id(trace), step, g0 % step)
@@ -292,9 +310,10 @@ def window_extrema(trace, t0, t1, channel):
     key = (id(buf), i0, i1)
     hit = _extrema_cache.get(key)
     if hit is None or hit[0]() is not buf:
-        part = buf[i0:i1]
-        stats = _pull(torch.stack([torch.amin(part, dim=0),
-                                   torch.amax(part, dim=0)]))
+        stats = pull_groups(buf, lambda t, *_: torch.stack(
+            [torch.amin(t[i0:i1], dim=0), torch.amax(t[i0:i1], dim=0)]))
+        _trace.trace_event("render.pull", op="window_extrema",
+                           bytes=stats.nbytes)
         for k in [k for k, v in _extrema_cache.items() if v[0]() is None]:
             _extrema_cache.pop(k, None)
         if len(_extrema_cache) > 64:
@@ -324,6 +343,8 @@ def power_value(trace, i, channel, j):
     hit = _power_block_cache.get(key)
     if hit is None or hit[0]() is not buf:
         block = _pull(buf[start : start + wb, channel])
+        _trace.trace_event("render.pull", op="power_block",
+                           bytes=block.nbytes)
         for k in [k for k, v in _power_block_cache.items()
                   if v[0]() is None]:
             _power_block_cache.pop(k, None)
@@ -444,13 +465,16 @@ class SpecTiler:
         if levels is not None:
             levels = np.asarray(levels, np.float32)
             boff = trace.offset
-            zmins = torch.as_tensor(levels[:, 0], device=buf.device)
-            zmaxs = torch.as_tensor(levels[:, 1], device=buf.device)
 
             def fetch(gs, wc):
-                return _pull(_db_tile_slice_all(buf, gs - boff, zmins, zmaxs,
-                                                wc * pool, bool(quantize),
-                                                pool))
+                stack = pull_groups(buf, lambda t, c0, c1: _db_tile_slice_all(
+                    t, gs - boff,
+                    torch.as_tensor(levels[c0:c1, 0], device=t.device),
+                    torch.as_tensor(levels[c0:c1, 1], device=t.device),
+                    wc * pool, bool(quantize), pool))
+                _trace.trace_event("render.pull", op="db_tile_all",
+                                   bytes=stack.nbytes)
+                return stack
 
             # delta reuse across scrolls (one column = ``pool`` frames):
             # a one-bucket scroll pulls only the newly exposed columns
@@ -464,6 +488,8 @@ class SpecTiler:
             img = _pull(_db_tile_slice(buf, s2, channel, float(zmin),
                                        float(zmax), wb, bool(quantize),
                                        pool))
+            _trace.trace_event("render.pull", op="db_tile",
+                               bytes=img.nbytes)
         img = img[(i0 - s2) // pool : -(-(i1 - s2) // pool)]
         i0 = s2 + ((i0 - s2) // pool) * pool
         i1 = min(i0 + img.shape[0] * pool, s2 + wb)

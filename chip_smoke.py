@@ -137,6 +137,26 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     CSV) and the song viewer's envelope key (envdet launched, the
     envelope held against the exact path); otherwise one line says so.
     No kernel lies on the Qt path.
+15. the multi-device paths, every mesh entry the one card (``cuda:0``
+    four times): ``ChainPreset("bioacoustics").sharded`` over a
+    ``seq=4`` mesh on a 10 min x 16 ch x 96 kHz PCM-16 WAV read as int16
+    codes through ``AudioLoader.read_raw16_into`` (chain launched):
+    filtered, envelope and min/max equal the ``seq=1`` mesh's within
+    1e-5, the PSD within 1e-4 relative, 2 s of channel 0 across the first
+    shard edge against scipy float64; a ``seq=2 x ch=2`` mesh and the
+    per-stage ``ultrasound`` preset (window_matmul launched) give the
+    same outputs.  ``band_env(..., mesh=)`` over 4 shards on phase 8's
+    recording and on the 10 min one, within 1e-5 (relative) of the
+    chunked driver, envdet launched once per shard; ``--mesh 4`` says
+    it runs single-device and writes phase 8's CSV; ``-j 4`` on four
+    90 s recordings writes ``-j 1``'s CSVs with envdet's launches equal;
+    a ``DataBrowser`` channel-sharded over ``seq=1 x ch=4`` on phase 10's
+    recording, 20 pages, its reads within 1e-5 and its tiles within 1e-4
+    of an unsharded browser's; ``utils.trace`` around one page and one
+    detect; ``entry.dryrun_multichip(4)``.  Times: the pipeline per
+    recording hour at seq=1 and seq=4 (and from codes on the card),
+    sharded against chunked detect, ``-j 4`` against ``-j 1``, a meshed
+    page against an unsharded one.
 
 Phase 4 starts with both TF32 flags on and checks that they are still on
 after it: the port scopes full float32 to its own calls.
@@ -152,7 +172,10 @@ true-tap operations in three TF32 passes at 495 TFLOP/s, or the bytes at
 3.35 TB/s, whichever is larger.
 Chain and envdet also carry ``flac_launches``, their launches on the FLAC
 runs of phase 13, and envdet ``viewer_launches``, its launches on the song
-viewer's envelope keys of phase 14.
+viewer's envelope keys of phase 14.  Every kernel carries
+``multidevice_launches``, its launches on phase 15's paths: chain on the
+seq=4 bioacoustics pipeline, window_matmul on the seq=4 ultrasound one,
+envdet on the two sharded detect calls.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -2069,6 +2092,431 @@ def mpl_phase(card, dev, work, path, song):
           f"{err:.3e}  [{card}]")
 
 
+# -- phase 15: the multi-device paths -----------------------------------------
+
+MD_SECONDS = 600         # the pipeline's and detect's long recording
+MD_SHARDS = 4            # mesh entries, all on the one card
+MD_MINMAX = 128          # the pipeline's overview step
+MD_PAGES = 20            # meshed session pages
+TOL_MD_TILE = 1e-4
+TOL_MD_PSD_RTOL = 1e-4
+
+
+def pipeline_outputs_equal(got, want, label):
+    """Two sharded pipelines' outputs: filtered, envelope and minmax within
+    1e-5, the PSD within 1e-4 relative (1e-9 absolute).  Returns the
+    largest absolute error of the first three."""
+    require(set(got) == set(want), f"{label}: keys {set(got)} {set(want)}")
+    err = 0.0
+    for key in want:
+        require(got[key].shape == want[key].shape,
+                f"{label}: {key} shape {tuple(got[key].shape)}")
+        if key == "spectrogram":
+            bad = int(((got[key] - want[key]).abs()
+                       > 1e-9 + TOL_MD_PSD_RTOL * want[key].abs()).sum())
+            require(bad == 0, f"{label}: {bad} PSD bins off")
+        else:
+            e = max_abs(got[key], want[key])
+            require(e <= TOL_FILTERED, f"{label}: {key} {e}")
+            err = max(err, e)
+    return err
+
+
+def timed_pipeline(pipe, x, counters):
+    """One warm-up run, then the timed one (host clock, ended by a
+    synchronize) with the launch counters zeroed just before it and read
+    just after.  Returns ``(outputs, seconds, launches)``."""
+    pipe(x)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    a = time.perf_counter()
+    out = pipe(x)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - a
+    return out, secs, {k: c.launches for k, c in counters.items()}
+
+
+def slice_of_pipeline_vs_scipy(out, pcm, edge, label):
+    """The 2 s of channel 0 around frame ``edge`` (a shard edge) against
+    scipy float64 (the bioacoustics designs, 1 s of lead-in and lead-out
+    on each side): filtered and envelope within 1e-5, the PSD within
+    0.013 dB."""
+    from audian_torch.ops.design import design_envelope_filter, design_filter
+
+    a0, a1 = edge - int(RATE), edge + int(RATE)
+    m = int(RATE)
+    x64 = pcm[a0 - m : a1 + m, 0].astype(np.float64) / 32768.0
+    ys = sps.sosfilt(design_filter(RATE, 2000.0, 40000.0), x64)
+    es = np.maximum(sps.sosfiltfilt(design_envelope_filter(RATE, 500.0),
+                                    (np.pi / 2) * np.abs(ys)), 0.0)
+    ys, es = ys[m:-m], es[m:-m]
+    ey = float(np.abs(out["filtered"][a0:a1, 0].cpu().numpy() - ys).max())
+    ee = float(np.abs(out["envelope"][a0:a1, 0].cpu().numpy() - es).max())
+    hop, nfft = 128, 256
+    f0, f1 = -(-a0 // hop), (a1 - nfft) // hop
+    _, _, sx = sps.spectrogram(
+        ys[f0 * hop - a0 : (f1 - 1) * hop + nfft - a0], fs=RATE,
+        window="hann", nperseg=nfft, noverlap=nfft - hop, detrend=False,
+        scaling="density", mode="psd")
+    sdb = psd_db_err(out["spectrogram"][f0:f1, 0].cpu(),
+                     torch.from_numpy(sx.T))
+    require(ey <= TOL_FILTERED and ee <= TOL_ENVELOPE and sdb <= TOL_PSD_DB,
+            f"{label} vs scipy: {ey} {ee} {sdb} dB")
+    return ey, ee, sdb
+
+
+def shard_kernel_calls(pipe, x, dev):
+    """The kernel calls of one chunk of a sharded pipeline, all channels:
+    the first chunk of shard 1 (across the first shard edge), its window
+    built by the pipeline's own ``shard_window`` and run through the
+    pipeline's shard-local step.  Returns ``[(name, args, kwargs)]``."""
+    from audian_torch.ops import fused
+    from audian_torch.ops.cuda.chain import ChainKernel
+
+    n, c = x.shape
+    L = pipe.padded_length(n) // pipe.mesh.shape["seq"]
+    k = min(pipe.chunk, L)
+    win = pipe.shard_window(x, L, k, 0, c, dev)
+    calls = []
+    real_wm, real_ck = fused.window_matmul, ChainKernel.__call__
+
+    def wm(*args, **kw):
+        calls.append(("window_matmul", args, kw))
+        return real_wm(*args, **kw)
+
+    def ck(self, *args, **kw):
+        calls.append(("chain", (self,) + args, kw))
+        return real_ck(self, *args, **kw)
+
+    fused.window_matmul, ChainKernel.__call__ = wm, ck
+    try:
+        pipe._local(pipe.chain(dev), win, k)
+    finally:
+        fused.window_matmul, ChainKernel.__call__ = real_wm, real_ck
+    torch.cuda.synchronize()
+    return calls
+
+
+def hold_shard_kernels(pipe, x, dev, label):
+    """Each kernel call of one shard chunk (:func:`shard_kernel_calls`)
+    against its plain version on the same inputs: window_matmul within
+    1e-5 of its output's scale (phase 2's tolerance), the chain at
+    ``check_chain``'s.  Returns ``{kernel: (calls, max abs err)}``."""
+    from audian_torch.ops.cuda.window_matmul import (window_matmul,
+                                                     window_matmul_plain)
+
+    held = {}
+    for name, args, kw in shard_kernel_calls(pipe, x, dev):
+        if name == "chain":
+            ck, x_ext, n = args
+            err, _got = check_chain(ck, x_ext, n, f"{label} chain, "
+                                    f"{x_ext.shape[0]} ch x {n}")
+            del _got
+        else:
+            got = window_matmul(*args, **kw)
+            want = window_matmul_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = max_abs(got, want)
+            scale = float(want.abs().max())
+            xw, w, S, nfr = args[:4]
+            what = (f"{label} window_matmul K={w.shape[0]} O={w.shape[1]} "
+                    f"S={S} frames={nfr} premap={kw.get('premap')} "
+                    f"{tuple(xw.shape)} {xw.dtype}")
+            require(err <= TOL_WINDOW * scale, f"{what}: {err}")
+            print(f"  {what}: max_abs_err {err:.3e} (scale {scale:.3e})")
+            del got, want
+        calls, worst = held.get(name, (0, 0.0))
+        held[name] = (calls + 1, max(worst, err))
+    return held
+
+
+def md_page_tiles(b):
+    """A meshed-session check's refresh: the filtered min/max tile and the
+    float dB tile of every channel."""
+    return ({c: b.trace_tile("filtered", c) for c in range(b.data.channels)},
+            {c: b.spec_tile(c) for c in range(b.data.channels)})
+
+
+def multidevice_phase(card, dev, tmp, path, song):
+    """Phase 15: the multi-device paths on the one card, every mesh entry
+    ``dev``.  Returns each kernel's launches on its multi-device path
+    (counters zeroed just before, read just after)."""
+    import contextlib
+    import io
+
+    from audian_torch.analysis import events
+    from audian_torch.app import DataBrowser
+    from audian_torch.cli import songdetector
+    from audian_torch.data.loader import AudioLoader
+    from audian_torch.entry import dryrun_multichip
+    from audian_torch.models import get_preset
+    from audian_torch.ops.cuda.chain import chain
+    from audian_torch.ops.cuda.envdet import envdet
+    from audian_torch.ops.cuda.window_matmul import window_matmul
+    from audian_torch.parallel import ChannelShards, make_mesh
+    from audian_torch.utils import trace
+
+    counters = {"chain": chain, "window_matmul": window_matmul,
+                "envdet": envdet}
+    mesh4 = make_mesh([dev] * MD_SHARDS, seq=MD_SHARDS)
+    mesh1 = make_mesh([dev], seq=1)
+    launches = {}
+
+    # -- the sharded pipeline on 10 min x 16 ch, read as int16 codes
+    print(f"phase 15: multi-device paths ({MD_SHARDS} mesh entries on "
+          f"{dev}); the pipeline on a {MD_SECONDS} s x {C} ch x 96 kHz "
+          f"PCM-16 WAV")
+    wav = os.path.join(tmp, "long.wav")
+    scipy.io.wavfile.write(wav, int(RATE),
+                           interactive_recording(MD_SECONDS, C, dev))
+    ld = AudioLoader(wav, prefetch=False)
+    require(ld.raw16_capable, "the long WAV reads as int16 codes")
+    pcm = np.empty((ld.frames, ld.channels), np.int16)
+    ld.read_raw16_into(0, ld.frames, pcm)
+    ld.close()
+    n = pcm.shape[0]
+    hour = 3600.0 / MD_SECONDS
+    bio = get_preset("bioacoustics")
+    p1 = bio.sharded(mesh1, RATE, minmax_step=MD_MINMAX)
+    p4 = bio.sharded(mesh4, RATE, minmax_step=MD_MINMAX)
+    require(p4.takes_chain_kernel(p4.chain(dev)),
+            "the bioacoustics shards take the chain kernel")
+    out1, s1, l1 = timed_pipeline(p1, pcm, counters)
+    out4, s4, l4 = timed_pipeline(p4, pcm, counters)
+    # the same run from codes already on the card, and the upload alone
+    a = time.perf_counter()
+    codes = torch.from_numpy(pcm).to(dev)
+    torch.cuda.synchronize()
+    s_up = time.perf_counter() - a
+    _o, s4d, _l = timed_pipeline(p4, codes, counters)
+    del _o
+    # where the device time of that run goes
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        a = time.perf_counter()
+        p4(codes)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - a
+    by_kernel = sorted(
+        ((e.self_device_time_total, e.key) for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.self_device_time_total > 0), reverse=True)
+    busy_s = sum(t for t, _ in by_kernel) / 1e6
+    del codes
+    require(l4["chain"] > 0 and l1["chain"] > 0,
+            f"chain launched on the sharded pipeline: {l4} {l1}")
+    launches["chain"] = l4["chain"]
+    e4 = pipeline_outputs_equal(out4, out1, "seq=4 vs seq=1")
+    require(out4["filtered"].shape == (n, C), "filtered (n_pad, C)")
+    edge = p4.padded_length(n) // MD_SHARDS
+    ey, ee, sdb = slice_of_pipeline_vs_scipy(out4, pcm, edge, "seq=4")
+    del out4
+    held = hold_shard_kernels(p4, pcm, dev, f"bioacoustics seq={MD_SHARDS} "
+                              f"shard 1 chunk 0:")
+    require(set(held) == {"chain"} and held["chain"][0] == 1,
+            f"one chain call a bioacoustics shard chunk: {held}")
+    print(f"  bioacoustics seq={MD_SHARDS} == seq=1 (max {e4:.3e}, PSD "
+          f"within {TOL_MD_PSD_RTOL} relative); 2 s of ch 0 across the "
+          f"first shard edge vs scipy: filtered {ey:.3e} envelope {ee:.3e} "
+          f"psd {sdb:.3e} dB; launches seq={MD_SHARDS} {l4}, seq=1 {l1}")
+    print(f"  pipeline seconds per recording hour (host clock, upload of "
+          f"the int16 codes included): seq=1 {s1 * hour:.4f}  "
+          f"seq={MD_SHARDS} {s4 * hour:.4f}; seq={MD_SHARDS} from codes "
+          f"on the card {s4d * hour:.4f}, the pageable upload alone "
+          f"{s_up * hour:.4f}  [{card}]")
+    if busy_s > 0:
+        print(f"  seq={MD_SHARDS} from codes on the card under the profiler: "
+              f"wall {prof_wall:.4f} s, device busy {busy_s:.4f} s "
+              f"({100 * busy_s / prof_wall:.1f} %); by kernel (ms):")
+        for t, key in by_kernel[:6]:
+            print(f"    {t / 1e3:10.4f}  {key[:90]}")
+    else:
+        print("  pipeline device busy share: not measured (the profiler "
+              "recorded no device time)")
+    p22 = bio.sharded(make_mesh([dev] * 4, seq=2, ch=2), RATE,
+                      minmax_step=MD_MINMAX)
+    e22 = pipeline_outputs_equal(p22(pcm), out1, "seq=2 x ch=2 vs seq=1")
+    del out1
+    us = get_preset("ultrasound")
+    u1 = us.sharded(mesh1, RATE, minmax_step=MD_MINMAX)
+    u4 = us.sharded(mesh4, RATE, minmax_step=MD_MINMAX)
+    require(not u4.takes_chain_kernel(u4.chain(dev)),
+            "ultrasound takes the per-stage path")
+    uo1, us1, _ = timed_pipeline(u1, pcm, counters)
+    uo4, us4, lu = timed_pipeline(u4, pcm, counters)
+    require(lu["window_matmul"] > 0 and lu["chain"] == 0,
+            f"window_matmul launched on the per-stage shards: {lu}")
+    launches["window_matmul"] = lu["window_matmul"]
+    eu = pipeline_outputs_equal(uo4, uo1, "ultrasound seq=4 vs seq=1")
+    del uo1, uo4
+    held = hold_shard_kernels(u4, pcm, dev, f"ultrasound seq={MD_SHARDS} "
+                              f"shard 1 chunk 0:")
+    require(set(held) == {"window_matmul"}
+            and held["window_matmul"][0] == 3,
+            f"three window_matmul calls an ultrasound shard chunk: {held}")
+    print(f"  seq=2 x ch=2 == seq=1 (max {e22:.3e}); ultrasound seq="
+          f"{MD_SHARDS} == seq=1 (max {eu:.3e}), launches {lu}; seconds "
+          f"per recording hour seq=1 {us1 * hour:.4f}  seq={MD_SHARDS} "
+          f"{us4 * hour:.4f}  [{card}]")
+    torch.cuda.empty_cache()
+
+    # -- sequence-sharded detect
+    spcm, rows = song
+    for label, rec in ((f"{DETECT_SECONDS} s planted songs", spcm),
+                       (f"{MD_SECONDS} s", pcm)):
+        args = (rec, RATE, *DETECT_BAND, DETECT_ENV)
+        _f, exact, er = events.band_env(*args, return_filtered=False)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        a = time.perf_counter()
+        _f, sharded, er2 = events.band_env(*args, return_filtered=False,
+                                           mesh=mesh4)
+        torch.cuda.synchronize()
+        t_sh = time.perf_counter() - a
+        ld_ = {k: c.launches for k, c in counters.items()}
+        a = time.perf_counter()
+        events.band_env(*args, return_filtered=False, fused=True)
+        torch.cuda.synchronize()
+        t_ch = time.perf_counter() - a
+        require(er == er2 and sharded.shape == exact.shape,
+                f"{label}: sharded detect shape {sharded.shape}")
+        rel = float(np.abs(sharded - exact).max()) / float(
+            np.abs(exact).max())
+        require(rel < TOL_DETECT, f"{label}: sharded detect {rel}")
+        require(ld_ == {"chain": 0, "window_matmul": 0,
+                        "envdet": MD_SHARDS},
+                f"{label}: envdet once per shard: {ld_}")
+        launches["envdet"] = launches.get("envdet", 0) + ld_["envdet"]
+        print(f"  detect envelope, {label}: sharded over {MD_SHARDS} vs the "
+              f"chunked exact path {rel:.3e} relative; envdet launched "
+              f"{ld_['envdet']} times; wall sharded {1e3 * t_sh:.3f} ms, "
+              f"chunked (the CLI's decimating path) {1e3 * t_ch:.3f} ms  "
+              f"[{card}]")
+    del pcm
+    swav = os.path.join(tmp, "songs15.wav")
+    scipy.io.wavfile.write(swav, int(RATE), spcm)
+    csv = os.path.join(tmp, "mesh.csv")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = songdetector.main([swav, "--mesh", "4", "-o", csv])
+    with open(csv) as f:
+        got = [line.strip().split(",") for line in f if line.strip()]
+    require(rc == 0 and got == rows, "--mesh 4 writes phase 8's CSV")
+    require(err.getvalue().strip() == "--mesh 4: only 1 device(s) "
+            "available, running single-device", f"--mesh: {err.getvalue()}")
+    print(f"  audian-songdetector --mesh 4: \"{err.getvalue().strip()}\", "
+          f"phase 8's CSV")
+
+    # -- -j 4 against -j 1 on four recordings
+    files = []
+    for k, rec in enumerate((spcm, spcm[:, ::-1],
+                             np.roll(spcm, int(4 * RATE), axis=0),
+                             np.roll(spcm[:, ::-1], int(2 * RATE), axis=0))):
+        files.append(os.path.join(tmp, f"batch{k}.wav"))
+        scipy.io.wavfile.write(files[-1], int(RATE),
+                               np.ascontiguousarray(rec))
+    runs = {}
+    for jobs in ("1", "4"):
+        torch.cuda.synchronize()
+        envdet.launches = 0
+        a = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = songdetector.main(["-j", jobs, *files])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - a
+        require(rc == 0, f"-j {jobs} exit status {rc}")
+        tables = []
+        for f in files:
+            out = f[:-4] + "-songs.csv"
+            with open(out) as fh:
+                tables.append(fh.read())
+            os.remove(out)
+        runs[jobs] = (wall, envdet.launches, tables)
+    require(runs["4"][2] == runs["1"][2], "-j 4 writes -j 1's CSVs")
+    require(runs["4"][1] == runs["1"][1] > 0,
+            f"envdet launches -j 4 {runs['4'][1]}, -j 1 {runs['1'][1]}")
+    print(f"  -j 4 on {len(files)} x {DETECT_SECONDS} s x {C} ch: -j 1's "
+          f"CSVs, envdet launched {runs['4'][1]} times in each; wall -j 1 "
+          f"{runs['1'][0]:.3f} s, -j 4 {runs['4'][0]:.3f} s  [{card}]")
+    del spcm
+
+    # -- the meshed session against the unsharded one
+    bm = DataBrowser(path, mesh=make_mesh([dev] * 4, seq=1, ch=4))
+    b1 = DataBrowser(path, device=dev)
+    lat = {"mesh": [], "one": []}
+    worst = [0.0, 0.0]
+    try:
+        for b in (bm, b1):
+            b.open()
+            md_page_tiles(b)
+        for page in range(MD_PAGES):
+            for key, b in (("mesh", bm), ("one", b1)) if page % 2 else (
+                    ("one", b1), ("mesh", bm)):
+                torch.cuda.synchronize()
+                a = time.perf_counter()
+                b.time_page_down()
+                tiles = md_page_tiles(b)
+                torch.cuda.synchronize()
+                lat[key].append(time.perf_counter() - a)
+                if key == "mesh":
+                    tm = tiles
+                else:
+                    t1 = tiles
+            require(isinstance(bm.data["filtered"].buffer, ChannelShards)
+                    and len(bm.data["filtered"].buffer.parts) == 4,
+                    "the meshed window is held in 4 channel groups")
+            i0 = int(bm.toffset * RATE)
+            i1 = i0 + int(bm.twindow * RATE)
+            for name in ("data", "filtered"):
+                e = float(np.abs(np.asarray(bm.data[name][i0:i1])
+                                 - np.asarray(b1.data[name][i0:i1])).max())
+                require(e <= TOL_WINDOW, f"page {page}: meshed {name} {e}")
+                worst[0] = max(worst[0], e)
+            for c in range(C):
+                (ta, va), (tb, vb) = tm[0][c], t1[0][c]
+                (ia, ra), (ib, rb) = tm[1][c], t1[1][c]
+                require(np.array_equal(ta, tb) and ra == rb
+                        and va.shape == vb.shape and ia.shape == ib.shape,
+                        f"page {page}: tile geometry, channel {c}")
+                e = max(float(np.abs(va - vb).max()),
+                        float(np.abs(ia - ib).max()))
+                require(e <= TOL_MD_TILE, f"page {page}: meshed tiles, "
+                        f"channel {c}: {e}")
+                worst[1] = max(worst[1], e)
+        # tracing around one page and one detect
+        trace.clear()
+        trace.enable(log=False)
+        b1.time_page_down()
+        md_page_tiles(b1)
+        events.detect(song[0], RATE, *DETECT_BAND, DETECT_ENV,
+                      return_filtered=False)
+        trace.disable()
+        summary = trace.summary()
+        trace.clear()
+    finally:
+        bm.close()
+        b1.close()
+    pm, p1_ = pcts(lat["mesh"]), pcts(lat["one"])
+    print(f"  meshed session (seq=1 x ch=4) on the {IA_SECONDS} s x {C} ch "
+          f"WAV, {MD_PAGES} pages: reads within {worst[0]:.3e}, tiles "
+          f"within {worst[1]:.3e} of the unsharded browser; a page with "
+          f"its tiles p50 {pm[0]:.3f} / p95 {pm[1]:.3f} ms meshed, "
+          f"{p1_[0]:.3f} / {p1_[1]:.3f} ms unsharded  [{card}]")
+    print(f"  trace summary of one page and one detect: "
+          f"{json.dumps(summary, sort_keys=True)}")
+    require({"render.pull", "detect.upload", "detect.chunk"}
+            <= set(summary), f"trace kinds {set(summary)}")
+
+    a = time.perf_counter()
+    dryrun_multichip(MD_SHARDS)
+    print(f"  dryrun_multichip({MD_SHARDS}) passed in "
+          f"{time.perf_counter() - a:.2f} s  [{card}]")
+    return launches
+
+
 def main():
     # -- phase 0: the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -2681,6 +3129,7 @@ def main():
         flac_launches = flac_phase(card, dev, tmp, path8, det_codes, bio)
         del det_codes
         viewer_launches = frontend_phase(card, dev, tmp, path, path8, song)
+        md_launches = multidevice_phase(card, dev, tmp, path, song)
     del song
 
     wm_bound = bound(wm_flop, wm_bytes)
@@ -2695,14 +3144,16 @@ def main():
          "launches": launches["chain"], "max_abs_err": chain_err,
          "ms": ch_ms, "plain_ms": ch_plain_ms, "bound_ms": ch_bound[0],
          "bound_by": ch_bound[1], "bound_tc_ms": ch_bound_tc,
-         "library_ms": None, "flac_launches": flac_launches["chain"]},
+         "library_ms": None, "flac_launches": flac_launches["chain"],
+         "multidevice_launches": md_launches["chain"]},
         {"name": "window_matmul", "route": "cuda",
          "source": "audian_torch/csrc/window_matmul.cu",
          "replaces": "audian_tpu/ops/pallas/window_matmul.py:41",
          "launches": launches["window_matmul"], "max_abs_err": wm_err,
          "ms": wm_ms, "plain_ms": wm_plain_ms, "bound_ms": wm_bound[0],
          "bound_by": wm_bound[1], "bound_tc_ms": wm_bound_tc,
-         "library_ms": wm_lib_ms},
+         "library_ms": wm_lib_ms,
+         "multidevice_launches": md_launches["window_matmul"]},
         {"name": "envdet", "route": "cuda",
          "source": "audian_torch/csrc/envdet.cu",
          "replaces": "audian_tpu/ops/pallas/envdet.py:64",
@@ -2710,7 +3161,8 @@ def main():
          "ms": env_ms, "plain_ms": env_plain_ms, "bound_ms": env_bound[0],
          "bound_by": env_bound[1], "bound_tc_ms": env_bound_tc,
          "library_ms": None, "flac_launches": flac_launches["envdet"],
-         "viewer_launches": viewer_launches},
+         "viewer_launches": viewer_launches,
+         "multidevice_launches": md_launches["envdet"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

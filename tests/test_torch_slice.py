@@ -34,6 +34,7 @@ from audian_torch.convert import (ARRAY_KEYS, chain_from_arrays,
 from audian_torch.data import AudioLoader, Data
 from audian_torch.data import wavio as twav
 from audian_torch.data.wavio import read_frames_raw16, wav_info
+from audian_torch.entry import dryrun_multichip
 from audian_torch.entry import entry as torch_entry
 from audian_torch.graph import GraphExecutor, SpectrogramNode, TraceGraph
 from audian_torch.models import get_preset
@@ -47,6 +48,7 @@ from audian_torch.ops.cuda.window_matmul import window_matmul
 from audian_torch.ops.design import FilterDesign, filtfilt_sym_kernel
 from audian_torch.ops.envdet import EnvDet
 from audian_torch.ops.fused import FusedChainCF, design_arrays
+from audian_torch.parallel import ShardedPipeline, make_mesh, sharded_band_env
 
 REPO = Path(__file__).resolve().parents[1]
 RATE = 48000.0
@@ -131,7 +133,10 @@ def test_port_imports_no_jax():
         "assert {'audian_torch.native', 'audian_torch.data.flac',"
         " 'audian_torch.cli.compress', 'audian_torch.app.screenshot',"
         " 'audian_torch.gui', 'audian_torch.gui.qt', 'audian_torch.gui.mpl',"
-        " 'audian_torch.gui.songplot', 'audian_torch.cli.audian'}"
+        " 'audian_torch.gui.songplot', 'audian_torch.cli.audian',"
+        " 'audian_torch.parallel.pipeline', 'audian_torch.parallel.detect',"
+        " 'audian_torch.parallel.batch', 'audian_torch.utils.trace',"
+        " 'audian_torch.ops.envelope'}"
         " <= set(names), names\n"
         "from audian_torch import native\n"
         "from audian_torch.ops.cuda import _build\n"
@@ -215,6 +220,26 @@ def _wav():
     return str(path)
 
 
+@functools.lru_cache(maxsize=None)
+def _wavs():
+    """Two 0.5 s mono PCM-16 WAVs for ``-j``."""
+    tmp = Path(tempfile.mkdtemp())
+    for k in range(2):
+        twav.write_audio(tmp / f"entry{k}.wav", _SIGNAL[:4000], 8000.0)
+    return [str(tmp / f"entry{k}.wav") for k in range(2)]
+
+
+def _mesh(d, seq=2, ch=1):
+    """A mesh of ``seq * ch`` entries of ``d``; every CUDA device for
+    ``d=None``."""
+    return make_mesh(None if d is None else [d] * (seq * ch), seq=seq, ch=ch)
+
+
+def _sharded_band_env(d):
+    fd, ed = _envdet_designs()
+    return sharded_band_env(_mesh(d), fd, ed, _SIGNAL, 4)
+
+
 def _overview(d):
     ft = FullTraceData(AudioLoader(_wav()), device=d)
     ft.data.update_time(0.0, 0.5)
@@ -264,6 +289,15 @@ ENTRY_POINTS = {
     "audian_cli": lambda d: audian_cli(["-f", "500", _wav()],
                                        device=d).load_files(),
     "FullTraceData": _overview,
+    "ChainPreset.sharded": lambda d: get_preset("bioacoustics").sharded(
+        _mesh(d), 96000.0, minmax_step=128)(_SIGNAL),
+    "ShardedPipeline": lambda d: ShardedPipeline(
+        _mesh(d, 1, 2), RATE, filt=_envdet_designs()[0])(
+            np.zeros((4096, 3), np.float32)),
+    "sharded_band_env": _sharded_band_env,
+    "map_files": lambda d: songdetector.main(["-j", "2", *_wavs()],
+                                             device=d),
+    "dryrun_multichip": lambda d: dryrun_multichip(2, device=d),
 }
 
 

@@ -2,13 +2,15 @@
 the CPU: the same PCM-16 recording gives the same CSV table (both with the
 same small ``_CHUNK``, so interior chunks take the decimating envelope),
 and so do PCM-24 and float recordings, read through the port's
-``AudioLoader``; ``-c`` writes the same configuration, malformed config
-values warn and keep the defaults, and what the port cannot read or run
-yet (``-j``, ``--mesh``) stops with a message that names it.  The viewer
-options ``-p`` / ``--plot-png`` are held in ``test_torch_songplot.py``."""
+``AudioLoader``, and runs with ``-j`` and ``--mesh``; ``-c`` writes the
+same configuration, malformed config values warn and keep the defaults,
+and what the port cannot read stops with a message that names it.  The
+viewer options ``-p`` / ``--plot-png`` are held in
+``test_torch_songplot.py``."""
 
 import numpy as np
 import pytest
+import torch
 
 from audian_tpu.analysis import events as jev
 from audian_tpu.cli import songdetector as jcli
@@ -156,11 +158,69 @@ def test_unreadable_input_names_the_loader(tmp_path, capsys, kind):
 
 
 @pytest.mark.parametrize("args", [["-j", "2"], ["--mesh", "4"]])
-def test_unported_options_stop_with_a_message(tmp_path, capsys, args):
-    path = tmp_path / "rec.wav"
-    jwav.write_audio(path, _recording(nsongs=1), RATE, encoding="PCM_16")
-    with pytest.raises(SystemExit) as e:
-        tcli.main([*args, str(path)], device="cpu")
-    assert e.value.code == 2
+def test_unported_options_stop_with_a_message(tmp_path, capsys, small_chunks,
+                                              args):
+    """The two options the port once refused, now working (the name is
+    kept from then): ``-j 2`` over two recordings and ``--mesh 4`` write
+    the JAX CLI's CSVs (the JAX run spreads the files over, or shards
+    each recording across, its virtual CPU devices); on the CPU the port
+    has one distinct device, so ``--mesh`` says it runs single-device
+    (:func:`test_mesh_shards_over_four_devices_as_jax` shards)."""
+    paths = []
+    for k in range(2):
+        path = tmp_path / f"rec{k}.wav"
+        jwav.write_audio(path, _recording(nsongs=2 + k, seed=12 + k), RATE,
+                         encoding="PCM_16")
+        paths.append(str(path))
+    assert jcli.main([*args, *paths]) == 0
+    capsys.readouterr()
+    want = [(tmp_path / f"rec{k}-songs.csv").read_text() for k in range(2)]
+    for k in range(2):
+        (tmp_path / f"rec{k}-songs.csv").unlink()
+    assert tcli.main([*args, *paths], device="cpu") == 0
     err = capsys.readouterr().err
-    assert "not ported to audian_torch yet" in err and "ROADMAP" in err
+    got = [(tmp_path / f"rec{k}-songs.csv").read_text() for k in range(2)]
+    assert got == want
+    assert [len(t.strip().splitlines()) for t in got] == [1 + 2 * 2,
+                                                         1 + 2 * 3]
+    if args[0] == "--mesh":
+        assert err.strip() == ("--mesh 4: only 1 device(s) available, "
+                               "running single-device")
+
+
+def test_mesh_shards_over_four_devices_as_jax(tmp_path, capsys, small_chunks,
+                                              monkeypatch):
+    """``--mesh 4`` with four devices at hand (the CPU four times) takes
+    the CLI's sharded branch: each recording's envelope comes from the
+    sequence-sharded detect, and the CSVs equal the JAX CLI's sharded
+    run's."""
+    from audian_torch.parallel import detect as tdetect
+
+    monkeypatch.setattr(tcli, "local_devices",
+                        lambda device=None: [torch.device("cpu")] * 4)
+    sharded = []
+    real = tdetect.sharded_band_env
+
+    def spy(mesh, *args):
+        env = real(mesh, *args)
+        sharded.append((mesh.shape["seq"], env is not None))
+        return env
+
+    monkeypatch.setattr(tdetect, "sharded_band_env", spy)
+    paths = []
+    for k in range(2):
+        path = tmp_path / f"rec{k}.wav"
+        jwav.write_audio(path, _recording(nsongs=2 + k, seed=12 + k), RATE,
+                         encoding="PCM_16")
+        paths.append(str(path))
+    assert jcli.main(["--mesh", "4", *paths]) == 0
+    want = [(tmp_path / f"rec{k}-songs.csv").read_text() for k in range(2)]
+    for k in range(2):
+        (tmp_path / f"rec{k}-songs.csv").unlink()
+    capsys.readouterr()
+    assert tcli.main(["--mesh", "4", "-v", *paths], device="cpu") == 0
+    out, err = capsys.readouterr()
+    assert "sequence-sharding over 4 devices" in out and err == ""
+    assert sharded == [(4, True)] * 2
+    got = [(tmp_path / f"rec{k}-songs.csv").read_text() for k in range(2)]
+    assert got == want
