@@ -3,9 +3,11 @@
 Minimal, dependency-free stand-in for ``thunderlab.tabledata.TableData``
 as the reference's analyzers use it (`src/audian/analyzer.py:10,86,170-183`
 and the results-table consumption at `src/audian/databrowser.py:1777-1857`):
-labeled/united/formatted columns, row-wise appends, CSV export.  A copy of
-``audian_tpu/analysis/table.py`` (pure Python, without its pandas export),
-so that the port imports nothing of the JAX package.
+labeled/united/formatted columns, row-wise appends, CSV export and a
+pandas ``DataFrame``.  A copy of ``audian_tpu/analysis/table.py`` (pure
+Python; pandas is imported only by :meth:`ResultTable.to_dataframe`), so
+that the port imports nothing of the JAX package and loads without
+pandas.
 """
 
 from __future__ import annotations
@@ -100,3 +102,12 @@ class ResultTable:
             for i in range(len(self.rows)):
                 w.writerow(self.formatted(i))
         return path
+
+    def to_dataframe(self):
+        """The rows as a ``pandas.DataFrame``, a column per label."""
+        import pandas as pd
+
+        return pd.DataFrame(
+            {l: [r[j] for r in self.rows]
+             for j, l in enumerate(self.labels)}
+        )

@@ -2,8 +2,9 @@
 
 The JAX package's ``FusedChainCF`` holds its design as arrays
 (``_h_filt``, ``_g_env``, ``env_delay``, ``spec_w``, ``filt_w``,
-``env_w``) plus ``rate``, ``nfft``, ``hop`` and ``env_clamp``.  Given
-those as numpy values, :func:`chain_from_arrays` builds the port's module
+``env_w``) plus ``rate``, ``nfft``, ``hop`` and ``env_clamp``, and in its
+"ifir" envelope mode the factored banks (:data:`IFIR_KEYS`).  Given those
+as numpy values, :func:`chain_from_arrays` builds the port's module
 with exactly the same coefficients, so both packages compute with one
 design.  :func:`envdet_from_arrays` does the same for the song-detection
 envelope from its symmetric kernels and geometry, and
@@ -22,13 +23,19 @@ from .ops.fused import FusedChainCF
 from .parallel import ShardedPipeline, make_mesh
 from .utils import resolve_device
 
-__all__ = ["ARRAY_KEYS", "DESIGN_KEYS", "ENVDET_KEYS", "SHARDED_KEYS",
+__all__ = ["ARRAY_KEYS", "DESIGN_KEYS", "ENVDET_KEYS", "IFIR_KEYS",
+           "SHARDED_KEYS",
            "chain_from_arrays", "envdet_from_arrays",
            "node_params_from_arrays", "sharded_pipeline_from_arrays"]
 
 #: the state a chain is rebuilt from
 ARRAY_KEYS = ("rate", "nfft", "hop", "env_clamp", "_h_filt", "_g_env",
               "env_delay", "spec_w", "filt_w", "env_w")
+
+#: the state an "ifir" envelope adds (the JAX chain's attributes when its
+#: ``env_mode`` is "ifir"; ``env_w`` is then ``None``)
+IFIR_KEYS = ("env_mode", "ifir_M", "ifir_Lg", "env_halo", "env_i_w",
+             "env_g_w")
 
 #: the state a song-detection envelope is rebuilt from: the symmetric
 #: band-pass and envelope kernels with their delays (the JAX package's
@@ -53,27 +60,41 @@ DESIGN_KEYS = ("sos", "zi0", "padlen", "h", "state_out", "input_state", "A",
 
 def chain_from_arrays(arrays, device=None):
     """The port's :class:`FusedChainCF` over ``arrays`` (a dict holding
-    :data:`ARRAY_KEYS`; a missing design is ``None``) on ``device`` (the
-    CUDA card by default)."""
-    missing = set(ARRAY_KEYS) - set(arrays)
+    :data:`ARRAY_KEYS`, and :data:`IFIR_KEYS` when its ``env_mode`` is
+    "ifir"; a missing design is ``None``) on ``device`` (the CUDA card by
+    default)."""
+    ifir = arrays.get("env_mode") == "ifir"
+    missing = set(ARRAY_KEYS + (IFIR_KEYS if ifir else ())) - set(arrays)
     if missing:
         raise KeyError(f"missing chain arrays: {sorted(missing)}")
 
     def arr(k, dtype):
-        v = arrays[k]
+        v = arrays.get(k)
         return None if v is None else np.asarray(v, dtype)
 
+    g = arr("_g_env", np.float64)
+    if ifir:
+        env = {"env_mode": "ifir", "ifir_M": int(arrays["ifir_M"]),
+               "ifir_Lg": int(arrays["ifir_Lg"]),
+               "env_halo": int(arrays["env_halo"])}
+    else:
+        env = {"env_mode": None if g is None else "dense",
+               "ifir_M": None, "ifir_Lg": None,
+               "env_halo": 0 if g is None else len(g) - 1}
     return FusedChainCF.from_arrays({
+        **env,
         "rate": float(arrays["rate"]),
         "nfft": int(arrays["nfft"]),
         "hop": int(arrays["hop"]),
         "env_clamp": bool(arrays["env_clamp"]),
         "_h_filt": arr("_h_filt", np.float64),
-        "_g_env": arr("_g_env", np.float64),
+        "_g_env": g,
         "env_delay": int(arrays["env_delay"]),
         "spec_w": arr("spec_w", np.float32),
         "filt_w": arr("filt_w", np.float32),
         "env_w": arr("env_w", np.float32),
+        "env_i_w": arr("env_i_w", np.float32),
+        "env_g_w": arr("env_g_w", np.float32),
     }, device=device)
 
 

@@ -3,8 +3,9 @@
 Filter design is small, data-independent work that stays on the host; only
 the data path runs on the device.  This is the numpy counterpart of
 ``audian_tpu/ops/design.py``: Butterworth design, the cascade's state-space
-form, and the truncated impulse and state responses behind the FIR
-execution of :mod:`audian_torch.ops.sos` and the fused chain.
+form, the truncated impulse and state responses behind the FIR
+execution of :mod:`audian_torch.ops.sos` and the fused chain, and the
+interpolated-FIR factors of the fused chain's two-stage envelope.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ __all__ = [
     "filtfilt_padlen",
     "filtfilt_sym_kernel",
     "fir_kernels",
+    "ifir_factor",
+    "ifir_factor_auto",
     "impulse_response",
     "sos_initial_conditions",
     "sos_pole_radius",
@@ -251,3 +254,73 @@ class FilterDesign:
             fir=fir_kernels(sos, eps=eps, max_len=max_len, pad_to=pad_to,
                             pad_to_pow2=True),
         )
+
+
+def ifir_factor(kernel, M=8, Li=None, Lg=None, iters=200):
+    """Interpolated-FIR factorization ``kernel ≈ conv(i, upsample(g, M))``.
+
+    The envelope's smoothing kernel is a very narrow low-pass (500 Hz at
+    96 kHz is 1 % of Nyquist) some 1.1 k taps long; convolving with it
+    costs ``2·len(kernel)`` operations a sample.  The interpolated FIR
+    (Neuvo, Dong and Mitra 1984) replaces it with a short full-rate image
+    suppressor ``i`` followed by the model filter ``g`` at stride ``M``
+    (zero-stuffed), which runs on the phase-major stream without the
+    zeros.
+
+    The factors are fit to the given (truncated) kernel by alternating
+    least squares in float64, so the error is measured at design time:
+    ``err`` is the L1 error, which bounds the worst-case output error for
+    unit-peak input.  Returns ``(i, g, err)`` with
+    ``len(i) + (len(g)-1)*M >= len(kernel)``.
+    """
+    k = np.asarray(kernel, np.float64)
+    L = len(k)
+    M = int(M)
+    if Li is None:
+        Li = 12 * M + 1
+    if Lg is None:
+        Lg = -(-(L - Li) // M) + 3
+    n = Li + (Lg - 1) * M
+    tgt = np.zeros(n)
+    tgt[:L] = k
+    # start from a windowed-sinc image suppressor at the first image
+    t = np.arange(Li) - (Li - 1) / 2
+    i = np.sinc(t / M) * np.hamming(Li)
+    i /= i.sum()
+    g = None
+    prev = None
+    for _ in range(iters):
+        A = np.zeros((n, Lg))
+        for j in range(Lg):
+            A[j * M : j * M + Li, j] = i
+        g, *_ = np.linalg.lstsq(A, tgt, rcond=None)
+        B = np.zeros((n, Li))
+        for j in range(Lg):
+            B[j * M : j * M + Li, :] += g[j] * np.eye(Li)
+        i, *_ = np.linalg.lstsq(B, tgt, rcond=None)
+        r = float(np.abs(B @ i - tgt).sum())
+        if prev is not None and abs(prev - r) < 1e-13:
+            break
+        prev = r
+    A = np.zeros((n, Lg))
+    for j in range(Lg):
+        A[j * M : j * M + Li, j] = i
+    err = float(np.abs(A @ g - tgt).sum())
+    return i, g, err
+
+
+def ifir_factor_auto(kernel, tol, phases=(16, 8, 4), taps=(12, 18, 26)):
+    """The most aggressive IFIR factorization within ``tol``: strides
+    ``M`` from large to small, image suppressors of ``taps[k]*M + 1``
+    from short to long; the first ``(i, g, M, err)`` with L1 error
+    ``<= tol``, or ``None`` when even the gentlest misses (the caller
+    keeps the dense kernel)."""
+    k = np.asarray(kernel, np.float64)
+    for M in phases:
+        if len(k) < 24 * M:
+            continue
+        for t in taps:
+            i, g, err = ifir_factor(k, M=M, Li=t * M + 1)
+            if err <= tol:
+                return i, g, M, err
+    return None

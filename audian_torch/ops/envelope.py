@@ -4,10 +4,10 @@ The counterpart of ``audian_tpu/ops/envelope.py`` (reference behavior,
 `src/audian/bufferedenvelope.py:34-41`): rectify and scale by pi/2 (the
 mean of ``|sin|`` is 2/pi, so a unit-amplitude tone maps to a unit
 envelope), smooth with a zero-phase low/band-pass, and clamp negatives to
-zero in the pure-lowpass case.  The JAX function smooths on the
-associative-scan ``sosfiltfilt``, which the port does not carry; here the
-smoother is the FIR path with scipy's edge semantics
-(:func:`audian_torch.ops.sos.sosfiltfilt_fir`).
+zero in the pure-lowpass case.  As in the JAX function the smoother is
+the exact ``sosfiltfilt`` (:func:`audian_torch.ops.sos.sosfiltfilt`, the
+blocked state-space form), which in float32 holds scipy float64 as
+closely as the truncated-FIR path does.
 """
 
 from __future__ import annotations
@@ -17,8 +17,7 @@ import math
 import torch
 
 from ..utils import on_device
-from .design import FilterDesign
-from .sos import sosfiltfilt_fir
+from .sos import sosfiltfilt
 
 __all__ = ["envelope"]
 
@@ -38,17 +37,14 @@ def envelope(x, sos, clamp_negative=True, padlen=None, axis=0,
     clamp_negative : clamp the result at zero (the reference does this only
         when no envelope-highpass is set).
     padlen : the odd edge extension (scipy's default when ``None``).
-    block_size : the JAX scan's block length; accepted, and without effect
-        on the FIR path.
+    block_size : samples the smoother filters at once (its memory bound).
     """
     x = on_device(x, device).to(torch.float32)
     if sos is None:
         return torch.zeros_like(x)
-    design = FilterDesign.from_sos(sos)
     rect = (math.pi / 2) * torch.abs(x)
-    env = sosfiltfilt_fir(design.fir, rect, design.zi0,
-                          design.padlen if padlen is None else int(padlen),
-                          axis=axis)
+    env = sosfiltfilt(sos, rect, axis=axis, padlen=padlen,
+                      block_size=block_size)
     if clamp_negative:
         env = torch.clamp_min(env, 0.0)
     return env

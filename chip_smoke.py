@@ -156,7 +156,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     detect; ``entry.dryrun_multichip(4)``.  Times: the pipeline per
     recording hour at seq=1 and seq=4 (and from codes on the card),
     sharded against chunked detect, ``-j 4`` against ``-j 1``, a meshed
-    page against an unsharded one.
+    page against an unsharded one;
+16. the interpolated-FIR envelope: ``FusedChainCF(ifir=True)`` at the
+    bioacoustics envelope (500 Hz, eps 1e-7) on one headline chunk
+    (16 ch x 2^22 float32): two window_matmul launches, each held against
+    its plain version at its shapes, the envelope against the dense one
+    (3e-6) and an interior slice against scipy float64 (1e-5); CUDA-event
+    times of the envelope, its two launches, its two relayouts and the
+    dense envelope; then the exact IIR filters on 60 s x 16 ch float32:
+    ``sosfilt`` (2-40 kHz) whole and in three chunks with the state
+    carried, ``sosfiltfilt`` and ``envelope``, two channels against scipy
+    float64, with host-clock times beside the FIR path's.
 
 Phase 4 starts with both TF32 flags on and checks that they are still on
 after it: the port scopes full float32 to its own calls.
@@ -175,7 +185,9 @@ runs of phase 13, and envdet ``viewer_launches``, its launches on the song
 viewer's envelope keys of phase 14.  Every kernel carries
 ``multidevice_launches``, its launches on phase 15's paths: chain on the
 seq=4 bioacoustics pipeline, window_matmul on the seq=4 ultrasound one,
-envdet on the two sharded detect calls.
+envdet on the two sharded detect calls.  window_matmul also carries
+``ifir_launches`` and ``ifir_ms``, its launches on phase 16's IFIR
+envelope of one headline chunk and that envelope's time.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -403,6 +415,290 @@ def song_recording(rng, seconds):
         x[i0:i1] += (0.5 * am * np.sin(2 * np.pi * carriers * t)).astype(
             np.float32)
     return np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
+
+
+# -- phase 16: the IFIR envelope and the exact IIR filters -------------------
+
+IFIR_ENV = 500.0         # Hz, the bioacoustics envelope
+IFIR_EPS = 1e-7
+TOL_IFIR_DENSE = 3e-6    # tests/test_fused.py:69-81, the JAX IFIR budget
+TOL_IFIR_SCIPY = 1e-5
+IFIR_SLICE = (1 << 21, 1 << 16)   # start, length of the scipy slice
+IFIR_MARGIN = 1 << 14    # samples scipy filters on each side of the slice
+IIR_SECONDS = 60         # the interactive window's size
+IIR_CHUNKS = (1_900_001, 3_700_003)   # where the three sosfilt chunks start
+IIR_CHANNELS = (0, 9)    # channels held against scipy float64
+# float32 against float32 in other block alignments, and against scipy
+# float64: a few float32 steps at unit scale (the CPU tests' budgets)
+TOL_IIR_CHUNKED = 1e-6
+TOL_IIR_SCIPY = 1e-6
+TOL_IIRFF_SCIPY = 2e-6
+
+
+def ifir_stages(fc, y):
+    """The stages of ``fc``'s IFIR envelope of ``y``, as
+    ``FusedChainCF._envelope_ifir_cf`` runs them: each window_matmul's
+    arguments, and the relayouts between them as functions."""
+    C, n = y.shape
+    B, M = fc.block, fc.ifir_M
+    n_pad = -(-n // M) * M
+    n_u = n_pad + (fc.ifir_Lg - 1) * M
+    Q, q_out = n_u // M, n_pad // M
+    xp = torch.nn.functional.pad(y, (fc.env_halo,
+                                     fc.env_delay + n_pad - n))
+    a_args = (xp, fc.env_i_w, B, -(-n_u // B), "rectify", "cf")
+
+    def to_pm(u):
+        return u[:, :n_u].reshape(C, Q, M).transpose(1, 2).reshape(C * M, Q)
+
+    def from_pm(e_pm):
+        e = e_pm[:, :q_out].reshape(C, M, q_out).transpose(1, 2)
+        return e.reshape(C, n_pad)[:, :n]
+
+    return a_args, to_pm, (fc.env_g_w, B, -(-q_out // B), None, "cf"), \
+        from_pm
+
+
+def ifir_phase(card, dev):
+    """Phase 16a: ``FusedChainCF(ifir=True)``'s envelope of one headline
+    chunk.  Returns window_matmul's launches on it (counter zeroed just
+    before, read just after) and its CUDA-event time."""
+    from audian_torch.ops.cuda.window_matmul import (window_matmul,
+                                                     window_matmul_plain)
+    from audian_torch.ops.design import design_envelope_filter
+    from audian_torch.ops.fused import FusedChainCF
+
+    print(f"phase 16: the IFIR envelope ({IFIR_ENV:g} Hz at {RATE:g} Hz, "
+          f"eps {IFIR_EPS:g}) at {C} ch x {CHUNK} float32")
+    env = design_envelope_filter(RATE, IFIR_ENV)
+    a = time.perf_counter()
+    fi = FusedChainCF(RATE, env_sos=env, eps=IFIR_EPS, ifir=True,
+                      device=dev)
+    fit_s = time.perf_counter() - a
+    dense = FusedChainCF(RATE, env_sos=env, eps=IFIR_EPS, device=dev)
+    require(fi.env_mode == "ifir" and dense.env_mode == "dense",
+            f"modes {fi.env_mode} {dense.env_mode}")
+    B, M, Lg = fi.block, fi.ifir_M, fi.ifir_Lg
+    Li = fi.env_i_w.shape[0] - B + 1
+    L = len(fi._g_env)
+    # the float32 factors' L1 error against the float64 kernel
+    i = fi.env_i_w[:, 0].flip(0)[B - 1:].double().cpu().numpy()
+    g = fi.env_g_w[:, 0].flip(0)[B - 1:].double().cpu().numpy()
+    up = np.zeros((Lg - 1) * M + 1)
+    up[::M] = g
+    kern = np.convolve(i, up)
+    fit_err = float(np.abs(kern[:L] - fi._g_env).sum() + np.abs(kern[L:]).sum())
+    print(f"  M {M}  Li {Li}  Lg {Lg}  (dense kernel {L} taps); the fit "
+          f"took {fit_s:.2f} s on the host, L1 error of the float32 factors "
+          f"{fit_err:.3e}")
+    macs_dense, macs_ifir = L, Li + Lg
+    bank_dense = dense.env_w.shape[0]
+    bank_ifir = fi.env_i_w.shape[0] + fi.env_g_w.shape[0]
+    print(f"  multiply-adds a sample: dense {macs_dense} taps ({bank_dense} "
+          f"in its bank), ifir {macs_ifir} taps ({bank_ifir} in its two "
+          f"banks): {macs_dense / macs_ifir:.2f}x ({bank_dense / bank_ifir:.2f}x"
+          f" of the banks)")
+
+    gen = torch.Generator().manual_seed(SEED + 16)
+    t = torch.arange(CHUNK, dtype=torch.float64) / RATE
+    tone = torch.sin(2 * math.pi * 5000.0 * t) * (
+        torch.sin(2 * math.pi * 3.0 * t) > 0)
+    y = (0.4 * tone + 0.05 * torch.randn((C, CHUNK), generator=gen,
+                                         dtype=torch.float64))
+    y = y.to(torch.float32).to(dev)
+    window_matmul.launches = 0
+    e = fi.envelope_cf(y)
+    torch.cuda.synchronize()
+    launches = window_matmul.launches
+    require(launches == 2, f"the IFIR envelope launches window_matmul "
+            f"twice, {launches}")
+    require(e.shape == y.shape and bool(torch.isfinite(e).all()),
+            f"IFIR envelope shape {tuple(e.shape)}")
+    # each window_matmul call against its plain version, at its shapes
+    a_args, to_pm, b_args, from_pm = ifir_stages(fi, y)
+    u = window_matmul(*a_args[:4], premap=a_args[4], out_layout=a_args[5])
+    u_pm = to_pm(u)
+    e_pm = window_matmul(u_pm, *b_args[:3], premap=b_args[3],
+                         out_layout=b_args[4])
+    err = 0.0
+    for label, args, got in (("stage A", a_args, u),
+                             ("stage B", (u_pm,) + b_args, e_pm)):
+        want = window_matmul_plain(*args[:4], premap=args[4],
+                                   out_layout=args[5])
+        torch.cuda.synchronize()
+        d = max_abs(got, want)
+        scale = float(want.abs().max())
+        require(d <= TOL_WINDOW * scale, f"IFIR {label} {d} (scale {scale})")
+        err = max(err, d)
+        print(f"  {label}: x {tuple(args[0].shape)} K={args[1].shape[0]} "
+              f"O={args[1].shape[1]} S={args[2]} frames={args[3]} "
+              f"max_abs_err {d:.3e} (scale {scale:.3e})")
+    require(torch.equal(torch.clamp_min(from_pm(e_pm), 0.0), e),
+            "the stages give envelope_cf's result")
+    ed = dense.envelope_cf(y)
+    dd = max_abs(e, ed)
+    require(dd <= TOL_IFIR_DENSE, f"IFIR against dense {dd}")
+    lo, n_s = IFIR_SLICE
+    seg = y[list(IIR_CHANNELS), lo - IFIR_MARGIN : lo + n_s + IFIR_MARGIN]
+    env64 = sps.sosfiltfilt(env, (np.pi / 2) * np.abs(
+        seg.double().cpu().numpy()), axis=1)
+    env64 = np.maximum(env64[:, IFIR_MARGIN : IFIR_MARGIN + n_s], 0.0)
+    got = e[list(IIR_CHANNELS), lo : lo + n_s].double().cpu().numpy()
+    ds = float(np.abs(got - env64).max())
+    require(ds <= TOL_IFIR_SCIPY, f"IFIR against scipy {ds}")
+    print(f"  envelope: {launches} window_matmul launches; against dense "
+          f"{dd:.3e}, against scipy float64 on {n_s} samples of channels "
+          f"{list(IIR_CHANNELS)} {ds:.3e}")
+    del u, u_pm, e_pm, ed
+
+    # times
+    u = window_matmul(*a_args[:4], premap=a_args[4], out_layout=a_args[5])
+    u_pm = to_pm(u)
+    e_pm = window_matmul(u_pm, *b_args[:3], premap=b_args[3],
+                         out_layout=b_args[4])
+    ms = {
+        "ifir": median_ms(lambda: fi.envelope_cf(y)),
+        "stage A": median_ms(lambda: window_matmul(
+            *a_args[:4], premap=a_args[4], out_layout=a_args[5])),
+        "relayout to phase-major": median_ms(lambda: to_pm(u)),
+        "stage B": median_ms(lambda: window_matmul(
+            u_pm, *b_args[:3], premap=b_args[3], out_layout=b_args[4])),
+        "relayout back": median_ms(lambda: from_pm(e_pm).contiguous()),
+        "dense": median_ms(lambda: dense.envelope_cf(y)),
+    }
+    flop = 2 * C * CHUNK * macs_ifir
+    nbytes = 2 * 4 * C * CHUNK
+    b32 = bound(flop, nbytes)
+    btc = bound(TF32_PASSES * flop, nbytes, PEAK_TF32)
+    share = (ms["relayout to phase-major"] + ms["relayout back"]) / ms["ifir"]
+    print(f"  times (CUDA events, ms): " + "  ".join(
+        f"{k} {v:.4f}" for k, v in ms.items()) + f"  [{card}]")
+    print(f"  IFIR against dense {ms['dense'] / ms['ifir']:.2f}x; the "
+          f"relayouts {100 * share:.1f} % of the IFIR envelope; its bound "
+          f"{b32[0]:.4f} ms ({b32[1]}, fp32 at 67 TFLOP/s), as 3xTF32 "
+          f"{btc[0]:.4f} ms ({btc[1]})")
+    del u, u_pm, e_pm, e, y
+    return launches, ms["ifir"], err
+
+
+def iir_phase(card, dev):
+    """Phase 16b: the exact IIR filters (``ops.sosfilt`` whole and in
+    three chunks with the state carried, ``sosfiltfilt``, ``envelope``)
+    over the interactive window's size, on plain torch ops."""
+    from audian_torch.ops import (FilterDesign, design_envelope_filter,
+                                  design_filter, envelope, sosfilt,
+                                  sosfilt_fir, sosfiltfilt, sosfiltfilt_fir)
+
+    n = int(IIR_SECONDS * RATE)
+    print(f"phase 16: the exact IIR filters on {IIR_SECONDS} s x {C} ch x "
+          f"96 kHz float32 on the card")
+    band = design_filter(RATE, 2000.0, 40000.0)
+    env = design_envelope_filter(RATE, IFIR_ENV)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 160)
+    t = torch.arange(n, device=dev, dtype=torch.float64)[:, None] / RATE
+    freqs = 3000.0 + 2200.0 * torch.arange(C, device=dev)
+    gate = torch.sin(2 * math.pi * 3.0 * t) > 0.3
+    x = 0.4 * torch.sin(2 * math.pi * t * freqs) * gate \
+        + 0.2 * torch.sin(2 * math.pi * 13.0 * t)
+    x = (x + 0.05 * torch.randn((n, C), generator=gen, device=dev,
+                                dtype=torch.float64)).to(torch.float32)
+    del t, gate
+
+    def chunked():
+        parts, zf = [], torch.zeros((len(band), 2, C), device=dev)
+        for lo, hi in zip((0,) + IIR_CHUNKS, IIR_CHUNKS + (n,)):
+            y, zf = sosfilt(band, x[lo:hi], zi=zf)
+            parts.append(y)
+        return torch.cat(parts), zf
+
+    whole, zf_whole = sosfilt(band, x, zi=torch.zeros((len(band), 2, C),
+                                                       device=dev))
+    ch, zf = chunked()
+    ff = sosfiltfilt(band, x)
+    ev = envelope(x, env)
+    torch.cuda.synchronize()
+    for name, v in (("sosfilt", whole), ("sosfiltfilt", ff),
+                    ("envelope", ev)):
+        require(v.shape == x.shape and bool(torch.isfinite(v).all()),
+                f"{name} shape {tuple(v.shape)}")
+    dc = max(max_abs(ch, whole), max_abs(zf, zf_whole))
+    require(dc <= TOL_IIR_CHUNKED, f"sosfilt chunked against whole {dc}")
+    cols = list(IIR_CHANNELS)
+    x64 = x[:, cols].double().cpu().numpy()
+    errs = {
+        "sosfilt": (whole, sps.sosfilt(band, x64, axis=0), TOL_IIR_SCIPY),
+        "sosfiltfilt": (ff, sps.sosfiltfilt(band, x64, axis=0),
+                        TOL_IIRFF_SCIPY),
+        "envelope": (ev, np.maximum(sps.sosfiltfilt(
+            env, (np.pi / 2) * np.abs(x64), axis=0), 0.0), TOL_IIRFF_SCIPY),
+    }
+    for name, (got, want, tol) in errs.items():
+        d = float(np.abs(got[:, cols].double().cpu().numpy() - want).max())
+        require(d <= tol, f"{name} against scipy {d}")
+        errs[name] = d
+    print(f"  sosfilt in 3 chunks against whole {dc:.3e}; channels {cols} "
+          f"against scipy float64: " + "  ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()))
+    del whole, ch, ff, ev, zf, zf_whole
+
+    # float32 against scipy at three designs (the last near DC), and the
+    # envelope on the exact smoother beside the FIR path's
+    x2 = x[:, cols].contiguous()
+    line = []
+    for label, sos in (("2-40 kHz", band), (f"{IFIR_ENV:g} Hz", env),
+                       ("20 Hz", design_envelope_filter(RATE, 20.0))):
+        d = float(np.abs(sosfilt(sos, x2).double().cpu().numpy()
+                         - sps.sosfilt(sos, x64, axis=0)).max())
+        require(d <= TOL_IIR_SCIPY, f"sosfilt {label} against scipy {d}")
+        line.append(f"{label} {d:.3e}")
+    print(f"  float32 sosfilt against scipy float64 (channels {cols}): "
+          + "  ".join(line))
+    rect2 = (math.pi / 2) * torch.abs(x2)
+    for cutoff in (IFIR_ENV, 1500.0):
+        sos = design_envelope_filter(RATE, cutoff)
+        want = np.maximum(sps.sosfiltfilt(
+            sos, (np.pi / 2) * np.abs(x64), axis=0), 0.0)
+        fd = FilterDesign.from_sos(sos)
+        fir = torch.clamp_min(
+            sosfiltfilt_fir(fd.fir, rect2, fd.zi0, fd.padlen), 0.0)
+        de, df = (float(np.abs(v.double().cpu().numpy() - want).max())
+                  for v in (envelope(x2, sos), fir))
+        require(de <= TOL_IIRFF_SCIPY, f"envelope {cutoff} against scipy "
+                f"{de}")
+        print(f"  envelope {cutoff:g} Hz against scipy float64: exact "
+              f"smoother {de:.3e}, FIR path {df:.3e}")
+    del x2, rect2
+
+    fb, fe = FilterDesign.from_sos(band), FilterDesign.from_sos(env)
+
+    def fir_envelope():
+        rect = (math.pi / 2) * torch.abs(x)
+        return torch.clamp_min(
+            sosfiltfilt_fir(fe.fir, rect, fe.zi0, fe.padlen), 0.0)
+
+    def host_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            a = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - a))
+        return float(np.median(out))
+
+    rows = [("sosfilt", lambda: sosfilt(band, x),
+             lambda: sosfilt_fir(fb.fir, x)),
+            ("sosfilt in 3 chunks", chunked, None),
+            ("sosfiltfilt", lambda: sosfiltfilt(band, x),
+             lambda: sosfiltfilt_fir(fb.fir, x, fb.zi0, fb.padlen)),
+            ("envelope", lambda: envelope(x, env), fir_envelope)]
+    for name, fn, fir in rows:
+        line = f"  {name}: {host_ms(fn):.3f} ms"
+        if fir is not None:
+            line += f", FIR path {host_ms(fir):.3f} ms"
+        print(line + f" (host clock to a synchronize, median of 3)  [{card}]")
+    del x
 
 
 def psd_db_err(got, want):
@@ -3132,6 +3428,11 @@ def main():
         md_launches = multidevice_phase(card, dev, tmp, path, song)
     del song
 
+    # -- phase 16: the IFIR envelope and the exact IIR filters ---------------
+    ifir_launches, ifir_ms, ifir_err = ifir_phase(card, dev)
+    wm_err = max(wm_err, ifir_err)
+    iir_phase(card, dev)
+
     wm_bound = bound(wm_flop, wm_bytes)
     wm_bound_tc = bound_tc(wm_flop, wm_bytes)
     print(f"  window_matmul, three bioacoustics stages: kernel {wm_ms:.4f} ms"
@@ -3153,7 +3454,8 @@ def main():
          "ms": wm_ms, "plain_ms": wm_plain_ms, "bound_ms": wm_bound[0],
          "bound_by": wm_bound[1], "bound_tc_ms": wm_bound_tc,
          "library_ms": wm_lib_ms,
-         "multidevice_launches": md_launches["window_matmul"]},
+         "multidevice_launches": md_launches["window_matmul"],
+         "ifir_launches": ifir_launches, "ifir_ms": ifir_ms},
         {"name": "envdet", "route": "cuda",
          "source": "audian_torch/csrc/envdet.cu",
          "replaces": "audian_tpu/ops/pallas/envdet.py:64",

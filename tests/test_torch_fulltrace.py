@@ -22,6 +22,30 @@ from audian_torch import version as tversion
 from audian_torch.data.loader import AudioLoader
 
 
+# the conftest's fixtures at module scope: a session-scoped generator
+# hands this file whatever numbers the files before it on the same
+# worker left, so the data would depend on the test schedule
+@pytest.fixture(scope="module")
+def rng():
+    return np.random.default_rng(42)
+
+
+@pytest.fixture(scope="module")
+def cricket_like(rng):
+    """Synthetic 4.8 kHz carrier chirps with an AM envelope plus noise,
+    2 channels at 44.1 kHz (the body of the conftest's fixture)."""
+    rate = 44100.0
+    t = np.arange(int(2.0 * rate)) / rate
+    carrier = np.sin(2 * np.pi * 4800.0 * t)
+    am = (np.sin(2 * np.pi * 25.0 * t) > 0).astype(float)
+    chirps = carrier * am
+    x = np.stack([
+        0.6 * chirps + 0.01 * rng.standard_normal(len(t)),
+        0.3 * np.roll(chirps, 17) + 0.01 * rng.standard_normal(len(t)),
+    ], axis=1)
+    return x.astype(np.float64), rate
+
+
 def signal(rng, n, channels=2):
     return (0.4 * rng.standard_normal((n, channels))).clip(-1, 1)
 
@@ -171,13 +195,16 @@ def test_background_run_saves_and_close_cancels(tmp_path, rng,
                                         back_time=0.0), 10).datas)
     assert full_trace(tft, AudioLoader(paths)).load_data()
     # a slow scan of 4 blocks, closed mid-run, stops after its in-flight
-    # block and caches nothing
+    # block and caches nothing.  The first file ends off the segment grid
+    # (step 2), so the scan reads blocks of the joined stream through
+    # _read_direct: on the grid, the native scan would take the files
+    # whole and might finish before the close
     for f in Dirs.user_cache_path.iterdir():
         f.unlink()
     long = []
-    for k in range(2):
+    for k, n in enumerate((1_600_001, 1_599_999)):
         p = tmp_path / f"long{k}.wav"
-        jwav.write_audio(p, np.zeros((1_600_000, 1), np.int16), 48000,
+        jwav.write_audio(p, np.zeros((n, 1), np.int16), 48000,
                          encoding="PCM_16")
         long.append(p)
     reads = []
@@ -191,7 +218,7 @@ def test_background_run_saves_and_close_cancels(tmp_path, rng,
     monkeypatch.setattr(AudioLoader, "_read_direct", slow_read)
     ft = full_trace(tft, AudioLoader(long, buffer_time=0.1,
                                      back_time=0.0))
-    ft.start(3_200_000, background=True)
+    ft.start(1_600_000, background=True)
     time.sleep(0.05)
     ft.close()
     time.sleep(0.3)

@@ -7,6 +7,7 @@ state in both packages, late-loaded browsers sync to it, and a file that
 fails to open lands in ``shell.errors``.  The state is compared exactly:
 it is host state, set by the same verbs."""
 
+import numpy as np
 import pytest
 
 from audian_tpu.analysis import Plugins as JPlugins
@@ -20,6 +21,30 @@ from audian_torch.app import shell as tshell
 from audian_torch.graph import EnvelopeNode as TEnvelopeNode
 
 ENV_CUTOFF = 1500.0
+
+
+# the conftest's fixtures at module scope: a session-scoped generator
+# hands this file whatever numbers the files before it on the same
+# worker left, so the data would depend on the test schedule
+@pytest.fixture(scope="module")
+def rng():
+    return np.random.default_rng(42)
+
+
+@pytest.fixture(scope="module")
+def cricket_like(rng):
+    """Synthetic 4.8 kHz carrier chirps with an AM envelope plus noise,
+    2 channels at 44.1 kHz (the body of the conftest's fixture)."""
+    rate = 44100.0
+    t = np.arange(int(2.0 * rate)) / rate
+    carrier = np.sin(2 * np.pi * 4800.0 * t)
+    am = (np.sin(2 * np.pi * 25.0 * t) > 0).astype(float)
+    chirps = carrier * am
+    x = np.stack([
+        0.6 * chirps + 0.01 * rng.standard_normal(len(t)),
+        0.3 * np.roll(chirps, 17) + 0.01 * rng.standard_normal(len(t)),
+    ], axis=1)
+    return x.astype(np.float64), rate
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,30 @@ TOL_PSD_RTOL = 1e-4
 TOL_PSD_ATOL = 1e-12
 
 
+# the conftest's fixtures at module scope: a session-scoped generator
+# hands this file whatever numbers the files before it on the same
+# worker left, so the data would depend on the test schedule
+@pytest.fixture(scope="module")
+def rng():
+    return np.random.default_rng(42)
+
+
+@pytest.fixture(scope="module")
+def cricket_like(rng):
+    """Synthetic 4.8 kHz carrier chirps with an AM envelope plus noise,
+    2 channels at 44.1 kHz (the body of the conftest's fixture)."""
+    rate = 44100.0
+    t = np.arange(int(2.0 * rate)) / rate
+    carrier = np.sin(2 * np.pi * 4800.0 * t)
+    am = (np.sin(2 * np.pi * 25.0 * t) > 0).astype(float)
+    chirps = carrier * am
+    x = np.stack([
+        0.6 * chirps + 0.01 * rng.standard_normal(len(t)),
+        0.3 * np.roll(chirps, 17) + 0.01 * rng.standard_normal(len(t)),
+    ], axis=1)
+    return x.astype(np.float64), rate
+
+
 def check_db(got, want):
     np.testing.assert_allclose(10.0 ** (np.asarray(got, float) / 10),
                                10.0 ** (np.asarray(want, float) / 10),
