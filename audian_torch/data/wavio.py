@@ -492,15 +492,18 @@ def scan_wav(path):
     return float(fmt[2]), md, locs, labels
 
 
-def load_wav(path):
+def load_wav(path, return_buffer=False):
     """Read a whole recording: ``(data, rate, md, locs, labels)`` with the
     data as float values in [-1, 1] (float32 for FLOAT WAVs, float64
     otherwise), the metadata as :func:`scan_wav` gives it and the markers
-    (FLAC and the other containers have none)."""
+    (FLAC and the other containers have none).  With ``return_buffer``
+    the file's bytes follow as a sixth element (WAV only)."""
     p = Path(path)
     with p.open("rb") as f:
         head = f.read(16)
     if _wave_container(head) is None:
+        if return_buffer:
+            raise WavError(f"{path}: in-place buffer access requires WAV")
         locs, labels = _marker_arrays({}, {}, {}, {})
         if head[:4] == b"fLaC":
             from . import flac
@@ -517,7 +520,10 @@ def load_wav(path):
         return data, float(rate), {}, locs, labels
     info = wav_info(path)
     rate, md, locs, labels = scan_wav(path)
-    return read_frames(path, 0, info[2], info), rate, md, locs, labels
+    data = read_frames(path, 0, info[2], info)
+    if return_buffer:
+        return data, rate, md, locs, labels, p.read_bytes()
+    return data, rate, md, locs, labels
 
 
 def load_audio(path):

@@ -113,7 +113,8 @@ class GraphExecutor:
 
     # -- run --------------------------------------------------------------------
 
-    def run(self, raw_chunk, raw_offset=0, targets=None, pull=False):
+    def run(self, raw_chunk, raw_offset=0, targets=None, pull=False,
+            device=None):
         """Compute all (or the ``targets`` subtree of) derived traces from
         one raw chunk.
 
@@ -126,12 +127,17 @@ class GraphExecutor:
             all nodes by default.  Invisible traces are not computed.
         pull : return numpy arrays on the host instead of tensors on the
             device.
+        device : the JAX package's keyword for the same choice: keep the
+            outputs on the device (True) or pull them (False); when given
+            it decides, as ``pull = not device``.
 
         Returns
         -------
         dict name -> (offset, array): the absolute output frame offset and
         the computed frames for every produced trace, including ``"data"``.
         """
+        if device is not None:
+            pull = not device
         if targets is None:
             targets = [n.name for n in self.graph.order]
         active = self.graph.active_set(targets)

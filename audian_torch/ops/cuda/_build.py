@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["SMEM_LIMIT", "build_dir", "check", "count_launch",
-           "load_library", "ptxas_report"]
+           "library_path", "load_library", "ptxas_report"]
 
 #: shared memory one block may use on Hopper (232,448 bytes); above 48 KB
 #: the launchers opt in with cudaFuncSetAttribute
@@ -38,16 +38,20 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "audian_cuda_error_string": ([_I], ctypes.c_char_p),
-    "chain_tile": ([], _I),
+    "chain_tile_max": ([], _I),
     "chain_tap_pad": ([], _I),
-    "chain_smem_bytes": ([_I, _I, _I, _I], _LL),
+    "chain_warps": ([], _I),
+    "chain_smem_bytes": ([_I, _I, _I, _I, _I, _I, _I], _LL),
     "chain_launch": ([_P, _I, _LL, _I, _LL, _P, _I, _P, _I, _I, _I, _I, _I,
-                      _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-                     _I),
+                      _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                      _P], _I),
     "window_matmul_scratch_words": ([_I, _I], _LL),
     "window_matmul_launch": ([_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                               _P, _P, _P], _I),
+    "conv_probe_launch": ([_P, _I, _P, _I, _I, _I, _P, _P, _P], _I),
+    "conv_rate_launch": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
     "envdet_tile_max": ([], _I),
+    "envdet_tile_min": ([], _I),
     "envdet_smem_bytes": ([_I, _I, _I, _I], _LL),
     "envdet_launch": ([_P, _I, _LL, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I,
                        _I, _P, _P], _I),
@@ -71,6 +75,11 @@ def build_dir():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return _PKG.parent / "build" / "audian_torch" / digest.hexdigest()[:16]
+
+
+def library_path():
+    """The kernel library's path for the current sources and flags."""
+    return build_dir() / _LIBNAME
 
 
 def _nvcc():
@@ -121,7 +130,7 @@ def load_library():
     global _lib
     with _lock:
         if _lib is None:
-            out = build_dir() / _LIBNAME
+            out = library_path()
             if not out.exists():
                 _build(out)
             lib = ctypes.CDLL(str(out))

@@ -6,11 +6,14 @@
 (``hb``, ``ha``, ``lead``, ``tail``, ``offe``), the lane-packed analysis
 matrix ``ws``, and the TPU kernel's generalized Toeplitz banks with their
 sub-block classification (``wf``/``we``, ``act_f``/``act_e``).  The CUDA
-kernel (``csrc/chain.cu``) runs each convolution as Toeplitz-block
-products on the tensor cores (3xTF32), gathering the blocks from the
-taps split on the host (``h_split``/``g_split``, :func:`split_tf32`); its
-steps cover exactly the true taps, which are the rows of the active
-sub-blocks.  The PSD reads the pair-interleaved ``ws_pairs``.
+kernel (``csrc/chain.cu``) runs each convolution as Toeplitz products on
+the tensor cores (3xTF32 wgmma, ``csrc/wgmma_conv.cuh``), gathering the
+slices from the taps split on the host (``h_split``/``g_split``,
+:func:`split_tf32`); its steps cover exactly the true taps, which are the
+rows of the active sub-blocks.  The PSD is a dense product with the
+pair-interleaved analysis matrix (:func:`_pair_columns` of ``ws``), split
+and laid out K-major on the host (``ws_slices``, :func:`psd_slices`).  :func:`smem_bytes` and :func:`pick_tile` mirror the
+kernel's shared-memory formula and the host's tile choice.
 
 :func:`chain` launches the kernel on a CUDA tensor and runs the plain
 PyTorch version :func:`chain_plain` on a CPU tensor; any other device
@@ -31,19 +34,29 @@ from ..stft import frame_signal
 from ._build import SMEM_LIMIT, check, count_launch, load_library
 
 __all__ = ["ALL_OUTPUTS", "ChainKernel", "chain", "chain_plain",
-           "split_tf32"]
+           "fits", "pick_tile", "psd_slices", "smem_bytes", "split_tf32",
+           "stream_rows"]
 
 #: the full output set (and the default ``outputs`` mask)
 ALL_OUTPUTS = ("filtered", "envelope", "spectrogram")
 
-#: output samples per kernel tile (``TJ`` in csrc/chain.cu)
-TILE = 2048
-#: threads per kernel block (``NT`` in csrc/chain.cu)
-_THREADS = 256
-#: zero taps each side of a split tap vector (``TPAD`` in csrc/chain.cu)
-TAP_PAD = 24
-#: zeros past a staged stream (``SLACK`` in csrc/chain.cu)
-_SLACK = 32
+#: output samples per kernel tile, widest first (``TILE_MAX`` in
+#: csrc/chain.cu is the first); the host takes the widest that fits
+TILES = (16384, 8192, 4096, 2048, 1024, 512, 256, 128)
+#: consumer warps of a kernel block (``NWARP`` in csrc/chain.cu): the
+#: statistics come back as one partial per warp
+WARPS = 8
+#: zero taps each side of a split tap vector (``TPAD`` in
+#: csrc/wgmma_conv.cuh)
+TAP_PAD = 72
+#: the kernel's PSD operand ring (``RING`` and ``STAGE_BYTES`` in
+#: csrc/chain.cu): 8 stages of two slices of 8 rows by 128 columns, hi and
+#: lo
+_SLICE_COLS = 128
+_RING = 8
+_RING_BYTES = _RING * 2 * (2 * 8 * _SLICE_COLS * 4)
+#: mbarriers after the two regions (``NBAR`` in csrc/chain.cu)
+_NBAR = 3 + 2 * _RING
 
 
 def split_tf32(a):
@@ -128,21 +141,58 @@ def geometry(Tf, L, delay, nfft):
     return lead, tail, round_up(Tf - 1, 128)
 
 
-def smem_bytes(Tf, L, lead, tail):
-    """Shared memory of one chain block (``smem_bytes`` in csrc/chain.cu):
-    the input span with its slack split into TF32 hi and lo (the split
-    rectified span reuses it), the filtered span, the envelope halves'
-    meeting point and the reduction buffer; the taps are read through L1,
-    so ``L`` does not count."""
-    ylen = TILE + lead + tail
-    return 4 * (2 * round_up(ylen + Tf - 1 + _SLACK, 32) + ylen + TILE
-                + _THREADS)
+def stream_rows(ncols, D):
+    """Rows a plane of a quad-major split stream needs for ``ncols`` output
+    columns of 64 at delay ``D`` (``stream_rows`` in csrc/wgmma_conv.cuh),
+    odd."""
+    return ((64 * ncols + D + 7 + 63) // 64) | 1
+
+
+def smem_bytes(Tf, L, delay, lead, tail, nfft, tile):
+    """Shared memory of one chain block at ``tile`` outputs
+    (``chain_smem_bytes`` in csrc/chain.cu): region X holds the split input
+    stream, then the PSD operand ring, then the split rectified stream;
+    region Y the input copy, then the filtered span; the mbarriers
+    follow.  The taps are read through L1, so ``L`` counts only through
+    the halos."""
+    del L, nfft
+    ylen = tile + lead + tail
+    xspan = ylen + Tf - 1
+    nu = max(stream_rows(max(ylen // 64, 64), Tf - 1),
+             stream_rows(max(tile // 64, 64), lead + delay))
+    x = max(2 * 256 * nu, _RING_BYTES)
+    y = max(4 * ylen, (4 * xspan + 32 + 15) & ~15)
+    return x + y + 8 * _NBAR
+
+
+def pick_tile(Tf, L, delay, nfft):
+    """The widest tile of :data:`TILES` whose block fits the shared memory,
+    or ``None``."""
+    lead, tail, _ = geometry(Tf, L, delay, nfft)
+    for tile in TILES:
+        if smem_bytes(Tf, L, delay, lead, tail, nfft, tile) <= SMEM_LIMIT:
+            return tile
+    return None
 
 
 def fits(Tf, L, delay, nfft):
-    """Whether a design's tile fits the shared memory of one block."""
-    lead, tail, _ = geometry(Tf, L, delay, nfft)
-    return smem_bytes(Tf, L, lead, tail) <= SMEM_LIMIT
+    """Whether some tile of a design fits the shared memory of one
+    block."""
+    return pick_tile(Tf, L, delay, nfft) is not None
+
+
+def psd_slices(ws_pairs):
+    """The kernel's PSD operand: the pair-interleaved analysis matrix
+    (nfft x nfft, rows k, columns the bin pairs) split into TF32 hi and lo and cut into slices of 8 rows
+    by 128 columns, column group major, each slice ``[hi | lo]`` of
+    K-major core matrices: word ``512 kq + 32 (c // 8) + 4 (c % 8) + r``
+    of a part holds row ``8 kk + 4 kq + r``, column ``128 cg + c``."""
+    ws = np.asarray(ws_pairs, np.float32)
+    nfft = ws.shape[0]
+    parts = np.stack(split_tf32(ws))               # (2, k, col)
+    a = parts.reshape(2, nfft // 8, 2, 4, nfft // _SLICE_COLS, 16, 8)
+    # (part, kk, kq, r, cg, c8, c) -> (cg, kk, part, kq, c8, c, r)
+    return np.ascontiguousarray(a.transpose(4, 1, 0, 2, 5, 6, 3)).ravel()
 
 
 class ChainKernel:
@@ -189,12 +239,14 @@ class ChainKernel:
         ws = np.concatenate(
             [spec_w[:, :half], spec_w[:, half : half + 1],
              spec_w[:, self.nbins + 1 : 2 * self.nbins - 1]], axis=1)
-        self.smem_bytes = smem_bytes(Tf, L, self.lead, self.tail)
-        if self.smem_bytes > SMEM_LIMIT:
+        self.tile = pick_tile(Tf, L, delay, self.nfft)
+        if self.tile is None:
             raise ValueError(
-                f"chain kernel tile needs {self.smem_bytes} B of shared "
-                f"memory (filter {Tf} + envelope {L} taps); the per-stage "
-                f"methods handle this design")
+                f"chain kernel tile needs more than {SMEM_LIMIT} B of "
+                f"shared memory (filter {Tf} + envelope {L} taps); the "
+                f"per-stage methods handle this design")
+        self.smem_bytes = smem_bytes(Tf, L, delay, self.lead, self.tail,
+                                     self.nfft, self.tile)
 
         device = resolve_device(device)
 
@@ -208,7 +260,7 @@ class ChainKernel:
         self.spec_w = dev(spec_w)
         self.h_split = dev(_split_taps(h_filt))
         self.g_split = dev(_split_taps(g_env))
-        self.ws_pairs = dev(_pair_columns(ws))
+        self.ws_slices = dev(psd_slices(_pair_columns(ws)))
 
     def __call__(self, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
         """Run the chain over ``x_ext = [hb | n | ha...]``.
@@ -307,7 +359,7 @@ def chain(ck, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
         raise ValueError(f"at most 65535 channels (one grid row each), "
                          f"got {C}")
     want_f, want_e, want_s = (name in outputs for name in ALL_OUTPUTS)
-    ntiles = -(-n // TILE)
+    ntiles = -(-n // ck.tile)
     nf = n // 128
 
     def empty(*shape):
@@ -316,8 +368,10 @@ def chain(ck, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
     y = empty(C, n) if want_f else None
     e = empty(C, n) if want_e else None
     s = empty(nf, C, ck.nbins) if want_s else None
-    pp, gp = empty(C, ntiles), empty(C, ntiles)
-    qp = empty(C, ntiles, ck.nbins)
+    pp, gp = empty(C, ntiles, WARPS), empty(C, ntiles, WARPS)
+    # the kernel writes the PSD's partials only where it runs the PSD
+    qp = (empty(C, ntiles, WARPS, ck.nbins) if want_s else
+          torch.zeros((C, ntiles, WARPS, ck.nbins), device=x_ext.device))
     lib = load_library()
     # launched on the tensor's device: the current device may be another
     with torch.cuda.device(x_ext.device):
@@ -325,15 +379,16 @@ def chain(ck, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
             x_ext.data_ptr(), int(x_ext.dtype == torch.int16), xlen, C, n,
             ck.h_split.data_ptr(), len(ck.h), ck.g_split.data_ptr(),
             len(ck.g), ck.delay, ck.lead, ck.tail, ck.hb,
-            ck.ws_pairs.data_ptr(), ck.nfft, int(ck.env_clamp), int(want_f),
-            int(want_e), int(want_s), 0 if y is None else y.data_ptr(),
+            ck.ws_slices.data_ptr(), ck.nfft, ck.tile, int(ck.env_clamp),
+            int(want_f), int(want_e), int(want_s),
+            0 if y is None else y.data_ptr(),
             0 if e is None else e.data_ptr(),
             0 if s is None else s.data_ptr(), pp.data_ptr(), gp.data_ptr(),
             qp.data_ptr(), torch.cuda.current_stream(x_ext.device).cuda_stream)
     check(code, "chain")
     count_launch(chain)
-    return _result(y, e, s, stats, pp.sum(dim=1), gp.sum(dim=1),
-                   qp.sum(dim=1))
+    return _result(y, e, s, stats, pp.sum(dim=(1, 2)), gp.sum(dim=(1, 2)),
+                   qp.sum(dim=(1, 2)))
 
 
 chain.launches = 0

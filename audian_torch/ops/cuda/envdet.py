@@ -5,12 +5,14 @@ band-pass -> square -> decimating envelope low-pass -> ``2 sqrt(max(e, 0))``.
 ``audian_tpu/ops/pallas/envdet.py:EnvDetKernel``: the same constructor,
 ``window_need`` and static contract (the window's first output sits at
 exactly ``hb``).  The CUDA kernel (``csrc/envdet.cu``) reads the
-time-first window as it is and runs both filters on the tensor cores
-(3xTF32): the band-pass as Toeplitz-block products against the taps split
-on the host (``bp_split``, as the chain's), the decimating envelope as a
-sum over ``step`` polyphase streams of correlations with ``q =
-ceil(ll / step)`` taps each (:func:`phase_taps`, split into ``lp_split``).
-:func:`geometry` is the block geometry the kernel computes.
+time-first window as it is: the band-pass runs on the tensor cores as
+Toeplitz products (3xTF32 wgmma, ``csrc/wgmma_conv.cuh``) against the taps
+split on the host (``bp_split``, as the chain's), and the decimating
+envelope as a sum over ``step`` polyphase streams of correlations with
+``q = ceil(ll / step)`` taps each (:func:`phase_taps`, reversed and padded
+into ``lp_phase``) in fp32 FMAs.  :func:`geometry` is the block geometry
+the kernel computes, :func:`smem_bytes` its shared memory and
+:func:`pick_tile` the host's tile choice.
 
 :func:`envdet` launches the kernel on a CUDA tensor and runs the plain
 PyTorch version :func:`envdet_plain` on a CPU tensor; any other device
@@ -28,41 +30,68 @@ from ..envdet import EnvDetDesign, _float_window
 from ..raw16 import dequant16
 from ..sos import _fir_valid_cf, full_fp32
 from ._build import SMEM_LIMIT, check, count_launch, load_library
-from .chain import _split_taps
+from .chain import _split_taps, stream_rows
+
+#: shared memory of the SM that two resident blocks share (228 KB, less
+#: the 1 KB the runtime reserves for each block)
+SMEM_PAIR = 233472 - 2 * 1024
 
 __all__ = ["EnvDetKernel", "envdet", "envdet_plain", "geometry",
-           "phase_taps", "smem_bytes"]
+           "phase_rows", "phase_taps", "pick_tile", "smem_bytes"]
 
-#: decimated outputs per kernel block at most (``TILE_MAX`` in
-#: csrc/envdet.cu: two 128-output tiles of stage 2 a warp)
-TILE_MAX = 256
-#: warps of a kernel block (``NWARP`` in csrc/envdet.cu)
-_NWARP = 12
-#: zeros past a staged stream (``SLACK`` in csrc/toeplitz_mma.cuh)
-_SLACK = 32
+#: decimated outputs per kernel block, at most and at least (``TILE_MAX``
+#: and ``TILE_MIN`` in csrc/envdet.cu); tiles are multiples of 64
+TILE_MAX = 4096
+TILE_MIN = 64
+#: threads of a kernel block and stage-2 outputs a thread (``NT`` and
+#: ``OUT`` in csrc/envdet.cu)
+_THREADS = 256
+_OUT = 8
 
 
 def geometry(lb, ll, step, tile):
     """The kernel's block geometry (``geometry`` in csrc/envdet.cu) for
-    ``tile`` outputs: ``(q, ny, nt1, nt2, xwords, zs)`` -- the taps of a
-    phase of stage 2, the band-passed samples of a tile, the 128-wide
-    tiles of each stage, the words of each part of the split input span
-    and of each phase of the split polyphase y²."""
+    ``tile`` outputs: ``(q, q8, ny, ncols1, nu1, zs, npg)`` -- the taps of
+    a phase of stage 2 and their padded row, the band-passed samples of a
+    tile, its output columns of 64, the rows of a plane of the split input
+    stream, the words of one phase of y² and stage 2's phase shares."""
     q = -(-ll // step)
+    q8 = -(-q // 8) * 8
     ny = (tile - 1) * step + ll
-    nt1, nt2 = -(-ny // 128), -(-tile // 128)
-    xwords = round_up(128 * nt1 + lb - 1 + _SLACK, 32)
-    zs = round_up(128 * nt2 + q - 1 + _SLACK, 32)
-    return q, ny, nt1, nt2, xwords, zs
+    ncols1 = -(-ny // 64)
+    nu1 = stream_rows(max(ncols1, 64), lb - 1)
+    ng = min(tile // _OUT, _THREADS)
+    return q, q8, ny, ncols1, nu1, tile + q8 + _OUT, _THREADS // ng
 
 
 def smem_bytes(lb, ll, step, tile):
     """Shared memory of one envdet block (``envdet_smem_bytes`` in
-    csrc/envdet.cu): the split input span (which the stage-2 warps'
-    meeting point reuses, where that is not larger) and the split
-    polyphase y²; the taps are read through L1."""
-    q, ny, nt1, nt2, xwords, zs = geometry(lb, ll, step, tile)
-    return 4 * (max(2 * xwords, (_NWARP - 1) * 128 * nt2) + 2 * step * zs)
+    csrc/envdet.cu): the split input span (512 bytes a row of both parts;
+    stage 2's phase shares reuse it where they fit) and the polyphase y²
+    in fp32; the taps are read through L1."""
+    *_, nu1, zs, npg = geometry(lb, ll, step, tile)
+    return max(512 * nu1, 4 * npg * tile) + 4 * step * zs
+
+
+def pick_tile(lb, ll, step):
+    """The host's tile, a multiple of 64 up to :data:`TILE_MAX` that fits
+    one block: the one with the least band-pass work an output on the
+    busier of the two warpgroups (64-column chunks, alternating), a
+    quarter more where two blocks do not fit one SM (then one block's
+    window loads do not overlap the other's products); the widest of
+    equals.  ``None`` when not even :data:`TILE_MIN` fits."""
+    best, best_score = None, None
+    for t in range(TILE_MAX, TILE_MIN - 1, -64):
+        smem = smem_bytes(lb, ll, step, t)
+        if smem > SMEM_LIMIT:
+            continue
+        chunks = -(-geometry(lb, ll, step, t)[3] // 64)
+        score = 128 * -(-chunks // 2) / t
+        if 2 * smem > SMEM_PAIR:
+            score *= 1.25
+        if best_score is None or score < best_score:
+            best, best_score = t, score
+    return best
 
 
 def phase_taps(g_lp, step):
@@ -78,6 +107,17 @@ def phase_taps(g_lp, step):
     return np.where(k < ll, g[np.minimum(k, ll - 1)], 0.0).astype(np.float32)
 
 
+def phase_rows(g_lp, step):
+    """The kernel's stage-2 taps: ``(step, q8)`` float32, row ``p`` holding
+    ``r_p[m] = g_lp[ll-1 - step m - p]`` (zero past the taps and up to
+    ``q8``, a multiple of 8), so that ``e[j] = sum_p sum_m r_p[m]
+    z_p[j + m]`` with ``z_p[n] = u[step n + p]``: the rows of
+    :func:`phase_taps` reversed."""
+    t = phase_taps(g_lp, step)[:, ::-1]
+    q8 = -(-t.shape[1] // 8) * 8
+    return np.ascontiguousarray(np.pad(t, [(0, 0), (0, q8 - t.shape[1])]))
+
+
 class EnvDetKernel(EnvDetDesign):
     """The whole envelope in one kernel pass; the first output must sit at
     exactly ``hb`` (``__call__`` rejects other offsets).  Raises ValueError
@@ -89,23 +129,15 @@ class EnvDetKernel(EnvDetDesign):
         if self.hb < self.lead2 + self.lb - 1 - self.d_bp:
             raise ValueError("window headroom smaller than the combined "
                              "filter look-back")
-        # the widest tile whose span fits one block: 256 outputs at the
-        # song detector's design (105 KB, two blocks an SM); longer
-        # kernels or larger steps halve it
-        tile = TILE_MAX
-        while tile > 1 and smem_bytes(self.lb, self.ll, self.step,
-                                      tile) > SMEM_LIMIT:
-            tile //= 2
-        if smem_bytes(self.lb, self.ll, self.step, tile) > SMEM_LIMIT:
+        self.tile = pick_tile(self.lb, self.ll, self.step)
+        if self.tile is None:
             raise ValueError(
                 f"one envelope output spans {self.lb} + {self.ll} taps, "
                 f"more than a block's shared memory holds")
-        self.tile = tile
         self.g_bp = self._tensor(self.g_bp_np)
         self.g_lp = self._tensor(self.g_lp_np)
         self.bp_split = self._tensor(_split_taps(self.g_bp_np))
-        self.lp_split = self._tensor(np.concatenate(
-            [_split_taps(t) for t in phase_taps(self.g_lp_np, self.step)]))
+        self.lp_phase = self._tensor(phase_rows(self.g_lp_np, self.step))
 
     def __call__(self, xw, off0):
         """Envelope of one window ``xw (W, C)`` (float32 or raw int16) with
@@ -180,7 +212,7 @@ def envdet(ed, xw):
     with torch.cuda.device(xw.device):
         code = lib.envdet_launch(
             x.data_ptr(), int(x.dtype == torch.int16), W, C,
-            ed.bp_split.data_ptr(), ed.lb, ed.d_bp, ed.lp_split.data_ptr(),
+            ed.bp_split.data_ptr(), ed.lb, ed.d_bp, ed.lp_phase.data_ptr(),
             ed.ll, ed.d_lp, ed.step, ed.nout, ed.hb, ed.tile, env.data_ptr(),
             torch.cuda.current_stream(xw.device).cuda_stream)
     check(code, "envdet")

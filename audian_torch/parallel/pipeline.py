@@ -56,28 +56,32 @@ class ShardedPipeline:
     nfft, hop : spectrogram geometry; ``spectrogram=False`` disables it.
     minmax_step : when set, also emit the interleaved min/max overview of
         the raw trace at this decimation step.
+    dtype : the type a non-int16 input is cast to (the shards compute in
+        float32 from the cast values).
     """
 
     def __init__(self, mesh, rate, filt=None, env=None, env_clamp=True,
-                 nfft=256, hop=None, spectrogram=True, minmax_step=None):
+                 nfft=256, hop=None, spectrogram=True, minmax_step=None,
+                 dtype=torch.float32):
         g, delay = (filtfilt_sym_kernel(env.sos, eps=env.fir.eps)
                     if env is not None else (None, 0))
         self._setup(mesh, {
             "rate": rate, "h_filt": None if filt is None else filt.fir.h,
             "g_env": g, "env_delay": delay, "env_clamp": env_clamp,
             "nfft": nfft, "hop": hop, "spectrogram": spectrogram,
-            "minmax_step": minmax_step})
+            "minmax_step": minmax_step}, dtype)
 
     @classmethod
-    def from_arrays(cls, mesh, arrays):
+    def from_arrays(cls, mesh, arrays, dtype=torch.float32):
         """A pipeline over precomputed kernels (the keys of
         :data:`audian_torch.convert.SHARDED_KEYS`)."""
         self = cls.__new__(cls)
-        self._setup(mesh, arrays)
+        self._setup(mesh, arrays, dtype)
         return self
 
-    def _setup(self, mesh, a):
+    def _setup(self, mesh, a, dtype):
         self.mesh = mesh
+        self.dtype = dtype
         self.rate = float(a["rate"])
         self.env_clamp = bool(a["env_clamp"])
         self.with_spec = bool(a["spectrogram"])
@@ -130,6 +134,8 @@ class ShardedPipeline:
         outputs, time-first."""
         hb = self.hb
         x_cf = win.T.contiguous()
+        if x_cf.dtype not in (torch.int16, torch.float32):
+            x_cf = x_cf.float()
         out = {}
         if self.takes_chain_kernel(fc):
             outputs = ("filtered", "envelope") + (
@@ -171,7 +177,7 @@ class ShardedPipeline:
     def __call__(self, x):
         """Run the sharded chain over a whole recording ``(n, channels)``
         (numpy or a tensor; int16 is raw PCM-16 and stays int16 up to the
-        shard-local dequantization, anything else is cast to float32).
+        shard-local dequantization, anything else is cast to ``dtype``).
 
         Returns a dict of global tensors on the mesh's first device:
         ``filtered``/``envelope`` ``(n_pad, C)``, ``spectrogram``
@@ -181,11 +187,14 @@ class ShardedPipeline:
         """
         if isinstance(x, torch.Tensor):
             if x.dtype != torch.int16:
-                x = x.to(torch.float32)
+                x = x.to(self.dtype)
         else:
             x = np.asarray(x)
             if x.dtype != np.int16:
-                x = x.astype(np.float32, copy=False)
+                # numpy input stays on the host until its shards upload
+                x = (x.astype(np.float32, copy=False)
+                     if self.dtype == torch.float32
+                     else torch.as_tensor(x).to(self.dtype))
         n, C = x.shape
         n_pad = self.padded_length(n)
         nseq, nch = self.mesh.shape["seq"], self.mesh.shape["ch"]

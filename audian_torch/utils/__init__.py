@@ -1,8 +1,14 @@
-"""Shared small helpers; structured tracing lives in :mod:`.trace`."""
+"""Utilities: the trace spans (:mod:`.trace`, re-exported here) and
+shared small helpers."""
 
 import torch
 
-__all__ = ["on_device", "pow2_at_least", "resolve_device", "round_up"]
+from .trace import (clear, device_profile, disable, enable, events,
+                    summary, timed, trace_event)
+
+__all__ = ["trace_event", "events", "clear", "enable", "disable",
+           "summary", "timed", "device_profile", "on_device",
+           "pow2_at_least", "resolve_device", "round_up"]
 
 
 def round_up(x, m):

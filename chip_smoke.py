@@ -7,15 +7,28 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
    fails at once without CUDA;
 1. builds the kernels from ``audian_torch/csrc`` into ``build/`` (one
-   ``nvcc`` a source, all started together);
+   ``nvcc`` a source, all started together); from ``ptxas -v`` the
+   registers, spill bytes and any serialized-``wgmma`` warning of chain
+   and envdet, which must neither spill nor serialize, and from
+   ``cuobjdump -sass`` of the built library each kernel's ``HGMMA`` and
+   ``HMMA`` count (chain and envdet must show ``HGMMA``);
+1b. the bare convolution core (``csrc/wgmma_conv.cuh`` through
+   ``csrc/conv_probe.cu``: one warpgroup, m64n64k8 and m64n8k8) on four
+   short known convolutions (the headline filter, the headline
+   envelope's delay past its taps, envdet's band-pass, a 54-tap phase)
+   against float64, 1e-5 at unit-scale outputs, before anything runs on
+   it, and its rate (``csrc/conv_probe.cu:conv_rate``) at N = 8, 64 and
+   128 with one and two blocks an SM;
 2. ``window_matmul`` kernel against its plain version at 16 ch x 2^20
    samples: the ``bioacoustics`` per-stage filter, rectified envelope and
    PSD, ``ultrasound`` at 384 kHz, and hop 90;
 3. ``chain`` kernel against its plain version at the headline chunk
-   (16 ch x 2^22 int16, ``bioacoustics``, eps 2e-6, stats), int16 against
-   its float32 dequantization, all 7 output masks, a padded tail, and a
-   24 Hz envelope whose tile needs more than 48 KB of shared memory
-   (held against a float64 evaluation of the same taps);
+   (16 ch x 2^22 int16, ``bioacoustics``, eps 2e-6, stats; the host's
+   tile and its shared memory against the kernel's formula), int16
+   against its float32 dequantization, all 7 output masks, a padded tail,
+   and a 24 Hz envelope (14511 taps), whose halos leave room for a
+   narrower tile only (held against a float64 evaluation of the same
+   taps);
 4. the chain's main path: a 60 s x 16 ch x 96 kHz PCM-16 WAV read in
    halo'd 2^21-frame chunks through two pinned int16 buffers, each chunk
    run through ``FusedChainCF.chain_cf`` (stats) and checked against the
@@ -33,8 +46,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    1-10 kHz band-pass, 500 Hz envelope, step 19), and on the same window
    at steps 1, 3 and 7, as float32, at C = 1 and 3, at an ``nout`` that is
    not a multiple of the tile and at the 200 Hz design (step 48), whose
-   span halves the tile; a longer design is refused and left to
-   ``EnvDet``; the two-stage ``EnvDet`` on ``window_matmul`` with the
+   span takes a narrower tile, and at the 100 Hz design (step 96), which
+   the earlier kernel refused; a longer design (60 Hz, step 160) is
+   refused and left to ``EnvDet``; the two-stage ``EnvDet`` on ``window_matmul`` with the
    ``dequant`` and ``square`` premaps, each stage against its plain
    version at these shapes;
 8. the song detector's main path: ``audian_torch.cli.songdetector.main``
@@ -179,7 +193,10 @@ least time the card could take for the same work (``bound_ms``: fp32 at
 time of one PyTorch call computing the same function where there is one.
 The three tensor-core kernels also carry ``bound_tc_ms``: the same
 true-tap operations in three TF32 passes at 495 TFLOP/s, or the bytes at
-3.35 TB/s, whichever is larger.
+3.35 TB/s, whichever is larger, and ``bound_share``, ``bound_tc_ms``
+over their time.  Chain carries its ``tile``, ``stage_ms`` (phase 5's
+filtered-, envelope- and spectrogram-only times), ``core_max_abs_err``
+and ``core_tflops`` (phase 1b); envdet its ``tile``.
 Chain and envdet also carry ``flac_launches``, their launches on the FLAC
 runs of phase 13, and envdet ``viewer_launches``, its launches on the song
 viewer's envelope keys of phase 14.  Every kernel carries
@@ -200,6 +217,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -295,6 +313,68 @@ def bound_tc(flop, nbytes):
     return bound(TF32_PASSES * flop, nbytes, PEAK_TF32)[0]
 
 
+#: the kernels that run on warpgroup MMAs (and must show HGMMA in SASS)
+WGMMA_KERNELS = ("chain_kernel", "envdet_kernel")
+
+
+def wgmma_health(report):
+    """For each of :data:`WGMMA_KERNELS`, from ``ptxas -v``'s report: its
+    registers, its spill bytes (stores + loads) and whether ptxas
+    serialized its wgmma instructions (warning C7512, which names the
+    function before its own "Compiling entry function" line)."""
+    out = {k: {"registers": None, "spill_bytes": None, "serialized": False}
+           for k in WGMMA_KERNELS}
+    name = None
+    for line in report.splitlines():
+        hit = next((k for k in WGMMA_KERNELS if k in line), None)
+        if "serialized" in line and hit:
+            out[hit]["serialized"] = True
+            continue
+        m = re.search(r"Compiling entry function '?(\w+)", line)
+        if m:
+            name = next((k for k in WGMMA_KERNELS if k in m.group(1)), None)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
+
+
+def sass_mma_counts(library):
+    """``{kernel: (HGMMA, HMMA)}``: the warpgroup and the warp-level MMA
+    instructions in each kernel's SASS (``cuobjdump -sass`` of the built
+    library)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            mangled = m.group(1)
+            name = next((k for k in ("chain_kernel", "envdet_kernel",
+                                     "window_matmul_kernel", "conv_probe",
+                                     "split_w_kernel") if k in mangled),
+                        mangled[:40])
+            arg = re.search(r"ILi(\d+)E", mangled)
+            if arg:
+                name += f"<{arg.group(1)}>"
+            counts.setdefault(name, [0, 0])
+        elif name and "HGMMA" in line:
+            counts[name][0] += 1
+        elif name and re.search(r"\bHMMA", line):
+            counts[name][1] += 1
+    return {k: tuple(v) for k, v in counts.items()}
+
+
 def kernel_resources(report):
     """``ptxas -v``'s register and spill lines, each labelled with its
     kernel (and template argument: window_matmul's block columns)."""
@@ -313,6 +393,94 @@ def kernel_resources(report):
         elif name and ("registers" in line or "spill" in line):
             out.append(f"{name}: {line.strip()}")
     return out
+
+
+#: short known convolutions for the bare core, (taps, delay D, columns of
+#: 64 outputs): the headline filter; the headline envelope's delay, past
+#: its taps (the first steps skipped), eleven 128-tap units; envdet's
+#: band-pass over 40 columns; one 54-tap phase of envdet's stage 2 over 5
+CORE_CASES = ((175, 174, 64), (1393, 1464, 64), (511, 510, 40), (54, 53, 5))
+
+
+def core_phase(lib, dev):
+    """The bare convolution core (``wgmma_conv.cuh``'s ``conv`` through
+    ``csrc/conv_probe.cu``: one warpgroup, m64n64k8 over up to 64 columns
+    and m64n8k8 over the first 8) on :data:`CORE_CASES` against a float64
+    convolution, taps of unit L1 norm over samples in [-1, 1], so that
+    every output lies in [-1, 1]; returns the largest error."""
+    from audian_torch.ops.cuda._build import check
+    from audian_torch.ops.cuda.chain import _split_taps
+
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    for T, D, ncols in CORE_CASES:
+        taps = rng.standard_normal(T)
+        taps = (taps / np.abs(taps).sum()).astype(np.float32)
+        nsrc = 64 * ncols + D + 8
+        src = rng.uniform(-1.0, 1.0, nsrc).astype(np.float32)
+        full = np.convolve(src.astype(np.float64), taps.astype(np.float64))
+        ref = full[D : D + 64 * ncols]
+        ts = torch.from_numpy(src).to(dev)
+        tp = torch.from_numpy(_split_taps(taps)).to(dev)
+        out = torch.full((64 * ncols,), float("nan"), device=dev)
+        out8 = torch.full((64 * min(ncols, 8),), float("nan"), device=dev)
+        check(lib.conv_probe_launch(
+            ts.data_ptr(), nsrc, tp.data_ptr(), T, D, ncols, out.data_ptr(),
+            out8.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+            "conv_probe")
+        torch.cuda.synchronize()
+        e64 = float(np.abs(out.cpu().numpy() - ref).max())
+        e8 = float(np.abs(out8.cpu().numpy() - ref[: out8.numel()]).max())
+        require(e64 <= TOL_FILTERED and e8 <= TOL_FILTERED,
+                f"core T={T} D={D}: {e64} {e8}")
+        worst = max(worst, e64, e8)
+        print(f"  core T={T} D={D} over {ncols} columns: m64n64k8 "
+              f"{e64:.3e}  m64n8k8 {e8:.3e} against float64")
+    return worst
+
+
+#: the core's rate: blocks of two warpgroups repeating the headline
+#: envelope's convolution (1393 taps at delay 1464), at N columns and one
+#: or two blocks an SM (set by the shared memory a block takes)
+CORE_RATE = ((8, 1), (64, 1), (128, 1), (8, 2), (64, 2), (128, 2))
+
+
+def core_rate(lib, dev):
+    """TFLOP/s (three TF32 passes counted) of the bare core at each
+    :data:`CORE_RATE` width and occupancy, CUDA events: what a wgmma of N
+    columns costs when the two warpgroups of a block (and another block's,
+    at two an SM) interleave."""
+    from audian_torch.ops.cuda._build import check
+    from audian_torch.ops.cuda.chain import _split_taps
+
+    T, D = 1393, 1464
+    rng = np.random.default_rng(SEED)
+    nsrc = 64 * 128 + D + 8
+    src = torch.from_numpy(rng.uniform(-1, 1, nsrc).astype(np.float32)).to(
+        dev)
+    tp = torch.from_numpy(_split_taps(
+        rng.standard_normal(T).astype(np.float32))).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(2 * sms * 256, device=dev)
+    steps = (D + 63) // 8 - (D - T - 6 + 7) // 8 + 1
+    rates = {}
+    for N, per_sm in CORE_RATE:
+        blocks, reps = per_sm * sms, 8
+        smem = 150000 if per_sm == 1 else 100000
+
+        def run():
+            check(lib.conv_rate_launch(
+                src.data_ptr(), nsrc, tp.data_ptr(), T, D, blocks, N, reps,
+                smem, out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream), "conv_rate")
+
+        ms = median_ms(run)
+        flop = blocks * 2 * reps * steps * TF32_PASSES * 64 * N * 8 * 2
+        rates[f"n{N}x{per_sm}"] = flop / ms / 1e9
+        print(f"  core rate at N = {N}, {per_sm} block(s) an SM: "
+              f"{flop / ms / 1e9:.1f} TFLOP/s ({100 * flop / ms / 1e9 / 495:.1f}"
+              f" % of 495)")
+    return rates
 
 
 def chain_work(ck, x_ext, n):
@@ -2831,9 +2999,12 @@ def main():
     from audian_torch.data.wavio import read_frames_raw16, wav_info
     from audian_torch.models import get_preset
     from audian_torch.ops.cuda import _build
+    from audian_torch.ops.cuda.chain import TILES as CHAIN_TILES
+    from audian_torch.ops.cuda.chain import WARPS as CHAIN_WARPS
     from audian_torch.ops.cuda.chain import (ALL_OUTPUTS, TAP_PAD, chain,
                                              chain_plain)
     from audian_torch.ops.cuda.envdet import TILE_MAX as ENVDET_TILE_MAX
+    from audian_torch.ops.cuda.envdet import TILE_MIN as ENVDET_TILE_MIN
     from audian_torch.ops.cuda.envdet import (EnvDetKernel, envdet,
                                               envdet_plain)
     from audian_torch.ops.cuda.envdet import smem_bytes as envdet_smem_bytes
@@ -2866,14 +3037,31 @@ def main():
     require(native_build["ok"], "the native host library builds")
     print(f"  native host library {native.build_dir()} built in "
           f"{native_build['s']:.2f} s")
-    resources = kernel_resources(_build.ptxas_report())
-    for line in resources:
+    report = _build.ptxas_report()
+    for line in kernel_resources(report):
         print("  " + line)
-    for line in resources:
-        m = re.search(r"chain_kernel: .*Used (\d+) registers", line)
-        if m:
-            require(int(m.group(1)) <= 85, "chain_kernel keeps three blocks "
-                    "an SM (85 registers or fewer)")
+    # chain and envdet on warpgroup MMAs: no spill, no wgmma that ptxas
+    # serialized, and HGMMA (not HMMA) in their SASS
+    health = wgmma_health(report)
+    sass = sass_mma_counts(_build.library_path())
+    for name in WGMMA_KERNELS:
+        h = health[name]
+        hg, hm = sass.get(name, (0, 0))
+        print(f"  {name}: {h['registers']} registers, {h['spill_bytes']} "
+              f"spill bytes, wgmma serialized: {h['serialized']}; SASS "
+              f"HGMMA {hg}  HMMA {hm}")
+        require(h["registers"] is not None, f"ptxas reported {name}")
+        require(h["spill_bytes"] == 0, f"{name} spills no register")
+        require(not h["serialized"], f"ptxas serializes no wgmma of {name}")
+        require(hg > 0, f"{name} runs HGMMA")
+    for name, (hg, hm) in sorted(sass.items()):
+        if name not in WGMMA_KERNELS:
+            print(f"  {name}: SASS HGMMA {hg}  HMMA {hm}")
+
+    # -- phase 1b: the convolution core --------------------------------------
+    print("phase 1b: the wgmma convolution core on known convolutions")
+    core_err = core_phase(lib, dev)
+    core_rates = core_rate(lib, dev)
 
     # -- phase 2: window_matmul ----------------------------------------------
     print("phase 2: window_matmul kernel vs plain at 16 ch x 2^20")
@@ -2918,10 +3106,14 @@ def main():
     print("phase 3: chain kernel vs plain at 16 ch x 2^22 int16")
     ck = bio.chain_kernel
     require(ck is not None, "bioacoustics takes the single-pass chain")
-    require(lib.chain_smem_bytes(len(ck.h), len(ck.g), ck.lead, ck.tail)
-            == ck.smem_bytes, "shared-memory formula agrees")
-    require(lib.chain_tile() == 2048, "chain tile")
+    require(lib.chain_smem_bytes(len(ck.h), len(ck.g), ck.delay, ck.lead,
+                                 ck.tail, ck.nfft, ck.tile)
+            == ck.smem_bytes <= _build.SMEM_LIMIT,
+            "shared-memory formula agrees")
+    require(lib.chain_tile_max() == CHAIN_TILES[0], "chain tile")
     require(lib.chain_tap_pad() == TAP_PAD, "chain tap padding")
+    require(lib.chain_warps() == CHAIN_WARPS, "chain statistics partials")
+    print(f"  tile {ck.tile} outputs ({ck.smem_bytes} B shared)")
     q = int16_chunk(gen, (C, ck.hb + CHUNK + ck.ha), dev)
     chain_err, got_q = check_chain(ck, q, CHUNK, "headline int16")
     got_f = chain(ck, dequant16(q), CHUNK, stats=True)
@@ -2951,8 +3143,8 @@ def main():
     print("  all 7 output masks give the full chain's values")
     e_tail, _ = check_chain(ck, qs, n_small - 640, "padded tail n=2^18-640")
     chain_err = max(chain_err, e_tail)
-    # a 24 Hz envelope (14511 taps): the tile needs about 190 KB of shared
-    # memory, above the 48 KB a launch gets without opting in
+    # a 24 Hz envelope (14511 taps): its halos take most of a block's
+    # shared memory, so the host picks a narrower tile
     long_env = FusedChainCF(RATE, filt_sos=bio_sos,
                             env_sos=design_envelope_filter(RATE, 24.0),
                             device=dev).chain_kernel
@@ -2969,8 +3161,9 @@ def main():
     py, pe = max_abs(want[0], ref_y), max_abs(want[1], ref_e)
     require(ky <= TOL_FILTERED and ke <= TOL_ENVELOPE,
             f"long envelope against float64: {ky} {ke}")
-    print(f"  long envelope ({len(long_env.g)} taps, {long_env.smem_bytes} B "
-          f"shared) against float64: kernel filtered {ky:.3e} envelope "
+    print(f"  long envelope ({len(long_env.g)} taps, tile {long_env.tile}, "
+          f"{long_env.smem_bytes} B shared) against float64: kernel "
+          f"filtered {ky:.3e} envelope "
           f"{ke:.3e}; plain filtered {py:.3e} envelope {pe:.3e}")
     chain_err = max(chain_err, ky, ke)
     del got, want, ref_y, ref_e
@@ -3135,11 +3328,15 @@ def main():
           f"({ch_bound[1]})  bound_tc {ch_bound_tc:.4f} ms  [{card}]")
     # one stage requested at a time (the filter always runs): splits the
     # kernel's time by phase
+    ch_stage_ms = {}
     for outputs in (("filtered",), ("envelope",), ("spectrogram",)):
         ms = median_ms(lambda: chain(ck, q, CHUNK, stats=True,
                                      outputs=outputs))
+        ch_stage_ms[outputs[0]] = ms
         print(f"  chain headline chunk, outputs={outputs[0]} only: kernel "
               f"{ms:.4f} ms  [{card}]")
+    print(f"  chain: {100 * ch_bound_tc / ch_ms:.1f} % of bound_tc, tile "
+          f"{ck.tile}  [{card}]")
     hour = [q] + [int16_chunk(gen, q.shape, dev) for _ in range(3)]
 
     def hour_loop(fn):
@@ -3175,7 +3372,8 @@ def main():
     ed, det_chunk = events._make_envdet(fdet, edet, step, halo, dev)
     W = events._CHUNK + 2 * halo
     require(isinstance(ed, EnvDetKernel), "the CLI design takes the kernel")
-    require(lib.envdet_tile_max() == ENVDET_TILE_MAX, "envdet tile")
+    require(lib.envdet_tile_max() == ENVDET_TILE_MAX
+            and lib.envdet_tile_min() == ENVDET_TILE_MIN, "envdet tile")
 
     def smem_agrees(e):
         n = lib.envdet_smem_bytes(e.lb, e.ll, e.step, e.tile)
@@ -3200,23 +3398,31 @@ def main():
     e_n = EnvDetKernel(fdet, edet, step, 1000, hb=halo, device=dev)
     require(e_n.nout % e_n.tile != 0, "nout is not a multiple of the tile")
     env_err = max(env_err, check_envdet(e_n, qd, "nout 1000"))
-    # the 200 Hz envelope at the CLI's step (48): a span that halves the
-    # tile; a 100 Hz one (step 96) spans more than a block holds
+    # the 200 Hz envelope at the CLI's step (48): a span that narrows the
+    # tile; a 100 Hz one (step 96), which the earlier kernel refused, fits
+    # at a narrow tile; a 60 Hz one (step 160) spans more than a block holds
     e200, step200, halo200 = env_design(200.0)
     e_h = EnvDetKernel(fdet, e200, step200, (1 << 18) // step200 + 13,
                        hb=halo200, device=dev)
-    require(e_h.tile < ENVDET_TILE_MAX, "the 200 Hz design halves the tile")
+    require(e_h.tile < ed.tile, "the 200 Hz design narrows the tile")
     print(f"  200 Hz design: taps {e_h.lb} + {e_h.ll}, step {step200}, "
           f"shared {smem_agrees(e_h)} B")
     env_err = max(env_err, check_envdet(e_h, qd, f"200 Hz design, step "
                                         f"{step200}"))
     e100, step100, halo100 = env_design(100.0)
-    made = events._make_envdet(fdet, e100, step100, halo100, dev)
+    e_c = EnvDetKernel(fdet, e100, step100, (1 << 18) // step100 + 13,
+                       hb=halo100, device=dev)
+    print(f"  100 Hz design: taps {e_c.lb} + {e_c.ll}, step {step100}, "
+          f"shared {smem_agrees(e_c)} B")
+    env_err = max(env_err, check_envdet(e_c, qd, f"100 Hz design, step "
+                                        f"{step100}"))
+    e60, step60, halo60 = env_design(60.0)
+    made = events._make_envdet(fdet, e60, step60, halo60, dev)
     require(made is not None and isinstance(made[0], EnvDet),
-            "the 100 Hz design is refused and left to EnvDet")
+            "the 60 Hz design is refused and left to EnvDet")
     long_ed = made[0]
-    print(f"  100 Hz design (taps {long_ed.lb} + {long_ed.ll}, step "
-          f"{step100}): refused by the kernel, EnvDet takes it")
+    print(f"  60 Hz design (taps {long_ed.lb} + {long_ed.ll}, step "
+          f"{step60}): refused by the kernel, EnvDet takes it")
     del long_ed, made
     ref = envdet_f64(ed, qd)
     scale = float(ref.abs().max())
@@ -3378,15 +3584,16 @@ def main():
           f"  bound {env_bound[0]:.4f} ms ({env_bound[1]})  bound_tc "
           f"{env_bound_tc:.4f} ms ({100 * env_bound_tc / env_ms:.1f} % "
           f"reached)  [{card}]")
-    # the tiles the host could pick for this design, widest first
-    tile = ed.tile // 2
-    while tile >= 64:
+    # other tiles the host could pick for this design
+    for tile in (128, 256, 384, 512, 640):
+        if tile == ed.tile or envdet_smem_bytes(
+                ed.lb, ed.ll, step, tile) > _build.SMEM_LIMIT:
+            continue
         et = copy.copy(ed)
         et.tile = tile
         print(f"  envdet headline chunk at tile {tile} "
               f"({envdet_smem_bytes(ed.lb, ed.ll, step, tile)} B shared): "
               f"kernel {median_ms(lambda: envdet(et, qd)):.4f} ms  [{card}]")
-        tile //= 2
     # what reading the (W, C) window costs: the same blocks over a
     # time-contiguous window (the channels end to end, C = 1), and the
     # transposing copy that made one before
@@ -3445,6 +3652,9 @@ def main():
          "launches": launches["chain"], "max_abs_err": chain_err,
          "ms": ch_ms, "plain_ms": ch_plain_ms, "bound_ms": ch_bound[0],
          "bound_by": ch_bound[1], "bound_tc_ms": ch_bound_tc,
+         "bound_share": ch_bound_tc / ch_ms, "tile": ck.tile,
+         "stage_ms": ch_stage_ms, "core_max_abs_err": core_err,
+         "core_tflops": core_rates,
          "library_ms": None, "flac_launches": flac_launches["chain"],
          "multidevice_launches": md_launches["chain"]},
         {"name": "window_matmul", "route": "cuda",
@@ -3453,7 +3663,7 @@ def main():
          "launches": launches["window_matmul"], "max_abs_err": wm_err,
          "ms": wm_ms, "plain_ms": wm_plain_ms, "bound_ms": wm_bound[0],
          "bound_by": wm_bound[1], "bound_tc_ms": wm_bound_tc,
-         "library_ms": wm_lib_ms,
+         "bound_share": wm_bound_tc / wm_ms, "library_ms": wm_lib_ms,
          "multidevice_launches": md_launches["window_matmul"],
          "ifir_launches": ifir_launches, "ifir_ms": ifir_ms},
         {"name": "envdet", "route": "cuda",
@@ -3462,6 +3672,7 @@ def main():
          "launches": det_launches["envdet"], "max_abs_err": env_err,
          "ms": env_ms, "plain_ms": env_plain_ms, "bound_ms": env_bound[0],
          "bound_by": env_bound[1], "bound_tc_ms": env_bound_tc,
+         "bound_share": env_bound_tc / env_ms, "tile": ed.tile,
          "library_ms": None, "flac_launches": flac_launches["envdet"],
          "viewer_launches": viewer_launches,
          "multidevice_launches": md_launches["envdet"]},

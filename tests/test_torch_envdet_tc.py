@@ -1,26 +1,26 @@
-"""The envdet kernel's tensor-core decomposition, emulated on the CPU.
+"""The envdet kernel's decomposition, emulated on the CPU.
 
 ``csrc/envdet.cu`` reads the time-first window ``(W, C)`` as it lies and
-runs both filters as 3xTF32 Toeplitz-block products (``conv_mma`` in
-``csrc/toeplitz_mma.cuh``, with the TF32 split of ``test_torch_tf32x3``):
 
-- stage 1, the band-pass, gathers its 16 x 8 tap slices from the host's
-  split taps (``EnvDetKernel.bp_split``) by the kernel's index formula and
-  multiplies them with row-offset views of the block's input span, split
-  once, in blocks of 16 steps;
+- stage 1, the band-pass, runs on the wgmma convolution core
+  (``csrc/wgmma_conv.cuh``, emulated by ``test_torch_tf32x3.conv_tc``):
+  64 x 8 slices gathered from the host's split taps
+  (``EnvDetKernel.bp_split``), the block's input span split once and
+  written quad-major, 64-column chunks, sums in blocks of 16 steps;
 - the epilogue squares each sample and writes it in polyphase layout,
-  ``z_p[n] = y^2[step n + p]``, one stream of ``zs`` words a phase;
+  ``z_p[n] = y^2[step n + p]``, one fp32 row of ``zs`` words a phase;
 - stage 2 sums, over the phases, correlations of ``q = ceil(ll / step)``
-  phase taps (``phase_taps``, split into ``EnvDetKernel.lp_split``) with
-  ``z_p``; the warps share the phases and add their sums in warp order.
+  reversed phase taps (``phase_rows``: ``EnvDetKernel.lp_phase``) with
+  ``z_p`` in fp32, the phases in ``npg`` shares added in share order.
 
 Each piece is held against float64 over the same float32 taps and against
 the JAX package: its Pallas ``window_matmul`` over the same banks for the
 stages, its Pallas ``EnvDetKernel`` (interpret mode on the CPU) for whole
-windows, at 1e-5 of the output scale.  The MMA's own summation order is
-not emulated; chip_smoke.py holds the kernel to the same budget on the
-card.  The shared-memory formula, the gate that leaves long designs to
-``EnvDet``, and the wrapper's window rules are checked here too.
+windows, at 1e-5 of the output scale.  The MMA's and the FMA loop's own
+summation orders are not emulated; chip_smoke.py holds the kernel to the
+same budget on the card.  The shared-memory formula, the tile choice, the
+gate that leaves long designs to ``EnvDet``, and the wrapper's window
+rules are checked here too.
 """
 
 import numpy as np
@@ -38,11 +38,12 @@ from audian_torch.analysis import events
 from audian_torch.ops.cuda import envdet as envdet_mod
 from audian_torch.ops.cuda._build import SMEM_LIMIT
 from audian_torch.ops.cuda.chain import TAP_PAD
-from audian_torch.ops.cuda.envdet import (TILE_MAX, EnvDetKernel, envdet,
-                                          geometry, phase_taps, smem_bytes)
+from audian_torch.ops.cuda.envdet import (TILE_MAX, TILE_MIN, EnvDetKernel,
+                                          envdet, geometry, phase_rows,
+                                          phase_taps, pick_tile, smem_bytes)
 from audian_torch.ops.design import FilterDesign
 from audian_torch.ops.envdet import EnvDet, _decimating_bank
-from test_torch_tf32x3 import split, steps
+from test_torch_tf32x3 import conv_tc, split, steps
 
 TOL = 1e-5
 HB = 2048
@@ -75,79 +76,51 @@ def _window(dtype, W, C=2, seed=3):
 
 # -- the kernel's arithmetic ------------------------------------------------
 
-def conv_mma_tc(src, tp, T, D, ntiles, nphase=1, src_phase=0, tap_phase=0,
-                groups=1):
-    """``conv_mma``: ``out[b, i] = sum_ph sum_{m<T} taps_ph[m] src[b,
-    ph src_phase + i + D - m]`` for ``i < 128 ntiles``, with ``src`` the
-    split stream ``(hi, lo)`` and the slices gathered from the host's
-    split taps ``tp`` (``[hi | lo]`` blocks ``tap_phase`` apart); the work
-    units (blocks of 16 steps of each phase) shared by ``groups`` warp
-    groups whose sums are added in group order."""
-    hi, lo = src
-    v_lo, v_hi = steps(T, D)
-    nvb = (v_hi - v_lo + 16) // 16
-    units = nphase * nvb
-    per = -(-units // groups)
-    nn = torch.arange(16)[:, None]
-    kk = torch.arange(8)[None, :]
-    U = torch.arange(8 * ntiles)[None, :]
-    total = 0.0
-    for grp in range(groups):
-        acc = torch.zeros(hi.shape[0], 16, 8 * ntiles)
-        for u in range(grp * per, min((grp + 1) * per, units)):
-            ph, ub = divmod(u, nvb)
-            vb = v_lo + 16 * ub
-            part = torch.zeros_like(acc)
-            for v in range(vb, min(vb + 16, v_hi + 1)):
-                idx = ph * tap_phase + TAP_PAD + D + nn - kk - 8 * v
-                ah, al = tp[idx], tp[idx + T + 2 * TAP_PAD]
-                col = ph * src_phase + 16 * U + 8 * v + kk.T
-                bh, bl = hi[:, col], lo[:, col]
-                part = part + ((ah @ bl + al @ bh) + ah @ bh)
-            acc = acc + part
-        total = total + acc
-    return total.transpose(1, 2).reshape(hi.shape[0], -1)
-
-
 def polyphase(u, step, zs):
-    """The epilogue's layout: ``u`` (B, ny) at word ``(i % step) zs +
-    i // step`` of a zeroed ``(B, step zs)`` stream."""
-    i = torch.arange(u.shape[1])
-    z = torch.zeros(u.shape[0], step * zs)
-    z[:, (i % step) * zs + i // step] = u
+    """The epilogue's layout: ``u`` (B, ny) at ``z[:, i % step, i //
+    step]`` of zeroed ``(B, step, zs)`` rows, with the kernel's division
+    by the step as a multiply by ``ceil(2^32 / step)``."""
+    i = torch.arange(u.shape[1], dtype=torch.int64)
+    inv = ((1 << 32) + step - 1) // step
+    n = (i * inv) >> 32
+    z = torch.zeros(u.shape[0], step, zs)
+    z[:, i - n * step, n] = u
     return z
 
 
 def stage1_tc(ed, span):
-    """Stage 1 over staged spans ``(B, xwords)``: y over ``ny`` samples."""
-    _, ny, nt1, _, _, _ = geometry(ed.lb, ed.ll, ed.step, ed.tile)
-    return conv_mma_tc(split(span), ed.bp_split, ed.lb, ed.lb - 1,
-                       nt1)[:, :ny]
+    """Stage 1 over staged spans ``(B, nx)``: y over ``ny`` samples."""
+    _, _, ny, ncols1, _, _, _ = geometry(ed.lb, ed.ll, ed.step, ed.tile)
+    return conv_tc(span, ed.bp_split, ed.lb, ed.lb - 1, ncols1)[:, :ny]
 
 
 def stage2_tc(ed, y):
-    """Stage 2 over band-passed spans ``(B, ny)``: e over the tile."""
-    q, _, _, nt2, _, zs = geometry(ed.lb, ed.ll, ed.step, ed.tile)
+    """Stage 2 over band-passed spans ``(B, ny)``: e over the tile, fp32,
+    the phases in the kernel's shares ``p % npg`` added in share order."""
+    _, q8, _, _, _, zs, npg = geometry(ed.lb, ed.ll, ed.step, ed.tile)
     z = polyphase(y * y, ed.step, zs)
-    e = conv_mma_tc(split(z), ed.lp_split, q, q - 1, nt2, ed.step, zs,
-                    2 * (q + 2 * TAP_PAD), groups=envdet_mod._NWARP)
-    return e[:, : ed.tile]
+    win = z.unfold(2, q8, 1)[:, :, : ed.tile]          # (B, step, T, q8)
+    part = torch.einsum("bptm,pm->bpt", win, ed.lp_phase)
+    e = 0.0
+    for pg in range(npg):
+        e = e + part[:, pg::npg].sum(1)
+    return e
 
 
 def spans(ed, xw):
-    """Each block's staged input span, ``(ntile C, xwords)``, channel
-    fastest as the grid: dequantized, zero past ``nx`` and outside
-    ``[0, W)``."""
+    """Each block's staged input span, ``(ntile C, nx)``, channel fastest
+    as the grid: dequantized, zero outside ``[0, W)``."""
     x = xw.float() / 32768.0 if xw.dtype == torch.int16 else xw.float()
     W, C = x.shape
-    _, ny, _, _, xwords, _ = geometry(ed.lb, ed.ll, ed.step, ed.tile)
+    _, _, ny, _, _, _, _ = geometry(ed.lb, ed.ll, ed.step, ed.tile)
+    nx = ny + ed.lb - 1
     ntile = -(-ed.nout // ed.tile)
     j0 = torch.arange(ntile) * ed.tile
     x0 = ed.hb + j0 * ed.step + ed.d_lp - (ed.ll - 1) + ed.d_bp - (ed.lb - 1)
-    s = x0[:, None] + torch.arange(xwords)[None, :]
-    ok = (torch.arange(xwords) < ny + ed.lb - 1)[None, :] & (s >= 0) & (s < W)
+    s = x0[:, None] + torch.arange(nx)[None, :]
+    ok = (s >= 0) & (s < W)
     sp = torch.where(ok[..., None], x[s.clamp(0, W - 1)], 0.0)
-    return sp.permute(0, 2, 1).reshape(ntile * C, xwords)
+    return sp.permute(0, 2, 1).reshape(ntile * C, nx)
 
 
 def envdet_tc(ed, xw):
@@ -204,28 +177,34 @@ def test_phase_taps_sum_to_the_envelope(step):
 
 @pytest.mark.parametrize("step", [1, 3, 7, 19])
 def test_polyphase_layout_round_trip(step):
-    """The epilogue's words ``(i % step) zs + i // step`` are distinct, sit
-    before each phase's zero tail and inside the stream; reading ``z_p[n]
-    = z[p zs + n]`` gives back ``u[step n + p]`` exactly, and stage 2's
-    reads (``128 nt2 + q + 14`` words a phase) stay inside ``zs``."""
-    q, ny, _, nt2, _, zs = geometry(511, 1023, step, TILE_MAX)
+    """The epilogue's words ``(i % step) zs + i // step`` (the division a
+    multiply by ``ceil(2^32 / step)``) are distinct and inside the rows;
+    reading ``z_p[n]`` gives back ``u[step n + p]`` exactly, each row zero
+    past its samples, and stage 2's reads (``z_p[j + m]``, ``j < T``, ``m <
+    q8 + 8``) stay inside ``zs``, the taps of ``phase_rows`` zero past
+    ``q``."""
+    tile = pick_tile(511, 1023, step)
+    q, q8, ny, _, _, zs, _ = geometry(511, 1023, step, tile)
     u = torch.from_numpy(np.random.default_rng(step).standard_normal(
         (2, ny)).astype(np.float32))
-    z = polyphase(u, step, zs).reshape(2, step, zs)
+    z = polyphase(u, step, zs)
     i = np.arange(ny)
     words = (i % step) * zs + i // step
     assert len(set(words.tolist())) == ny and words.max() < step * zs
     for p in range(step):
-        nv = -(-(ny - p) // step)          # the kernel's zero-tail start
+        nv = -(-(ny - p) // step)
         assert torch.equal(z[:, p, :nv], u[:, p::step])
         assert not bool(z[:, p, nv:].any())
-    assert 128 * nt2 + q + 14 <= zs
+    assert tile + q8 + 8 <= zs and q <= q8 < q + 8
+    rows = phase_rows(np.arange(1, 1024, dtype=np.float64), step)
+    assert rows.shape == (step, q8) and not rows[:, q:].any()
 
 
 def test_split_taps_follow_the_kernel_layout():
     """``bp_split`` is ``[hi | lo]`` of the band-pass with TAP_PAD zeros
-    each side, ``lp_split`` one such block a phase; the slices the kernel
-    gathers cover every true tap of each."""
+    each side, and the core's slices cover every true tap within the
+    padding; ``lp_phase`` holds each phase's taps reversed: ``r_p[m] =
+    g_lp[ll-1 - step m - p]``, zero past the taps."""
     ed = _kernel(DETECT, 19, 300)
     q = -(-ed.ll // ed.step)
     hi, lo = split(ed.g_bp)
@@ -234,16 +213,17 @@ def test_split_taps_follow_the_kernel_layout():
     assert torch.equal(ed.bp_split[TAP_PAD : TAP_PAD + ed.lb], hi)
     assert torch.equal(ed.bp_split[n + TAP_PAD : n + TAP_PAD + ed.lb], lo)
     assert not bool(ed.bp_split[:TAP_PAD].any())
-    blocks = ed.lp_split.reshape(ed.step, 2, q + 2 * TAP_PAD)
-    taps = torch.from_numpy(phase_taps(ed.g_lp_np, ed.step))
-    hi, lo = split(taps)
-    assert torch.equal(blocks[:, 0, TAP_PAD : TAP_PAD + q], hi)
-    assert torch.equal(blocks[:, 1, TAP_PAD : TAP_PAD + q], lo)
-    for T in (ed.lb, q):
-        v_lo, v_hi = steps(T, T - 1)
-        # A_v holds taps[T - 1 - 8 v + (-7 .. 15)]
-        assert v_lo == 0 and T - 1 - 8 * v_hi - 7 <= 0
-        assert T - 1 - 8 * v_hi - 7 > -TAP_PAD and T - 1 + 15 < T + TAP_PAD
+    v_lo, v_hi = steps(ed.lb, ed.lb - 1)
+    # A_v holds taps[lb - 1 - 8 v + (-7 .. 63)]
+    assert v_lo == 0 and ed.lb - 1 - 8 * v_hi - 7 <= 0
+    assert ed.lb - 1 - 8 * v_hi - 7 >= -TAP_PAD
+    assert ed.lb - 1 + 63 < ed.lb + TAP_PAD
+    g = ed.g_lp_np.astype(np.float32)
+    r = ed.lp_phase.numpy()
+    for p in range(ed.step):
+        for m in range(r.shape[1]):
+            k = ed.ll - 1 - ed.step * m - p
+            assert r[p, m] == (g[k] if m < q and k >= 0 else 0.0)
 
 
 # -- the stages ---------------------------------------------------------------
@@ -253,16 +233,20 @@ def test_stage1_toeplitz_slices(design):
     """Stage 1 over one int16 span per block against float64 and the JAX
     package's window_matmul (dequant premap) over the band-pass bank."""
     ed = _kernel(design, 19, 300)
-    _, ny, nt1, _, xwords, _ = geometry(ed.lb, ed.ll, ed.step, ed.tile)
-    q16 = _window("int16", xwords, C=2, seed=5).T.copy()    # (2, xwords)
+    _, _, ny, _, _, _, _ = geometry(ed.lb, ed.ll, ed.step, ed.tile)
+    nx = ny + ed.lb - 1
+    q16 = _window("int16", nx, C=2, seed=5).T.copy()          # (2, nx)
     y = stage1_tc(ed, torch.from_numpy(q16).float() / 32768.0)
     x64 = torch.from_numpy(q16).double()[:, None] / 32768.0
     g = torch.flip(ed.g_bp.double(), (0,)).reshape(1, 1, -1)
     y64 = torch.nn.functional.conv1d(x64, g)[:, 0, :ny]
     bank = EnvDet(*(FilterDesign.from_sos(s) for s in _sos(*design)), 19,
                   300, HB, device="cpu").w_bp
-    yj = np.asarray(jax_wm(jnp.asarray(q16), jnp.asarray(bank.numpy()), 128,
-                           nt1, premap=_dequant, out_layout="fco"))
+    nt = -(-ny // 128)
+    need = (nt - 1) * 128 + bank.shape[0]
+    qp = np.pad(q16, [(0, 0), (0, max(0, need - nx))])
+    yj = np.asarray(jax_wm(jnp.asarray(qp), jnp.asarray(bank.numpy()), 128,
+                           nt, premap=_dequant, out_layout="fco"))
     yj = yj.transpose(1, 0, 2).reshape(2, -1)[:, :ny]
     scale = float(y64.abs().max())
     assert_close(y, y64, scale, "stage 1 vs float64")
@@ -271,11 +255,11 @@ def test_stage1_toeplitz_slices(design):
 
 @pytest.mark.parametrize("step", [1, 3, 7, 19])
 def test_stage2_polyphase_sum(step):
-    """Stage 2 (the square, the polyphase layout and the sum over phases of
-    Toeplitz MMAs) over a band-passed span against float64 and the JAX
+    """Stage 2 (the square, the polyphase layout and the sum over phases
+    in shares) over a band-passed span against float64 and the JAX
     package's window_matmul (square premap) over the decimating bank."""
     ed = _kernel(DETECT, step, 600)
-    _, ny, _, nt2, _, _ = geometry(ed.lb, ed.ll, ed.step, ed.tile)
+    _, _, ny, _, _, _, _ = geometry(ed.lb, ed.ll, ed.step, ed.tile)
     y = torch.from_numpy((0.2 * np.random.default_rng(step).standard_normal(
         (2, ny))).astype(np.float32))
     e = stage2_tc(ed, y)
@@ -283,6 +267,7 @@ def test_stage2_polyphase_sum(step):
     g = torch.flip(ed.g_lp.double(), (0,)).reshape(1, 1, -1)
     e64 = torch.nn.functional.conv1d(u, g, stride=step)[:, 0, : ed.tile]
     b2 = _decimating_bank(ed.g_lp_np, step)
+    nt2 = -(-ed.tile // 128)
     need = (nt2 - 1) * 128 * step + b2.shape[0]
     yp = np.pad(y.numpy(), [(0, 0), (0, max(0, need - ny))])
     ej = np.asarray(jax_wm(jnp.asarray(yp), jnp.asarray(b2), 128 * step, nt2,
@@ -314,9 +299,9 @@ def test_envdet_decomposition_matches_jax(step, dtype):
 def test_envdet_decomposition_detector_design(dtype):
     """The song detector's 96 kHz design (511 + 1023 taps, step 19) over a
     short window: two blocks a channel, the second one partial."""
-    nout = 300
+    nout = 500
     ed = _kernel(DETECT, 19, nout)
-    assert ed.tile == TILE_MAX and nout % ed.tile
+    assert ed.tile == 320 and ed.tile < nout < 2 * ed.tile
     x = _window(dtype, ed.window_need(HB) + 100, seed=7)
     got = envdet_tc(ed, torch.from_numpy(x))
     want = np.asarray(_jax_kernel(DETECT, 19, nout)(x, HB))
@@ -329,39 +314,39 @@ def test_envdet_decomposition_detector_design(dtype):
 # -- shared memory and the gate -----------------------------------------------
 
 @pytest.mark.parametrize("cutoff,step,tile", [
-    (500.0, 19, 256),      # the CLI's default: two blocks an SM
-    (500.0, 1, 256),
-    (200.0, 48, 128),      # the CLI's 200 Hz design: the tile halves
+    (500.0, 19, 320),      # the CLI's default: two blocks an SM
+    (500.0, 1, 4096),
+    (200.0, 48, 256),      # the CLI's 200 Hz design: one block an SM
 ])
 def test_smem_bytes_follows_the_geometry(cutoff, step, tile):
-    """``smem_bytes`` is the split span (or the stage-2 meeting point)
-    plus the split polyphase stream, and the host takes the widest tile
-    that fits a block."""
+    """``smem_bytes`` is the split span (or stage 2's shares, where larger)
+    plus the fp32 polyphase rows; the host's tile fits a block, and no
+    tile of less band-pass work an output fits as well."""
     fd, edes = (FilterDesign.from_sos(s)
                 for s in _sos(96000.0, (1000.0, 10000.0), cutoff))
     ed = EnvDetKernel(fd, edes, step, 5000, events.detect_halo(fd, edes),
                       device="cpu")
-    q, ny, nt1, nt2, xwords, zs = geometry(ed.lb, ed.ll, step, ed.tile)
-    assert ed.tile == tile
+    q, q8, ny, ncols1, nu1, zs, npg = geometry(ed.lb, ed.ll, step, ed.tile)
+    assert ed.tile == tile and tile % 64 == 0
     assert (q, ny) == (-(-ed.ll // step), (tile - 1) * step + ed.ll)
-    assert xwords >= 128 * nt1 + ed.lb - 1 + 15 and xwords % 32 == 0
-    assert zs >= 128 * nt2 + q - 1 + 15 and zs % 32 == 0
-    want = 4 * (max(2 * xwords, (envdet_mod._NWARP - 1) * 128 * nt2)
-                + 2 * step * zs)
+    assert nu1 % 2 == 1 and 64 * nu1 >= 64 * max(ncols1, 64) + ed.lb + 6
+    assert zs == tile + q8 + 8 and npg * min(tile // 8, 256) <= 256
+    want = max(512 * nu1, 4 * npg * tile) + 4 * step * zs
     assert smem_bytes(ed.lb, ed.ll, step, tile) == want <= SMEM_LIMIT
-    if tile < TILE_MAX:
-        assert smem_bytes(ed.lb, ed.ll, step, 2 * tile) > SMEM_LIMIT
     if (cutoff, step) == (500.0, 19):
-        assert want == 104960
+        assert want == 91136 and 2 * want <= envdet_mod.SMEM_PAIR
 
 
 def test_gate_on_both_sides():
-    """The CLI design takes the kernel; a 100 Hz envelope at the CLI's
-    step (96) spans more than a block holds at any tile, so the kernel
-    refuses it and the chunk driver takes the two-stage EnvDet."""
+    """The CLI design and a 100 Hz envelope at the CLI's step (96), which
+    the kernel's earlier gate refused, take the kernel; a 60 Hz envelope
+    (step 160, 16383 taps) spans more than a block holds at any tile, so
+    the kernel refuses it and the chunk driver takes the two-stage
+    EnvDet."""
     fd = FilterDesign.from_sos(_sos(*DETECT)[0])
     cpu = torch.device("cpu")
-    for cutoff, cls in ((500.0, EnvDetKernel), (100.0, EnvDet)):
+    for cutoff, cls in ((500.0, EnvDetKernel), (100.0, EnvDetKernel),
+                        (60.0, EnvDet)):
         edes = FilterDesign.from_sos(_sos(96000.0, (1000.0, 10000.0),
                                           cutoff)[1])
         step = int(round(96000.0 / (10 * cutoff)))
@@ -369,7 +354,7 @@ def test_gate_on_both_sides():
         ed, _ = events._make_envdet(fd, edes, step, halo, cpu)
         assert type(ed) is cls
         if cls is EnvDet:
-            assert smem_bytes(ed.lb, ed.ll, step, 1) > SMEM_LIMIT
+            assert smem_bytes(ed.lb, ed.ll, step, TILE_MIN) > SMEM_LIMIT
             with pytest.raises(ValueError, match="shared memory"):
                 EnvDetKernel(fd, edes, step, 5000, halo, device="cpu")
 

@@ -201,6 +201,7 @@ def test_cli_design_geometry_equals_jax():
     both packages pick the single-pass kernel with the same geometry."""
     from audian_tpu.ops import FilterDesign as JaxDesign
     from audian_tpu.ops.pallas.envdet import EnvDetKernel as JaxKernel
+    from audian_torch.ops.cuda.envdet import pick_tile
     from audian_torch.ops.design import FilterDesign
 
     rate = 96000.0
@@ -218,7 +219,7 @@ def test_cli_design_geometry_equals_jax():
             == (jed.lb, jed.d_bp, jed.ll, jed.d_lp, jed.nout, jed.hb)
             == (511, 255, 1023, 511, 110376, 2048))
     assert ted.window_need(halo) == jed.window_need(halo) <= (1 << 21) + 4096
-    assert ted.tile == 256
+    assert ted.tile == pick_tile(511, 1023, 19) == 320
 
 
 def _two_songs(seed=1):

@@ -35,8 +35,10 @@ from audian_tpu.ops.pallas.window_matmul import window_matmul as jax_wm
 
 from audian_torch.convert import ARRAY_KEYS, chain_from_arrays
 from audian_torch.models import get_preset
-from audian_torch.ops.cuda.chain import (TAP_PAD, TILE, ChainKernel,
-                                         split_tf32)
+from audian_torch.ops.cuda._build import SMEM_LIMIT
+from audian_torch.ops.cuda.chain import (TAP_PAD, TILES, ChainKernel,
+                                         _pair_columns, fits, geometry,
+                                         pick_tile, smem_bytes, split_tf32)
 from audian_torch.ops.design import FilterDesign
 from audian_torch.ops.envdet import EnvDet
 from audian_torch.ops.fused import FusedChainCF
@@ -95,74 +97,163 @@ def test_rna_rounds_like_cvt():
     assert torch.equal(torch.from_numpy(l), lo)
 
 
-# -- the chain kernel's decomposition ---------------------------------------
+# -- the wgmma convolution core (csrc/wgmma_conv.cuh) ----------------------
+
+VB = 16                # 8-tap steps a unit (128 taps)
+
 
 def steps(T, D):
-    """The kernel's 8-tap steps ``[v_lo, v_hi]`` (``conv_mma``)."""
+    """The core's 8-tap steps ``[v_lo, v_hi]`` whose 64 x 8 slices meet a
+    tap (``wgconv::steps``)."""
     x = D - T - 6
-    return ((x + 7) // 8 if x > 0 else 0), (D + 15) // 8
+    return ((x + 7) // 8 if x > 0 else 0), (D + 63) // 8
 
 
-def conv_tc(src, taps, D, nout, split=1):
-    """``out[b, i] = sum_m taps[m] src[b, i + D - m]`` for ``i < nout`` as
-    ``conv_mma`` runs it: ``out[16 U + n] = sum_v A_v[n, :] src[16 U + 8 v
-    + (0..7)]`` with ``A_v[n, k] = taps[n - k + D - 8 v]``, in blocks of 16
-    steps, the blocks shared by ``split`` groups whose sums are added in
-    order."""
-    T = len(taps)
+def qm_word(i, nu):
+    """Word of sample ``i`` in one part of a quad-major stream of ``nu``
+    rows a plane (``wgconv::qm_word``)."""
+    return 4 * (((i >> 2) & 15) * nu + (i >> 6)) + (i & 3)
+
+
+def quad_major(x, nu):
+    """``x (B, n)`` written into a quad-major stream ``(B, 64 nu)``, zero
+    past its end, as the kernels' fills write it."""
+    out = torch.zeros(x.shape[0], 64 * nu, dtype=x.dtype)
+    i = torch.arange(min(x.shape[1], 64 * nu))
+    out[:, qm_word(i, nu)] = x[:, : len(i)]
+    return out
+
+
+def b_operand(words, nu, row0, v, N):
+    """``B_v (B, 8, N)`` as the wgmma descriptor reads it from a stream:
+    start ``4 (2 (v % 8) nu + v // 8 + row0)`` words, ``LBO = 4 nu`` words
+    between the two k-quads, ``SBO = 32`` words between 8-column groups,
+    each core matrix eight 4-word rows."""
+    k = torch.arange(8)[:, None]
+    U = torch.arange(N)[None, :]
+    addr = (4 * (2 * (v % 8) * nu + v // 8 + row0) + (k // 4) * 4 * nu
+            + (U // 8) * 32 + (U % 8) * 4 + k % 4)
+    return words[:, addr]
+
+
+def a_operand(tp, T, D, v, ph_off=0):
+    """``A_v (64, 8)`` gathered from the host's split taps (``[hi | lo]``,
+    each ``T + 2 TAP_PAD`` long): ``(hi, lo)``."""
+    n = torch.arange(64)[:, None]
+    k = torch.arange(8)[None, :]
+    idx = ph_off + TAP_PAD + D + n - k - 8 * v
+    return tp[idx], tp[idx + T + 2 * TAP_PAD]
+
+
+def conv_core(parts, nu, tp, T, D, col0, N, units, nvb, v_lo, v_hi,
+              src_rows=0, tap_phase=0):
+    """``wgconv::conv``: the sum over ``units`` (phase ``u // nvb``, 16
+    steps each) for the ``N`` columns from ``col0``, each unit's partial
+    of three TF32 passes added to the total in fp32: ``(B, 64, N)``,
+    ``out[64 (col0 + U) + n]`` at ``[:, n, U]``."""
+    hi, lo = parts
+    total = torch.zeros(hi.shape[0], 64, N)
+    for u in units:
+        ph, ub = divmod(u, nvb)
+        vb = v_lo + VB * ub
+        part = torch.zeros_like(total)
+        for v in range(vb, min(vb + VB, v_hi + 1)):
+            ah, al = a_operand(tp, T, D, v, ph * tap_phase)
+            bh = b_operand(hi, nu, ph * src_rows + col0, v, N)
+            bl = b_operand(lo, nu, ph * src_rows + col0, v, N)
+            part = part + ((ah @ bl + al @ bh) + ah @ bh)
+        total = total + part
+    return total
+
+
+def stream_rows(ncols, D):
+    return ((64 * ncols + D + 7 + 63) // 64) | 1
+
+
+def chunks(ncols, N):
+    """``(col0, from, width)`` of a stage's chunks: ``N`` columns each, the
+    last one moved back to end at ``ncols`` (its columns below ``from``
+    left to the chunk before)."""
+    return [(min(ch * N, max(ncols - N, 0)), ch * N, N)
+            for ch in range(-(-ncols // N))]
+
+
+def conv_tc(src, tp, T, D, ncols, N=64):
+    """``out[b, i] = sum_m taps[m] src[b, i + D - m]`` for ``i < 64
+    ncols`` as a kernel stage runs it: the source split and written
+    quad-major, the stage's chunks (:func:`chunks`), each through
+    :func:`conv_core` over all its units."""
     v_lo, v_hi = steps(T, D)
-    per = -(-((v_hi - v_lo + 16) // 16) // split) * 16
-    tp = torch.zeros(T + 2 * TAP_PAD)
-    tp[TAP_PAD : TAP_PAD + T] = taps
-    nn = torch.arange(16)[:, None]
-    kk = torch.arange(8)[None, :]
-    U = torch.arange(nout // 16)[None, :]
-    need = 16 * (nout // 16) + 8 * v_hi + 8
-    src = torch.nn.functional.pad(src, (0, max(0, need - src.shape[1])))
-    total = 0.0
-    for v0 in range(v_lo, v_hi + 1, per):
-        acc = torch.zeros(src.shape[0], 16, nout // 16)
-        for vb in range(v0, min(v0 + per, v_hi + 1), 16):
-            part = torch.zeros_like(acc)
-            for v in range(vb, min(vb + 16, v_hi + 1)):
-                a = tp[TAP_PAD + nn - kk + D - 8 * v]
-                b = src[:, 16 * U + 8 * v + kk.T]            # (B, 8, nU)
-                part = part + mm3(a, b)
-            acc = acc + part
-        total = total + acc
-    return total.transpose(1, 2).reshape(src.shape[0], nout)
+    nvb = (v_hi - v_lo + VB) // VB
+    plan = chunks(ncols, N)
+    nu = stream_rows(max([ncols] + [w for _, _, w in plan]), D)
+    hi, lo = split(src)
+    parts = (quad_major(hi, nu), quad_major(lo, nu))
+    out = torch.zeros(src.shape[0], 64, ncols)
+    for col0, start, w in plan:
+        acc = conv_core(parts, nu, tp, T, D, col0, w, range(nvb), nvb, v_lo,
+                        v_hi)
+        for U in range(max(start, col0), min(col0 + w, ncols)):
+            out[:, :, U] = acc[:, :, U - col0]
+    return out.transpose(1, 2).reshape(src.shape[0], 64 * ncols)
 
 
 def chain_tc(ck, x_ext, n):
-    """The chain kernel's arithmetic over ``x_ext = [hb | n | ha...]``:
-    ``(y, e, psd)`` shaped (C, n), (C, n), (n // 128, C, nbins)."""
+    """The chain kernel's arithmetic over ``x_ext = [hb | n | ha...]``, at
+    the tile the host picks: ``(y, e, psd)`` shaped (C, n), (C, n),
+    (n // 128, C, nbins)."""
     x = x_ext.float() / 32768.0 if x_ext.dtype == torch.int16 \
         else x_ext.float()
     C = x.shape[0]
-    Tf, L = len(ck.h), len(ck.g)
-    ylen = TILE + ck.lead + ck.tail
+    Tf, L, tj = len(ck.h), len(ck.g), ck.tile
+    ylen = tj + ck.lead + ck.tail
     xspan = ylen + Tf - 1
-    ntiles = -(-n // TILE)
-    x = torch.nn.functional.pad(x, (0, ck.hb + ntiles * TILE + xspan))
-    src = torch.stack([x[:, ck.hb + j * TILE - ck.lead - (Tf - 1):][:, :xspan]
+    ntiles = -(-n // tj)
+    x = torch.nn.functional.pad(x, (0, ck.hb + ntiles * tj + xspan))
+    src = torch.stack([x[:, ck.hb + j * tj - ck.lead - (Tf - 1):][:, :xspan]
                        for j in range(ntiles)], 1).reshape(-1, xspan)
-    ys = conv_tc(src, ck.h, Tf - 1, ylen)
-    y = ys[:, ck.lead : ck.lead + TILE].reshape(C, -1)[:, :n]
-    e = conv_tc((math.pi / 2) * ys.abs(), ck.g, ck.lead + ck.delay, TILE,
-                split=2)
+    ys = conv_tc(src, ck.h_split, Tf, Tf - 1, ylen // 64)
+    y = ys[:, ck.lead : ck.lead + tj].reshape(C, -1)[:, :n]
+    ncols = tj // 64
+    e = conv_tc((math.pi / 2) * ys.abs(), ck.g_split, L, ck.lead + ck.delay,
+                ncols, N=128 if ncols >= 256 else 64)
     e = e.clamp_min(0.0) if ck.env_clamp else e
     e = e.reshape(C, -1)[:, :n]
+    # the PSD: 64-frame tiles (A, split on the fly) against ws_slices
     nfft, half = ck.nfft, ck.nbins - 1
+    nfr = tj // 128
     fr = torch.stack([ys[:, ck.lead + 128 * f : ck.lead + 128 * f + nfft]
-                      for f in range(TILE // 128)], 1)   # (B, 16, nfft)
-    s = 0.0
-    for k0 in range(0, nfft, 128):
-        s = s + mm3(fr[..., k0 : k0 + 128], ck.ws_pairs[k0 : k0 + 128])
+                      for f in range(nfr)], 1)           # (B, nfr, nfft)
+    fh, fl = split(fr)
+    bh, bl = psd_operand(ck.ws_slices, nfft)
+    s = (fh @ bl + fl @ bh) + fh @ bh                    # (B, nfr, nfft)
     re, im = s[..., 0::2], s[..., 1::2]
     p = re * re + im * im
     psd = torch.cat([re[..., :1] ** 2, p[..., 1:], im[..., :1] ** 2], -1)
     psd = psd.reshape(C, -1, ck.nbins)[:, : n // 128].transpose(0, 1)
     return y, e, psd
+
+
+def psd_operand(slices, nfft):
+    """``(hi, lo)`` of the PSD's B operand, ``(nfft, nfft)``, read from the
+    host's slices as the kernel's descriptors read them: slice ``(cg, kk)``
+    holds rows ``8 kk ..``, columns ``128 cg ..``; a part's core matrices
+    sit 2048 bytes apart along K (LBO) and 128 bytes along N (SBO)."""
+    nk = nfft // 8
+    k = torch.arange(8)[:, None]
+    c = torch.arange(128)[None, :]
+    out = []
+    for part in (0, 1):
+        B = torch.zeros(nfft, nfft)
+        for cg in range(nfft // 128):
+            for kk in range(nk):
+                base = (cg * nk + kk) * 2048 + part * 1024
+                addr = base + (k // 4) * 512 + (c // 8) * 32 + (c % 8) * 4 \
+                    + k % 4
+                B[8 * kk : 8 * kk + 8, 128 * cg : 128 * cg + 128] = \
+                    slices[addr]
+        out.append(B)
+    return tuple(out)
 
 
 def psd_db_err(got, want):
@@ -194,10 +285,10 @@ def _stream(ck, n, seed):
 
 
 def test_steps_cover_the_true_taps(chains):
-    """The kernel's slices cover every true tap and little else (the zero
-    corners of the first and last slices), and the sub-blocks of the TPU's
-    banks that act_f / act_e leave out hold no tap: covering the taps
-    skips them."""
+    """The core's 64 x 8 slices cover every true tap and little else (the
+    zero corners of the first and last slices, within the host's zero
+    padding), and the sub-blocks of the TPU's banks that act_f / act_e
+    leave out hold no tap: covering the taps skips them."""
     _, tc = chains
     ck = tc.chain_kernel
     for taps, D, bank, act in (
@@ -205,10 +296,10 @@ def test_steps_cover_the_true_taps(chains):
             (ck.g, ck.lead + ck.delay, ck.we, ck.act_e)):
         T = len(taps)
         v_lo, v_hi = steps(T, D)
-        # A_v holds taps[D - 8 v + (-7 .. 15)]
-        m_lo, m_hi = D - 8 * v_hi - 7, D - 8 * v_lo + 15
-        assert -TAP_PAD < m_lo <= 0 and T - 1 <= m_hi < T + TAP_PAD
-        assert 8 * (v_hi - v_lo + 1) <= T + 30
+        # A_v holds taps[D - 8 v + (-7 .. 63)]
+        m_lo, m_hi = D - 8 * v_hi - 7, D - 8 * v_lo + 63
+        assert -TAP_PAD <= m_lo <= 0 and T - 1 <= m_hi < T + TAP_PAD
+        assert 8 * (v_hi - v_lo + 1) <= T + 64 + 14
         active = {kb for kb, _ in act}
         skipped = [kb for kb in range(bank.shape[0] // 128)
                    if kb not in active]
@@ -275,6 +366,84 @@ def test_chain_decomposition_long_envelope():
     assert float((y.double() - yf[:, ck.lead : ck.lead + n]).abs().max()) \
         <= TOL
     assert float((e.double() - ef).abs().max()) <= TOL
+
+
+# -- the core's layouts and the host's tile -----------------------------------
+
+@pytest.mark.parametrize("nu", [73, 157, 285])
+def test_quad_major_layout_round_trip(nu):
+    """Every sample of a quad-major stream has its own word, and what the
+    wgmma descriptor of a step reads (``b_operand``) is ``src[64 (col0 +
+    U) + 8 v + k]``, for any step, column offset and width; eight
+    consecutive quads of a warp's fill land in eight distinct 16-byte bank
+    groups (``nu`` odd)."""
+    i = torch.arange(64 * nu)
+    words = qm_word(i, nu)
+    assert len(set(words.tolist())) == 64 * nu and int(words.max()) < 64 * nu
+    src = torch.arange(64 * nu, dtype=torch.float64)[None]
+    stream = quad_major(src, nu)
+    for v in (0, 1, 7, 8, 13, 23):
+        for col0, N in ((0, 64), (5, 8), (nu - 64 - 4, 64)):
+            got = b_operand(stream, nu, col0, v, N)[0]
+            k = torch.arange(8)[:, None]
+            U = torch.arange(N)[None, :]
+            assert torch.equal(got, (64 * (col0 + U) + 8 * v + k).double())
+    quads = torch.arange(8)
+    groups = (4 * (quads * nu) // 4) % 8
+    assert len(set(groups.tolist())) == 8
+
+
+def test_psd_slices_follow_the_descriptor(chains):
+    """The host's PSD slices, read as the kernel's descriptors read them,
+    give back the TF32 split of the pair-interleaved analysis matrix
+    exactly."""
+    _, tc = chains
+    ck = tc.chain_kernel
+    bh, bl = psd_operand(ck.ws_slices, ck.nfft)
+    hi, lo = split(torch.from_numpy(_pair_columns(ck.ws.numpy())))
+    assert torch.equal(bh, hi) and torch.equal(bl, lo)
+    assert ck.ws_slices.numel() == 2 * ck.nfft * ck.nfft
+
+
+def pr10_smem_bytes(Tf, lead, tail):
+    """Shared memory of the earlier chain kernel's block (2048 outputs,
+    the split input span, the filtered span, the envelope halves' meeting
+    point and the reduction buffer)."""
+    ylen = 2048 + lead + tail
+    return 4 * (2 * (-(-(ylen + Tf - 1 + 32) // 32) * 32) + ylen + 2048
+                + 256)
+
+
+def test_fits_accepts_every_earlier_design():
+    """Every design the earlier kernel's gate took (its 2048-output tile
+    within a block's shared memory) takes this kernel, at the widest tile
+    of TILES that fits; envelopes up to the earlier gate's edge (about
+    16 k taps) included, and the 24 Hz envelope of a 48 kHz chain."""
+    taken = 0
+    for nfft in (128, 256, 512):
+        for Tf in (63, 175, 213, 1023):
+            for L in list(range(15, 16500, 997)) + [14511, 16001]:
+                delay = (L - 1) // 2
+                lead, tail, _ = geometry(Tf, L, delay, nfft)
+                if pr10_smem_bytes(Tf, lead, tail) > SMEM_LIMIT:
+                    continue
+                taken += 1
+                tile = pick_tile(Tf, L, delay, nfft)
+                assert fits(Tf, L, delay, nfft) and tile in TILES
+                assert smem_bytes(Tf, L, delay, lead, tail, nfft,
+                                  tile) <= SMEM_LIMIT
+                wider = [t for t in TILES if t > tile]
+                if wider:
+                    assert smem_bytes(Tf, L, delay, lead, tail, nfft,
+                                      min(wider)) > SMEM_LIMIT
+    assert taken > 150
+    fc = FusedChainCF(RATE, filt_sos=SOS_F,
+                      env_sos=design_envelope_filter(RATE, 24.0), eps=1e-7,
+                      device="cpu")
+    ck = fc.chain_kernel
+    assert ck is not None and len(ck.g) > 14000
+    assert ck.smem_bytes == smem_bytes(len(ck.h), len(ck.g), ck.delay,
+                                       ck.lead, ck.tail, ck.nfft, ck.tile)
 
 
 # -- the window_matmul kernel's implicit GEMM -------------------------------
