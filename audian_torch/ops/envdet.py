@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import resolve_device
-from .cuda.window_matmul import window_matmul
+from .cuda.window_matmul import BankSplit, window_matmul
 from .design import filtfilt_sym_kernel
 from .sos import _toeplitz_bank_np
 
@@ -126,6 +126,8 @@ class EnvDet(EnvDetDesign):
         self.w_bp = self._tensor(
             _toeplitz_bank_np(self.g_bp_np.astype(np.float32), 128).T)
         self.b2 = self._tensor(_decimating_bank(self.g_lp_np, self.step))
+        # the banks' TF32 splits for the window_matmul kernel, made once
+        self._split_bp, self._split_b2 = BankSplit(), BankSplit()
 
     def __call__(self, xw, off0):
         """Envelope of one window ``xw (W, C)`` (float32 or raw int16) with
@@ -148,12 +150,14 @@ class EnvDet(EnvDetDesign):
         # stage 1: y_ext[i] = sum_m g_bp[m] xs[base + i - m]
         xp = F.pad(xs, (self.lb - 1, 0))
         caus = window_matmul(xp, self.w_bp, 128, -(-w2 // 128),
-                             premap="dequant", out_layout="cf")
+                             premap="dequant", out_layout="cf",
+                             split=self._split_bp)
         y_ext = caus[:, base : base + n_y].contiguous()
         # stage 2: the decimating squared-envelope conv (square as premap)
         raw = window_matmul(y_ext, self.b2, 128 * self.step,
                             -(-self.nout // 128), premap="square",
-                            out_layout="fco")         # (nf2, C, 128)
+                            out_layout="fco",
+                            split=self._split_b2)     # (nf2, C, 128)
         env = raw.permute(1, 0, 2).reshape(C, -1)[:, : self.nout]
         # env = sqrt(2 * e) with e = 2*conv  ->  2*sqrt(conv)
         return (2.0 * torch.sqrt(torch.clamp_min(env, 0.0))).T

@@ -25,7 +25,7 @@ from torch import nn
 from ..utils import resolve_device
 from . import design
 from .cuda.chain import ALL_OUTPUTS, ChainKernel, fits
-from .cuda.window_matmul import window_matmul
+from .cuda.window_matmul import BankSplit, window_matmul
 from .sos import _toeplitz_bank_np
 from .stft import _dft_matrices, hann_window, one_sided_doubling
 
@@ -173,6 +173,9 @@ class FusedChainCF(nn.Module):
         self.register_buffer("env_i_w", buf(a["env_i_w"]))
         self.register_buffer("env_g_w", buf(a["env_g_w"]))
         self.register_buffer("spec_w", buf(a["spec_w"]))
+        #: each bank's TF32 split for the window_matmul kernel, made once
+        self._splits = {k: BankSplit() for k in
+                        ("filt_w", "env_w", "env_i_w", "env_g_w", "spec_w")}
         if self.spec_w.shape != (self.nfft, 2 * self.nbins):
             raise ValueError("spec_w does not match nfft")
         self.env_mode = a["env_mode"]
@@ -210,7 +213,8 @@ class FusedChainCF(nn.Module):
         n = x_cf.shape[1]
         B = self.block
         xp = F.pad(x_cf, (self.filt_halo, 0))
-        y = window_matmul(xp, self.filt_w, B, -(-n // B), out_layout="cf")
+        y = window_matmul(xp, self.filt_w, B, -(-n // B), out_layout="cf",
+                          split=self._splits["filt_w"])
         return y[:, :n]
 
     def envelope_cf(self, y_cf):
@@ -227,7 +231,8 @@ class FusedChainCF(nn.Module):
         B = self.block
         xp = F.pad(y_cf, (self.env_halo, self.env_delay))
         e = window_matmul(xp, self.env_w, B, -(-(n + self.env_delay) // B),
-                          premap="rectify", out_layout="cf")
+                          premap="rectify", out_layout="cf",
+                          split=self._splits["env_w"])
         e = e[:, self.env_delay : self.env_delay + n]
         return torch.clamp_min(e, 0.0) if self.env_clamp else e
 
@@ -245,11 +250,13 @@ class FusedChainCF(nn.Module):
         xp = F.pad(y_cf, (self.env_halo, self.env_delay + n_pad - n))
         n_u = n_pad + (self.ifir_Lg - 1) * M
         u = window_matmul(xp, self.env_i_w, B, -(-n_u // B),
-                          premap="rectify", out_layout="cf")[:, :n_u]
+                          premap="rectify", out_layout="cf",
+                          split=self._splits["env_i_w"])[:, :n_u]
         Q, q_out = n_u // M, n_pad // M
         u_pm = u.reshape(C, Q, M).transpose(1, 2).reshape(C * M, Q)
         e_pm = window_matmul(u_pm, self.env_g_w, B, -(-q_out // B),
-                             out_layout="cf")[:, :q_out]
+                             out_layout="cf",
+                             split=self._splits["env_g_w"])[:, :q_out]
         e = e_pm.reshape(C, M, q_out).transpose(1, 2).reshape(C, n_pad)
         e = e[:, :n]
         return torch.clamp_min(e, 0.0) if self.env_clamp else e
@@ -260,7 +267,7 @@ class FusedChainCF(nn.Module):
         if nframes is None:
             nframes = max((n - self.nfft) // self.hop + 1, 0)
         s = window_matmul(y_cf.contiguous(), self.spec_w, self.hop, nframes,
-                          out_layout="fco")
+                          out_layout="fco", split=self._splits["spec_w"])
         re, im = s[..., : self.nbins], s[..., self.nbins:]
         return re * re + im * im
 

@@ -29,7 +29,8 @@ def test_build_dir_follows_sources_and_headers(csrc, suffix):
 
 def test_headers_are_included_not_compiled(csrc):
     assert all(src.suffix == ".cu" for src in _build._sources())
-    assert {p.name for p in csrc.glob("*.cuh")} >= {"tf32x3.cuh"}
+    assert {p.name for p in csrc.glob("*.cuh")} >= {"hopper.cuh",
+                                                    "wgmma_conv.cuh"}
     (csrc / "extra.cuh").write_text("#pragma once\n")
     before = _build.build_dir()
     (csrc / "extra.cuh").unlink()

@@ -1,6 +1,6 @@
 """The 3xTF32 arithmetic of the tensor-core kernels, emulated on the CPU.
 
-``csrc/tf32x3.cuh`` splits each float32 operand into TF32 hi and lo parts
+``csrc/hopper.cuh`` splits each float32 operand into TF32 hi and lo parts
 (``cvt.rna.tf32.f32``: the low 13 mantissa bits rounded to nearest, ties
 away from zero) and sums hi*hi + hi*lo + lo*hi in float32.  The helpers
 below do the same on the float32 bit patterns, and run
@@ -10,8 +10,10 @@ below do the same on the float32 bit patterns, and run
   formula, times row-offset views of the staged stream, summed in blocks
   of 16 steps (128 taps), the envelope's blocks in two halves; the PSD as
   the tile's 16 frames times the pair-interleaved analysis matrix;
-- the window_matmul kernel's implicit GEMM (``csrc/window_matmul.cu``),
-  summed in blocks of 128 taps, at the bioacoustics and EnvDet shapes.
+- the window_matmul kernel (``csrc/window_matmul.cu``): its sums in
+  blocks of 128 taps at every caller's shapes; the host's plan (span or
+  rows mode, column blocks, ring) against the kernel's shared-memory
+  layout; and its staging and per-step A gather against ``unfold``.
 
 Each result is held against the JAX package (``chain_cf`` and
 ``window_matmul`` in interpret mode on the CPU) and against float64 (scipy
@@ -22,6 +24,7 @@ emulated; chip_smoke.py holds the kernels to the same budgets on the card.
 """
 
 import math
+from functools import lru_cache
 
 import numpy as np
 import pytest
@@ -39,6 +42,11 @@ from audian_torch.ops.cuda._build import SMEM_LIMIT
 from audian_torch.ops.cuda.chain import (TAP_PAD, TILES, ChainKernel,
                                          _pair_columns, fits, geometry,
                                          pick_tile, smem_bytes, split_tf32)
+from audian_torch.ops.cuda.window_matmul import bank_conflicts, column_blocks
+from audian_torch.ops.cuda.window_matmul import plan as wm_plan
+from audian_torch.ops.cuda.window_matmul import smem_bytes as wm_smem_bytes
+from audian_torch.ops.cuda.window_matmul import span_byte as wm_span_byte
+from audian_torch.ops.cuda.window_matmul import window_matmul_plain
 from audian_torch.ops.design import FilterDesign
 from audian_torch.ops.envdet import EnvDet
 from audian_torch.ops.fused import FusedChainCF
@@ -448,9 +456,23 @@ def test_fits_accepts_every_earlier_design():
 
 # -- the window_matmul kernel's implicit GEMM -------------------------------
 
+def trunc(x):
+    """float32 ``x`` as the tensor cores read it as TF32: its low 13 bits
+    dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split_a(x):
+    """The window_matmul kernel's split of A (``split_fast``): hi rounded
+    as ``cvt.rna`` rounds, lo the remainder as it is, which the tensor
+    cores truncate."""
+    hi = rna(x)
+    return hi, trunc(x - hi)
+
+
 def window_tc(x, w, S, nframes, premap):
-    """``window_matmul`` as the kernel sums it: 3xTF32 in blocks of 128
-    taps."""
+    """``window_matmul`` as the kernel sums it: 3xTF32 (A split by
+    :func:`split_a`, ``w`` by :func:`split`) in blocks of 128 taps."""
     K = w.shape[0]
     x = x.float() / 32768.0 if x.dtype == torch.int16 else x.float()
     if premap == "rectify":
@@ -462,7 +484,9 @@ def window_tc(x, w, S, nframes, premap):
     fr = x[:, :need].unfold(1, K, S)                       # (C, nf, K)
     acc = 0.0
     for k0 in range(0, K, 128):
-        acc = acc + mm3(fr[..., k0 : k0 + 128], w[k0 : k0 + 128])
+        ah, al = split_a(fr[..., k0 : k0 + 128])
+        bh, bl = split(w[k0 : k0 + 128])
+        acc = acc + ((ah @ bl + al @ bh) + ah @ bh)
     return acc
 
 
@@ -473,6 +497,8 @@ def _window_cases():
     edet = FilterDesign.from_sos(sps.butter(1, 500.0, "lowpass", fs=96000.0,
                                             output="sos"))
     ed = EnvDet(fdet, edet, 19, 256, 4096, device="cpu")
+    global WINDOW_ENVDET
+    WINDOW_ENVDET = ed
     return {
         "bioacoustics filter": (bio.filt_w, 128, 12, None),
         "bioacoustics envelope": (bio.env_w, 128, 12, "rectify"),
@@ -484,14 +510,30 @@ def _window_cases():
 
 
 WINDOW_CASES = _window_cases()
+#: callers whose banks are built on first use: (owner, bank), stride,
+#: frames, premap; the last one runs past a 128-frame kernel tile
+MORE_WINDOW_CASES = {
+    "ultrasound psd": (("us", "spec_w"), 256, 12, None),
+    "ultrasound envelope": (("us", "env_w"), 128, 12, "rectify"),
+    "IFIR stage A": (("ifir", "env_i_w"), 128, 12, "rectify"),
+    "IFIR stage B": (("ifir", "env_g_w"), 128, 12, None),
+    "ragged last tile": (("bio", "filt_w"), 128, 130, None),
+}
 
 
-@pytest.mark.parametrize("name", list(WINDOW_CASES))
+def _window_case(name):
+    if name in WINDOW_CASES:
+        return WINDOW_CASES[name]
+    (owner, attr), S, nfr, premap = MORE_WINDOW_CASES[name]
+    return getattr(_banks()[owner], attr), S, nfr, premap
+
+
+@pytest.mark.parametrize("name", [*WINDOW_CASES, *MORE_WINDOW_CASES])
 def test_window_matmul_gemm_matches_jax_and_float64(name):
     from audian_tpu.ops.envdet import _dequant, _square
     from audian_tpu.ops.fused import _rectify
 
-    w, S, nfr, premap = WINDOW_CASES[name]
+    w, S, nfr, premap = _window_case(name)
     K = w.shape[0]
     rng = np.random.default_rng(9)
     n = (nfr - 1) * S + K - 21
@@ -512,3 +554,233 @@ def test_window_matmul_gemm_matches_jax_and_float64(name):
     scale = float(np.abs(f64).max())
     assert float(np.abs(got - want).max()) <= TOL * scale
     assert float(np.abs(got - f64).max()) <= TOL * scale
+
+
+# -- the window_matmul kernel's geometry (csrc/window_matmul.cu) -------------
+
+@lru_cache(maxsize=None)
+def _banks():
+    """The caller banks of the per-stage presets, the IFIR envelope and
+    EnvDet, built once (the IFIR factor fit takes a moment)."""
+    bio = get_preset("bioacoustics").fused(96000.0, eps=2e-6, device="cpu")
+    us = get_preset("ultrasound").fused(384000.0, eps=2e-6, device="cpu")
+    fi = FusedChainCF(96000.0, env_sos=design_envelope_filter(96000.0, 500.0),
+                      eps=1e-7, ifir=True, device="cpu")
+    ed = WINDOW_ENVDET
+    return {"bio": bio, "us": us, "ifir": fi, "envdet": ed}
+
+
+#: every caller of window_matmul: (bank, stride, bytes a sample, the mode
+#: the plan must take)
+CALLERS = {
+    "bioacoustics filter": (("bio", "filt_w"), 128, 4, "span"),
+    "bioacoustics envelope": (("bio", "env_w"), 128, 4, "span"),
+    "bioacoustics psd": (("bio", "spec_w"), 128, 4, "span"),
+    "ultrasound filter": (("us", "filt_w"), 128, 4, "span"),
+    "ultrasound envelope": (("us", "env_w"), 128, 4, "span"),
+    "ultrasound psd": (("us", "spec_w"), 256, 4, "span"),
+    "hop-90 psd": (("bio", "spec_w"), 90, 4, "span"),
+    "EnvDet band-pass": (("envdet", "w_bp"), 128, 2, "span"),
+    "EnvDet decimating envelope": (("envdet", "b2"), 128 * 19, 4, "rows"),
+    "IFIR stage A": (("ifir", "env_i_w"), 128, 4, "span"),
+    "IFIR stage B": (("ifir", "env_g_w"), 128, 4, "span"),
+}
+
+
+def _caller(name):
+    (owner, attr), S, es, mode = CALLERS[name]
+    return getattr(_banks()[owner], attr), S, es, mode
+
+
+@pytest.mark.parametrize("name", list(CALLERS))
+def test_window_plan_fits_every_caller(name):
+    """The host's plan puts every caller in its mode with a column split
+    and a ring that fit one block's shared memory, the span at every
+    stride the presets use without a bank conflict on the fragment loads
+    of S = 128 and 256 (the card's run holds the formula against the
+    kernel's own, ``window_matmul_smem_bytes``)."""
+    w, S, es, mode = _caller(name)
+    K, O = w.shape
+    p = wm_plan(K, O, S, es)
+    assert p.mode == mode
+    assert p.smem == wm_smem_bytes(K, O, S, es, p.N, p.mode, p.lsh, p.nbuf,
+                                   p.ring)
+    assert p.smem <= SMEM_LIMIT and 4 <= p.ring <= 8
+    assert p.N * p.ncb >= O and p.N % 8 == 0 and p.N <= 256
+    assert p.nbuf == 2 or mode == "span"
+    if mode == "span":
+        assert p.nbuf in (1, 2) and (es << p.lsh) % 16 == 0
+        if S in (128, 256):
+            assert bank_conflicts(S, es, p.lsh) == 1.0
+        # a second span buffer whenever it fits beside four stages
+        if p.nbuf == 1:
+            two = wm_smem_bytes(K, O, S, es, p.N, "span", p.lsh, 2, 4)
+            assert two > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("O, want", [(128, (128, 1)), (258, (136, 2)),
+                                     (514, (176, 3)), (130, (136, 1)),
+                                     (1026, (176, 6)), (40, (128, 1))])
+def test_column_blocks_cover_the_columns(O, want):
+    """Column blocks cover O exactly once with little padding (less than
+    one 8-column group a block beyond an even split): 258 in two blocks of
+    136, 514 in three of 176, no block near empty."""
+    N, nb = column_blocks(O)
+    assert (N, nb) == want
+    cols = np.concatenate([np.arange(cb * N, min(cb * N + N, O))
+                           for cb in range(nb)])
+    assert np.array_equal(cols, np.arange(O))
+    assert O - (nb - 1) * N > N // 2 or nb == 1
+    assert nb * N - O < 8 * nb or N == 128
+
+
+def _x_bytes(x, lead):
+    """``x`` (C, n) laid out from byte ``lead`` of a flat buffer, with 16
+    bytes of slack past its end (a 16-byte block never crosses a page)."""
+    raw = np.zeros(lead + x.nbytes + 32, np.uint8)
+    raw[lead : lead + x.nbytes] = np.frombuffer(x.tobytes(), np.uint8)
+    return raw
+
+
+def _load(buf, byte, es):
+    """float32 values of samples at byte offsets ``byte`` of ``buf``
+    (int16 dequantized by 2^-15)."""
+    if es == 2:
+        v = buf[byte] .astype(np.uint16) | (buf[byte + 1].astype(np.uint16) << 8)
+        return v.view(np.int16).astype(np.float32) / 32768.0
+    b = np.stack([buf[byte + i] for i in range(4)], -1).astype(np.uint32)
+    v = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+    return v.view(np.float32)
+
+
+def gather_tile(x, K, S, nframes, c, f0, p, lead):
+    """The A operand of one kernel item, ``(128, 8 V)``, as the kernel
+    builds it: the producer's bulk copies of the span (span mode: chunks of
+    ``2^lsh`` samples from the 16-byte aligned start, each followed by 16
+    bytes of padding) or of each unit's window rows (rows mode: 128 taps a
+    row from its aligned start), then every consumer thread's four values
+    of every step, zero past n and past K."""
+    C, n = x.shape
+    es = x.dtype.itemsize
+    raw = _x_bytes(x, lead)
+    V = -(-K // 8)
+    # the consumer threads: rows m0 and m0 + 8, taps t and t + 4 of a step
+    wg, w, g, t = np.meshgrid(np.arange(2), np.arange(4), np.arange(8),
+                              np.arange(4), indexing="ij")
+    m0, t = (64 * wg + 16 * w + g).ravel(), t.ravel()
+    v = np.arange(V)[:, None]
+    A = np.full((128, 8 * V), np.nan, np.float32)
+    if p.mode == "span":
+        nf = min(128, nframes - f0)
+        ln = (nf - 1) * S + 8 * V
+        addr = lead + (c * n + f0 * S) * es
+        src = addr & ~15
+        off = (addr - src) // es
+        cnt = min(ln, max(n - f0 * S, 0))
+        nbytes = (off * es + cnt * es + 15) & ~15 if cnt > 0 else 0
+        chunk = es << p.lsh
+        # the span buffer: 128 frames, whole steps and the alignment
+        samples = 16 // es - 1 + 127 * S + 8 * V
+        span = np.zeros(-(-samples >> p.lsh) * (chunk + 16) + 64, np.uint8)
+        for j in range(-(-nbytes // chunk)):
+            m = min(chunk, nbytes - j * chunk)
+            span[j * (chunk + 16) : j * (chunk + 16) + m] = \
+                raw[src + j * chunk : src + j * chunk + m]
+        for dr, dt in ((0, 0), (8, 0), (0, 4), (8, 4)):
+            e = off + (m0 + dr) * S + t + dt + 8 * v          # (V, 256)
+            val = _load(span, wm_span_byte(e, es, p.lsh), es)
+            ok = (e < off + cnt) & (8 * v + t + dt < K)
+            A[m0 + dr, 8 * v + t + dt] = np.where(ok, val, 0.0)
+        return A
+    rp = 128 * es + 16
+    for u in range(-(-V // 16)):
+        rows = np.zeros(128 * rp + 64, np.uint8)
+        for r in range(128):
+            if f0 + r >= nframes:
+                continue
+            col = (f0 + r) * S + 128 * u
+            addr = lead + (c * n + col) * es
+            src = addr & ~15
+            cnt = min(128, max(n - col, 0))
+            if cnt > 0:
+                m = (addr - src + cnt * es + 15) & ~15
+                rows[r * rp : r * rp + m] = raw[src : src + m]
+        for dr, dt in ((0, 0), (8, 0), (0, 4), (8, 4)):
+            col0 = (f0 + m0 + dr) * S
+            roff = (lead + (c * n + col0) * es) & 15
+            for vv in range(16 * u, min(16 * u + 16, V)):
+                k = 8 * vv + t + dt
+                val = _load(rows, (m0 + dr) * rp + roff
+                            + es * (8 * (vv % 16) + t + dt), es)
+                ok = (k < K) & (col0 + k < n)
+                A[m0 + dr, k] = np.where(ok, val, 0.0)
+    return A
+
+
+@pytest.mark.parametrize("S, es, K, lead", [
+    (128, 4, 269, 4), (128, 2, 638, 6), (256, 4, 512, 0), (90, 4, 256, 12),
+    (2432, 4, 3436, 8), (2432, 2, 200, 2)])
+def test_span_gather_equals_unfold(S, es, K, lead):
+    """The kernel's staging and per-step A gather (span mode at S = 128,
+    256, 90; rows mode at S = 2432), at a misaligned start, over a full
+    tile, a ragged last tile running past n, and a channel > 0: every row
+    of every item equals ``unfold`` of the zero-extended stream, zero past
+    K."""
+    rng = np.random.default_rng(S + K)
+    C, nframes = 3, 200
+    n = (nframes - 1) * S + K - 37 * es
+    x = (rng.standard_normal((C, n)) * (3000 if es == 2 else 0.3))
+    x = x.astype(np.int16 if es == 2 else np.float32)
+    p = wm_plan(K, 128, S, es)
+    assert p.mode == ("rows" if S == 2432 else "span")
+    V = -(-K // 8)
+    xf = x.astype(np.float32) / (32768.0 if es == 2 else 1.0)
+    ext = np.pad(xf, [(0, 0), (0, 128 * S + 8 * V)])
+    for c, f0 in ((0, 0), (2, 128)):
+        A = gather_tile(x, K, S, nframes, c, f0, p, lead)
+        nf = min(128, nframes - f0)
+        want = np.stack([ext[c, (f0 + m) * S : (f0 + m) * S + 8 * V]
+                         for m in range(nf)])
+        want[:, K:] = 0.0
+        assert np.array_equal(A[:nf], want)
+
+
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0x7FC00000, 0x7F800001,
+                                  0xFFFFFFFF, 0x7FFFF000, 0xFF801FFF])
+def test_window_split_keeps_nan(bits):
+    """A NaN of any payload (the card's canonical 0x7FFFFFFF among them)
+    may round to a finite or infinite hi, but its lo, the remainder read
+    as TF32, is NaN, so the kernel's products see it; a finite value's
+    parts still add up to it within 2^-21."""
+    x = torch.tensor([bits - (1 << 32) if bits >= 1 << 31 else bits],
+                     dtype=torch.int32).view(torch.float32)
+    hi, lo = split_a(x)
+    assert bool(torch.isnan(x)) and bool(torch.isnan(trunc(lo)))
+    r = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        1000).astype(np.float32))
+    hi, lo = split_a(r)
+    err = (hi.double() + trunc(lo).double() - r.double()).abs()
+    assert float((err / r.double().abs()).max()) <= 2.0**-21
+
+
+@pytest.mark.parametrize("name", ["IFIR stage B", "bioacoustics envelope"])
+def test_window_tc_keeps_nonfinite_inputs(name):
+    """A NaN or an infinity on a stage's input (stage B's, from stage A on
+    the card; the rectified envelope's, from the filter) leaves exactly
+    the outputs whose windows hold it non-finite, as the plain version
+    does, and the others within the tolerance."""
+    w, S, nfr, premap = _window_case(name)
+    K = w.shape[0]
+    rng = np.random.default_rng(4)
+    x = (0.3 * rng.standard_normal((2, (nfr - 1) * S + K))).astype(
+        np.float32)
+    x[0, 200], x[1, 3 * S + 7], x[1, (nfr - 2) * S + K - 3] = \
+        np.nan, np.inf, -np.nan
+    x = torch.from_numpy(x)
+    got = window_tc(x, w, S, nfr, premap)
+    want = window_matmul_plain(x, w, S, nfr, premap, "fco").transpose(0, 1)
+    bad = ~torch.isfinite(want)
+    assert bool(bad.any()) and not bool(bad.all())
+    assert torch.equal(~torch.isfinite(got), bad)
+    scale = float(want[~bad].abs().max())
+    assert float((got[~bad] - want[~bad]).abs().max()) <= TOL * scale

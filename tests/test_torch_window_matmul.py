@@ -89,3 +89,28 @@ def test_zero_frames_and_bad_arguments():
         window_matmul(x, w, 10, 3, out_layout="cfo")
     with pytest.raises(ValueError):
         window_matmul(x.to("meta"), w.to("meta"), 10, 3)
+
+
+def test_bank_split_is_made_once_per_bank(monkeypatch):
+    """An owner's :class:`BankSplit` splits its bank at the first call and
+    reuses the split until the bank is edited in place or replaced; a CPU
+    call never splits; the per-stage chain and EnvDet hold one a bank."""
+    from audian_torch.models import get_preset
+    from audian_torch.ops.cuda import window_matmul as wm
+
+    made = []
+    monkeypatch.setattr(wm, "split_w", lambda w: made.append(w) or len(made))
+    hold = wm.BankSplit()
+    w = torch.ones((300, 128))
+    assert (hold(w), hold(w)) == (1, 1)
+    w.mul_(2.0)
+    assert (hold(w), hold(w)) == (2, 2)
+    w2 = w.clone()
+    assert hold(w2) == 3 and hold(w) == 4 and len(made) == 4
+    x = torch.ones((2, 1000))
+    window_matmul(x, w, 128, 4, split=hold)
+    assert len(made) == 4
+    fc = get_preset("bioacoustics").fused(96000.0, device="cpu")
+    assert set(fc._splits) == {"filt_w", "env_w", "env_i_w", "env_g_w",
+                               "spec_w"}
+    assert all(isinstance(s, wm.BankSplit) for s in fc._splits.values())
