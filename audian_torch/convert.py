@@ -9,6 +9,7 @@ with exactly the same coefficients, so both packages compute with one
 design.  :func:`envdet_from_arrays` does the same for the song-detection
 envelope from its symmetric kernels and geometry, and
 :func:`sharded_pipeline_from_arrays` for the JAX ``ShardedPipeline``.
+:func:`precision_from_jax` carries a JAX precision across.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from .graph.nodes import SpectrogramNode, device_params
+from .ops.cuda import precision as _precision
 from .ops.cuda.envdet import EnvDetKernel
 from .ops.design import FilterDesign, FirKernels
 from .ops.envdet import EnvDet
@@ -26,7 +28,8 @@ from .utils import resolve_device
 __all__ = ["ARRAY_KEYS", "DESIGN_KEYS", "ENVDET_KEYS", "IFIR_KEYS",
            "SHARDED_KEYS",
            "chain_from_arrays", "envdet_from_arrays",
-           "node_params_from_arrays", "sharded_pipeline_from_arrays"]
+           "node_params_from_arrays", "precision_from_jax",
+           "sharded_pipeline_from_arrays"]
 
 #: the state a chain is rebuilt from
 ARRAY_KEYS = ("rate", "nfft", "hop", "env_clamp", "_h_filt", "_g_env",
@@ -56,6 +59,26 @@ SHARDED_KEYS = ("rate", "h_filt", "g_env", "env_delay", "env_clamp", "nfft",
 #: input-state responses with the state matrix and truncation eps)
 DESIGN_KEYS = ("sos", "zi0", "padlen", "h", "state_out", "input_state", "A",
                "eps")
+
+
+def precision_from_jax(precision):
+    """The port's rung (:mod:`audian_torch.ops.cuda.precision`) of a JAX
+    precision: a ``lax.Precision`` (read by its ``.name``, so that nothing
+    here imports jax), one of the JAX package's sentinel strings
+    (``"bf16x3"``, ``"bf16x4"``), a rung already, or a 3-tuple of these
+    (the chain's per-stage form); ``None`` stays ``None`` (the callee's
+    default).  Anything else raises ValueError."""
+    if precision is None:
+        return None
+    if isinstance(precision, (tuple, list)):
+        if len(precision) != 3:
+            raise ValueError(f"a per-stage precision has 3 entries, got "
+                             f"{precision!r}")
+        return tuple(precision_from_jax(p) for p in precision)
+    name = getattr(precision, "name", precision)
+    if not isinstance(name, str):
+        raise ValueError(f"not a precision: {precision!r}")
+    return _precision.check(name.lower())
 
 
 def chain_from_arrays(arrays, device=None):

@@ -1,4 +1,4 @@
-// Single-pass fused chain on Hopper's tensor cores (sm_90a, 3xTF32 wgmma):
+// Single-pass fused chain on Hopper's tensor cores (sm_90a, wgmma):
 // int16 or float32 PCM -> causal FIR band-pass -> pi/2-rectified symmetric
 // envelope -> Hann PSD at hop 128, with per-tile chunk statistics.
 //
@@ -16,10 +16,16 @@
 //
 // What bounds it on the H100: arithmetic.  A sample of one channel costs
 // Tf + L + 2 nfft true multiply-adds (about 1.8 k at the headline design)
-// against about 14 bytes of device-memory traffic, and every product runs
-// as three TF32 passes (3xTF32, hopper.cuh) to keep fp32 precision.  At
-// the headline design the envelope's products take about half the time,
-// at the core's rate with two warpgroups an SM (PERF.md, PR 11).
+// against about 14 bytes of device-memory traffic.  Each stage runs in its
+// own mode of the convolution core (wgmma_conv.cuh), read at run time from
+// the geometry (one instance serves all 64 precision tuples): three
+// TF32 passes (3xTF32, the default: fp32 precision), one TF32 pass (the
+// JAX package's DEFAULT as XLA runs it on this card), or three or four
+// bf16 passes over split operands (its BF16X3 and BF16X4) at twice the
+// TF32 rate a pass.  The filter's and the envelope's light units (host
+// flags) run one pass in every mode.  At the headline design the
+// envelope's products take about half the time at 3xTF32, at the core's
+// rate with two warpgroups an SM (PERF.md §6).
 //
 // Design.  A persistent grid, one block an SM, walks the (channel, tile)
 // items, a tile being tj outputs of one channel (16384 at the headline
@@ -31,16 +37,18 @@
 //     region Y by one cp.async.bulk (its start aligned down to 16 bytes),
 //     completing on an mbarrier, and streams the PSD's operand through a
 //     ring of 16 KB stages in region X (below);
-//   - the consumers dequantize the span and split it into TF32 hi and lo
-//     once, as a quad-major stream in region X (wgmma_conv.cuh), and run
+//   - the consumers dequantize the span and split it into hi and lo once,
+//     as the filter's stream in region X (quad-major TF32 or octet-major
+//     bf16, wgmma_conv.cuh), and run
 //     the filter on it as Toeplitz wgmmas (wgconv::conv), 64-column chunks
 //     taken by the two warpgroups in turn; the filtered span goes to
 //     region Y (fp32, the input's bytes being consumed by then) and to y;
 //   - the PSD runs next, a dense wgmma product: warpgroup w takes the
 //     tile's frames 64 w .. 64 w + 63 (A, gathered into registers from the
 //     filtered span and split on the fly) against the host-split, K-major
-//     ws (ChainKernel.ws_slices), two slices of 8 rows by 128
-//     columns a stage, which the producer streams into region X, free once
+//     ws (ChainKernel.ws_slices: TF32 slices of 8 rows by 128 columns, or
+//     bf16 ones of 16 rows, 8 KB either way), two slices a stage, which
+//     the producer streams into region X, free once
 //     the filter has read it; both warpgroups read each stage, so the
 //     matrix crosses L2 once for every 128 frames.  |.|^2 and the per-bin
 //     sums finish in registers;
@@ -73,8 +81,14 @@ using hopper::mbar_expect;
 using hopper::mbar_init;
 using hopper::mbar_wait;
 using hopper::split_tf32;
+using wgconv::BF16X3;
+using wgconv::BF16X4;
 using wgconv::COL;
-using wgconv::qm_word;
+using wgconv::TF32X1;
+using wgconv::TF32X3;
+using wgconv::is_bf16;
+using wgconv::kwidth;
+using wgconv::part_bytes;
 using wgconv::stream_rows;
 
 constexpr int HOP = 128;      // PSD hop the chain is built for
@@ -88,7 +102,8 @@ constexpr int NWARP = NCONS / 32;
 constexpr int R = 1;
 constexpr int RING = 8;       // stages of the PSD operand ring
 constexpr int SLICE_COLS = 128;   // pair columns of a host slice
-constexpr int SLICE_WORDS = 2 * 8 * SLICE_COLS;   // 8 rows, hi and lo
+// 8 TF32 rows or 16 bf16 rows, hi and lo
+constexpr int SLICE_WORDS = 2 * 8 * SLICE_COLS;
 constexpr int SLICE_BYTES = 4 * SLICE_WORDS;
 constexpr int STAGE_BYTES = 2 * SLICE_BYTES;      // two slices a stage
 constexpr int TILE_MAX = 16384;
@@ -104,14 +119,21 @@ struct Geometry {
   int tj;        // outputs a tile
   int ylen;      // filtered samples a tile: tj + lead + tail
   int xspan;     // input samples a tile: ylen + Tf - 1
-  int nu;        // rows a plane of the split input and rectified streams
+  int mode_f, mode_e, mode_s;   // the stages' core modes (wgconv::Mode)
+  // the filter's and the envelope's steps and units, set by the launcher
+  // (in the kernel's parameters, where they cost the consumers no
+  // registers)
+  wgconv::Steps st_f, st_e;
+  int nu_f;      // rows a plane of the split input stream
+  int nu_e;      // rows a plane of the split rectified stream
   int x_bytes;   // region X: either split stream, or the PSD ring
   int y_bytes;   // region Y: the filtered span (fp32) or the input copy
 };
 
 __host__ __device__ inline Geometry geometry(int Tf, int L, int delay,
                                              int lead, int tail, int hb,
-                                             int nfft, int tj) {
+                                             int nfft, int tj, int mode_f,
+                                             int mode_e) {
   Geometry g;
   g.Tf = Tf;
   g.L = L;
@@ -123,11 +145,19 @@ __host__ __device__ inline Geometry geometry(int Tf, int L, int delay,
   g.tj = tj;
   g.ylen = tj + lead + tail;
   g.xspan = g.ylen + Tf - 1;
+  g.mode_f = mode_f;
+  g.mode_e = mode_e;
+  g.mode_s = TF32X3;
+  g.st_f = wgconv::steps(Tf, Tf - 1, kwidth(mode_f));
+  g.st_e = wgconv::steps(L, lead + delay, kwidth(mode_e));
   // a chunk reads its whole width's source even where the stage has
   // fewer columns (64, or the envelope's 128 from 256 columns on)
   const int nf = imax(g.ylen / COL, COL), ne = imax(tj / COL, COL);
-  g.nu = imax(stream_rows(nf, Tf - 1), stream_rows(ne, lead + delay));
-  g.x_bytes = imax(2 * 256 * g.nu, RING * STAGE_BYTES);
+  g.nu_f = stream_rows(nf, Tf - 1, kwidth(mode_f));
+  g.nu_e = stream_rows(ne, lead + delay, kwidth(mode_e));
+  g.x_bytes = imax(imax(2 * part_bytes(mode_f, g.nu_f),
+                        2 * part_bytes(mode_e, g.nu_e)),
+                   RING * STAGE_BYTES);
   g.y_bytes = imax(4 * g.ylen, (4 * g.xspan + 32 + 15) & ~15);
   return g;
 }
@@ -171,26 +201,101 @@ __device__ __forceinline__ Span span_of(const void* xv, int es, long long xlen,
   return s;
 }
 
-// one k-step (8 rows of ws) of the PSD from the slice at b: this
-// warpgroup's three passes of its frames x slice, A from the filtered span
-// at yf[sw_psd(yi)] (rows +8 frames and columns +4 taps, split on the
-// fly), committed as a group; then the wait for the group before it
-__device__ __forceinline__ void psd_step(float (&acc)[64], uint32_t (&ah)[4],
+// one k-step (8 TF32 or 16 bf16 rows of ws) of the PSD in mode M from the
+// slice at b: this warpgroup's passes of its frames x slice, A from the
+// filtered span at yf[sw_psd(yi)] (rows +8 frames and columns +4 taps for
+// TF32, a pair of taps and columns +8 for bf16, split on the fly),
+// committed as a group; then the wait for the group before it.  The mode
+// is uniform and read at run time: one code path for the four keeps
+// ptxas from holding the four paths' values at once across the item loop
+__device__ __forceinline__ void psd_step(int M, float (&acc)[64],
+                                         uint32_t (&ah)[4],
                                          uint32_t (&al)[4], uint32_t b,
                                          const float* yf, int yi, bool v0,
                                          bool v1, int first) {
-  split_tf32(v0 ? yf[sw_psd(yi)] : 0.0f, ah[0], al[0]);
-  split_tf32(v1 ? yf[sw_psd(yi + 8 * HOP)] : 0.0f, ah[1], al[1]);
-  split_tf32(v0 ? yf[sw_psd(yi + 4)] : 0.0f, ah[2], al[2]);
-  split_tf32(v1 ? yf[sw_psd(yi + 8 * HOP + 4)] : 0.0f, ah[3], al[3]);
   const uint64_t dh = hopper::desc(b, 2048, 128);
   const uint64_t dl = hopper::desc(b + SLICE_BYTES / 2, 2048, 128);
-  hopper::wgmma_fence();
-  hopper::mma_n128(acc, ah, dl, !first);
-  hopper::mma_n128(acc, al, dh, 1);
-  hopper::mma_n128(acc, ah, dh, 1);
-  hopper::wgmma_commit();
+  if (!is_bf16(M)) {
+    const float x[4] = {v0 ? yf[sw_psd(yi)] : 0.0f,
+                        v1 ? yf[sw_psd(yi + 8 * HOP)] : 0.0f,
+                        v0 ? yf[sw_psd(yi + 4)] : 0.0f,
+                        v1 ? yf[sw_psd(yi + 8 * HOP + 4)] : 0.0f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split_tf32(x[j], ah[j], al[j]);
+  } else {
+    // columns 2t, 2t + 1 are adjacent in the sw_psd layout (yi is even)
+    const float2 z = make_float2(0.0f, 0.0f);
+    const float2 x[4] = {
+        v0 ? *reinterpret_cast<const float2*>(yf + sw_psd(yi)) : z,
+        v1 ? *reinterpret_cast<const float2*>(yf + sw_psd(yi + 8 * HOP)) : z,
+        v0 ? *reinterpret_cast<const float2*>(yf + sw_psd(yi + 8)) : z,
+        v1 ? *reinterpret_cast<const float2*>(yf + sw_psd(yi + 8 * HOP + 8))
+           : z};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) hopper::split_bf16(x[j].x, x[j].y, ah[j], al[j]);
+  }
+  // each mode's passes a whole group, fence to commit: ptxas serializes
+  // the wgmmas of a group that a branch cuts
+  switch (M) {
+    case TF32X3:
+      hopper::wgmma_fence();
+      hopper::mma_n128(acc, ah, dl, !first);
+      hopper::mma_n128(acc, al, dh, 1);
+      hopper::mma_n128(acc, ah, dh, 1);
+      hopper::wgmma_commit();
+      break;
+    case TF32X1:
+      hopper::wgmma_fence();
+      hopper::mma_n128(acc, ah, dh, !first);
+      hopper::wgmma_commit();
+      break;
+    case BF16X3:
+      hopper::wgmma_fence();
+      hopper::mma16_n128(acc, ah, dl, !first);
+      hopper::mma16_n128(acc, al, dh, 1);
+      hopper::mma16_n128(acc, ah, dh, 1);
+      hopper::wgmma_commit();
+      break;
+    default:
+      hopper::wgmma_fence();
+      hopper::mma16_n128(acc, al, dl, !first);
+      hopper::mma16_n128(acc, ah, dl, 1);
+      hopper::mma16_n128(acc, al, dh, 1);
+      hopper::mma16_n128(acc, ah, dh, 1);
+      hopper::wgmma_commit();
+      break;
+  }
   hopper::wgmma_wait<1>();
+}
+
+// one column group of the PSD in mode M: the nk k-steps from the ring,
+// two a stage, from the ring stage sc on; a stage goes back to the
+// producer once its second step has retired.  y0 is this thread's first
+// sample of step 0 (frame fr0, column t or 2 t)
+__device__ __forceinline__ void psd_group(int M, float (&acc)[64],
+                                          unsigned char* X, uint64_t* bar,
+                                          int& sc, int nk, bool active,
+                                          int lane, const float* yf, int y0,
+                                          bool v0, bool v1) {
+  const int kw = kwidth(M);
+  // a stage holds two k-steps, one A register set each: a step's
+  // fragments load while the last one's MMAs run
+  uint32_t ah0[4], al0[4], ah1[4], al1[4];
+  for (int kk = 0; kk < nk; kk += 2, ++sc) {
+    const int stg = sc % RING;
+    mbar_wait(&bar[FULL0 + stg], (sc / RING) & 1);
+    const uint32_t b = hopper::smem_u32(X + stg * STAGE_BYTES);
+    if (active) {
+      psd_step(M, acc, ah0, al0, b, yf, y0 + kw * kk, v0, v1, kk == 0);
+      if (kk > 0 && lane == 0) mbar_arrive(&bar[EMPTY0 + (sc - 1) % RING]);
+      psd_step(M, acc, ah1, al1, b + SLICE_BYTES, yf, y0 + kw * kk + kw, v0,
+               v1, 0);
+    } else if (lane == 0) {
+      mbar_arrive(&bar[EMPTY0 + stg]);
+    }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
 }
 
 // the envelope's chunks of N columns for warpgroup wg: e[j0 + i] for
@@ -200,9 +305,8 @@ __device__ __forceinline__ void psd_step(float (&acc)[64], uint32_t (&ah)[4],
 // columns below `from` left to the chunk before; returns this thread's sum
 // of squares of what it wrote to y
 __device__ __forceinline__ float filter_chunk(const wgconv::Stream& xs,
-                                              const float* __restrict__ h,
+                                              const wgconv::Stage& sf,
                                               const Geometry& geo,
-                                              const wgconv::Steps& st,
                                               int col0, int from, int ncols,
                                               long long j0, long long n,
                                               int want_f, float* yf,
@@ -210,7 +314,7 @@ __device__ __forceinline__ float filter_chunk(const wgconv::Stream& xs,
   float acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-  wgconv::conv<64, R>(xs, h, geo.Tf, geo.Tf - 1, st, col0, 0, st.nvb, acc);
+  wgconv::conv<64, R>(xs, sf, col0, 0, sf.st.nvb, acc);
   float psum = 0.0f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
@@ -231,24 +335,21 @@ __device__ __forceinline__ float filter_chunk(const wgconv::Stream& xs,
 // warpgroups in turn, the last one moved back to end at the span's last
 // column
 __device__ __forceinline__ float filter(const wgconv::Stream& xs,
-                                        const float* __restrict__ h,
-                                        const Geometry& geo,
-                                        const wgconv::Steps& st, int ncols,
+                                        const wgconv::Stage& sf,
+                                        const Geometry& geo, int ncols,
                                         int wg, long long j0, long long n,
                                         int want_f, float* yf,
                                         float* __restrict__ yrow) {
   float psum = 0.0f;
   for (int ch = wg; ch * COL < ncols; ch += 2)
-    psum += filter_chunk(xs, h, geo, st, min(ch * COL, max(ncols - COL, 0)),
+    psum += filter_chunk(xs, sf, geo, min(ch * COL, max(ncols - COL, 0)),
                          ch * COL, ncols, j0, n, want_f, yf, yrow);
   return psum;
 }
 
 template <int N>
 __device__ __forceinline__ float envelope(const wgconv::Stream& xs,
-                                          const float* __restrict__ gt,
-                                          const Geometry& geo,
-                                          const wgconv::Steps& st,
+                                          const wgconv::Stage& se,
                                           int ncols, int wg, long long j0,
                                           long long n, int env_clamp,
                                           float* __restrict__ erow) {
@@ -258,8 +359,7 @@ __device__ __forceinline__ float envelope(const wgconv::Stream& xs,
     float acc[N / 2];
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
-    wgconv::conv<N, R>(xs, gt, geo.L, geo.lead + geo.delay, st, col0, 0,
-                       st.nvb, acc);
+    wgconv::conv<N, R>(xs, se, col0, 0, se.st.nvb, acc);
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) {
       const int U = col0 + wgconv::out_col(i);
@@ -278,8 +378,11 @@ __device__ __forceinline__ float envelope(const wgconv::Stream& xs,
 __global__ void __launch_bounds__(NT, 1)
 chain_kernel(const void* __restrict__ xv, int x_i16, long long xlen,
              long long n, int C, Geometry geo,
-             const float* __restrict__ h, const float* __restrict__ gt,
-             const float* __restrict__ ws, int env_clamp, int want_f,
+             const void* __restrict__ h, const void* __restrict__ gt,
+             const float* __restrict__ ws,
+             const int* __restrict__ light_f,
+             const int* __restrict__ light_e,
+             int env_clamp, int want_f,
              int want_e, int want_s, float* __restrict__ y,
              float* __restrict__ e, float* __restrict__ s,
              float* __restrict__ pp, float* __restrict__ gp,
@@ -292,8 +395,8 @@ chain_kernel(const void* __restrict__ xv, int x_i16, long long xlen,
   const int tid = threadIdx.x;
   const int es = x_i16 ? 2 : 4;
   const int ntiles = (int)((n + geo.tj - 1) / geo.tj);
-  const long long nitems = (long long)ntiles * C;
-  const int nk = geo.nfft / 8;                 // k-slices of the PSD
+  const int nitems = ntiles * C;   // below 2^31 (the launcher checks)
+  const int nk = geo.nfft / kwidth(geo.mode_s);   // k-slices of the PSD
   const int ncg = geo.nfft / SLICE_COLS;       // column groups
 
   if (tid == 0) {
@@ -316,10 +419,9 @@ chain_kernel(const void* __restrict__ xv, int x_i16, long long xlen,
     if (tid != NCONS) return;
     int sc = 0;
     int k = 0;
-    for (long long item = blockIdx.x; item < nitems;
-         item += gridDim.x, ++k) {
-      const int c = (int)(item % C);
-      const long long j0 = (item / C) * geo.tj;
+    for (int item = blockIdx.x; item < nitems; item += gridDim.x, ++k) {
+      const int c = item % C;
+      const long long j0 = (long long)(item / C) * geo.tj;
       const long long base = geo.hb + j0 - geo.lead - (geo.Tf - 1);
       const Span sp = span_of(xv, es, xlen, c, base, geo.xspan);
       mbar_wait(&bar[Y_FREE], (k & 1) ^ 1);
@@ -346,37 +448,36 @@ chain_kernel(const void* __restrict__ xv, int x_i16, long long xlen,
   const int gq = (tid >> 2) & 7, t = tid & 3;
   const int nbins = geo.nfft / 2 + 1;
   const int half = nbins - 1;
-  const long long nf = n / HOP;
-  const wgconv::Stream xs{hopper::smem_u32(X),
-                          hopper::smem_u32(X) + 256u * geo.nu, geo.nu};
   uint32_t* xw = reinterpret_cast<uint32_t*>(X);
-  const int pw = 64 * geo.nu;                  // words a part
-  const int nq = 16 * geo.nu;                  // quads a part
   const int ncols_f = geo.ylen / COL, ncols_e = geo.tj / COL;
-  const wgconv::Steps st_f = wgconv::steps(geo.Tf, geo.Tf - 1);
-  const wgconv::Steps st_e = wgconv::steps(geo.L, geo.lead + geo.delay);
   int sc = 0;
   int k = 0;
-  for (long long item = blockIdx.x; item < nitems; item += gridDim.x, ++k) {
-    const int c = (int)(item % C);
-    const int tile = (int)(item / C);
+  for (int item = blockIdx.x; item < nitems; item += gridDim.x, ++k) {
+    const int c = item % C;
+    const int tile = item / C;
     const long long j0 = (long long)tile * geo.tj;
     const long long base = geo.hb + j0 - geo.lead - (geo.Tf - 1);
     const long long yrow = (long long)c * n;
-    const long long prow = ((long long)c * ntiles + tile) * NWARP + warp;
+    // this warp's statistics partial (made at each use: a register less
+    // across the convolutions)
+    auto prow = [&]() {
+      return ((long long)c * ntiles + tile) * NWARP + warp;
+    };
 
     // 1. the input span, dequantized and split into the stream in X
     {
       const Span sp = span_of(xv, es, xlen, c, base, geo.xspan);
       mbar_wait(&bar[RAW_FULL], k & 1);
       const long long cnt = sp.bytes ? (sp.bytes - sp.off) / es : 0;
-      for (int qd = tid; qd < nq; qd += NCONS) {
-        float v[4];
+      // quads (TF32) or octets (bf16): half a step's taps
+      const int qf = kwidth(geo.mode_f) / 2;
+      for (int qd = tid; qd < 64 / qf * geo.nu_f; qd += NCONS) {
+        float v[8];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = 4 * qd + r;
+        for (int r = 0; r < 8; ++r) {
+          const int i = qf * qd + r;
           float val = 0.0f;
-          if (i < geo.xspan && i < cnt && base + i < xlen) {
+          if (r < qf && i < geo.xspan && i < cnt && base + i < xlen) {
             const unsigned char* p = Y + sp.off + (long long)i * es;
             val = x_i16 ? (float)*reinterpret_cast<const int16_t*>(p) *
                               RAW16_SCALE
@@ -384,56 +485,43 @@ chain_kernel(const void* __restrict__ xv, int x_i16, long long xlen,
           }
           v[r] = val;
         }
-        uint4 hi, lo;
-        split_tf32(v[0], hi.x, lo.x);
-        split_tf32(v[1], hi.y, lo.y);
-        split_tf32(v[2], hi.z, lo.z);
-        split_tf32(v[3], hi.w, lo.w);
-        const int wd = qm_word(4 * qd, geo.nu);
-        *reinterpret_cast<uint4*>(xw + wd) = hi;
-        *reinterpret_cast<uint4*>(xw + pw + wd) = lo;
+        const float4 a = make_float4(v[0], v[1], v[2], v[3]);
+        if (qf == 8)
+          wgconv::put_octet(xw, geo.nu_f, qf * qd, a,
+                            make_float4(v[4], v[5], v[6], v[7]));
+        else
+          wgconv::put_quad(xw, geo.nu_f, qf * qd, a, geo.mode_f != TF32X1);
       }
       fence_async();
       bar_sync(1, NCONS);
     }
 
     // 2. the filter over the span: y[j0 - lead + i] = yf[sw_psd(i)]
-    float psum = filter(xs, h, geo, st_f, ncols_f, wg, j0, n, want_f, yf,
-                        y + yrow);
+    {
+      const wgconv::Stage sf{h, geo.Tf, geo.Tf - 1, geo.mode_f, geo.st_f,
+                             light_f};
+      const float psum = warp_sum(filter(
+          wgconv::stream_at(hopper::smem_u32(X), geo.mode_f, geo.nu_f), sf,
+          geo, ncols_f, wg, j0, n, want_f, yf, y + yrow));
+      if (lane == 0) pp[prow()] = psum;
+    }
     bar_sync(1, NCONS);
     if (tid == 0) mbar_arrive(&bar[X_FREE]);
 
     // 3. the PSD of the tile's frames
     if (want_s) {
       const int fr0 = 64 * wg + 16 * (warp & 3) + gq;   // frames fr0, +8
-      const long long nfr = min((long long)geo.tj / HOP, nf - j0 / HOP);
+      const long long nfr = min((long long)geo.tj / HOP, n / HOP - j0 / HOP);
       const bool active = 64 * wg < nfr;
       const bool v0 = fr0 < nfr, v1 = fr0 + 8 < nfr;
-      const int y0 = geo.lead + HOP * fr0 + t;
+      // this thread's first sample of a step: column t (TF32) or 2 t
+      const int y0 = geo.lead + HOP * fr0 + (is_bf16(geo.mode_s) ? 2 * t : t);
       for (int cg = 0; cg < ncg; ++cg) {
         float acc[64];
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-        // a stage holds two k-steps, one A register set each: a step's
-        // fragments load while the last one's MMAs run, and a stage goes
-        // back to the producer once its second step has retired
-        uint32_t ah0[4], al0[4], ah1[4], al1[4];
-        for (int kk = 0; kk < nk; kk += 2, ++sc) {
-          const int stg = sc % RING;
-          mbar_wait(&bar[FULL0 + stg], (sc / RING) & 1);
-          const uint32_t b = hopper::smem_u32(X + stg * STAGE_BYTES);
-          if (active) {
-            psd_step(acc, ah0, al0, b, yf, y0 + 8 * kk, v0, v1, kk == 0);
-            if (kk > 0 && lane == 0)
-              mbar_arrive(&bar[EMPTY0 + (sc - 1) % RING]);
-            psd_step(acc, ah1, al1, b + SLICE_BYTES, yf, y0 + 8 * kk + 8,
-                     v0, v1, 0);
-          } else if (lane == 0) {
-            mbar_arrive(&bar[EMPTY0 + stg]);
-          }
-        }
-        hopper::wgmma_wait<0>();
-        hopper::fence_regs(acc);
+        psd_group(geo.mode_s, acc, X, bar, sc, nk, active, lane, yf, y0, v0,
+                  v1);
         if (active && lane == 0) mbar_arrive(&bar[EMPTY0 + (sc - 1) % RING]);
         // lane (g, t) holds frames fr0 and fr0 + 8 of the pairs
         // 64 cg + 4 j + t: the real part in acc[4j]/acc[4j+2], the
@@ -469,8 +557,8 @@ chain_kernel(const void* __restrict__ xv, int x_i16, long long xlen,
               qb += __shfl_xor_sync(0xffffffffu, qb, m);
           }
           if (gq == 0) {
-            qp[prow * nbins + slot] = qa;
-            if (slot == 0) qp[prow * nbins + half] = qb;
+            qp[prow() * nbins + slot] = qa;
+            if (slot == 0) qp[prow() * nbins + half] = qb;
           }
         }
       }
@@ -480,18 +568,23 @@ chain_kernel(const void* __restrict__ xv, int x_i16, long long xlen,
     // both warpgroups' MMAs have read the last ring stage there
     bar_sync(1, NCONS);
     if (want_e) {
-      for (int qd = tid; qd < nq; qd += NCONS) {
-        const int i = 4 * qd;
-        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (i < geo.ylen) v = *reinterpret_cast<const float4*>(yf + sw_psd(i));
-        uint4 hi, lo;
-        split_tf32(HALF_PI * fabsf(v.x), hi.x, lo.x);
-        split_tf32(HALF_PI * fabsf(v.y), hi.y, lo.y);
-        split_tf32(HALF_PI * fabsf(v.z), hi.z, lo.z);
-        split_tf32(HALF_PI * fabsf(v.w), hi.w, lo.w);
-        const int wd = qm_word(i, geo.nu);
-        *reinterpret_cast<uint4*>(xw + wd) = hi;
-        *reinterpret_cast<uint4*>(xw + pw + wd) = lo;
+      const int qe = kwidth(geo.mode_e) / 2;
+      for (int qd = tid; qd < 64 / qe * geo.nu_e; qd += NCONS) {
+        const int i = qe * qd;
+        float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a;
+        if (i < geo.ylen) {
+          a = *reinterpret_cast<const float4*>(yf + sw_psd(i));
+          if (qe == 8) b = *reinterpret_cast<const float4*>(yf + sw_psd(i + 4));
+        }
+        a = make_float4(HALF_PI * fabsf(a.x), HALF_PI * fabsf(a.y),
+                        HALF_PI * fabsf(a.z), HALF_PI * fabsf(a.w));
+        if (qe == 8) {
+          b = make_float4(HALF_PI * fabsf(b.x), HALF_PI * fabsf(b.y),
+                          HALF_PI * fabsf(b.z), HALF_PI * fabsf(b.w));
+          wgconv::put_octet(xw, geo.nu_e, i, a, b);
+        } else {
+          wgconv::put_quad(xw, geo.nu_e, i, a, geo.mode_e != TF32X1);
+        }
       }
     }
     fence_async();
@@ -502,20 +595,20 @@ chain_kernel(const void* __restrict__ xv, int x_i16, long long xlen,
     // 5. the envelope: e[j0 + i], i < tj
     float esum = 0.0f;
     if (want_e) {
+      const wgconv::Stream es_ =
+          wgconv::stream_at(hopper::smem_u32(X), geo.mode_e, geo.nu_e);
+      const wgconv::Stage se{gt, geo.L, geo.lead + geo.delay, geo.mode_e,
+                             geo.st_e, light_e};
       // 128-column chunks where there are two or more, one a warpgroup
       if (ncols_e >= 4 * COL)
-        esum = envelope<128>(xs, gt, geo, st_e, ncols_e, wg, j0, n,
-                             env_clamp, e + yrow);
+        esum = envelope<128>(es_, se, ncols_e, wg, j0, n, env_clamp,
+                             e + yrow);
       else
-        esum = envelope<64>(xs, gt, geo, st_e, ncols_e, wg, j0, n,
-                            env_clamp, e + yrow);
+        esum = envelope<64>(es_, se, ncols_e, wg, j0, n, env_clamp,
+                            e + yrow);
     }
-    psum = warp_sum(psum);
     esum = warp_sum(esum);
-    if (lane == 0) {
-      pp[prow] = psum;
-      gp[prow] = esum;
-    }
+    if (lane == 0) gp[prow()] = esum;
     // the envelope's stream is read before the next item's input lands
     bar_sync(1, NCONS);
   }
@@ -536,38 +629,54 @@ int chain_tap_pad() { return wgconv::TPAD; }
 int chain_warps() { return NWARP; }
 
 long long chain_smem_bytes(int Tf, int L, int delay, int lead, int tail,
-                           int nfft, int tj) {
-  return smem_bytes(geometry(Tf, L, delay, lead, tail, 0, nfft, tj));
+                           int nfft, int tj, int mode_f, int mode_e) {
+  return smem_bytes(
+      geometry(Tf, L, delay, lead, tail, 0, nfft, tj, mode_f, mode_e));
 }
 
-// h and g point at the host's split tap vectors [hi | lo], each half
-// T + 2 TPAD long with TPAD zeros in front (ChainKernel.h_split /
-// g_split); ws at the split, K-major slices of the pair-interleaved
-// analysis matrix (ChainKernel.ws_slices).  pp and gp hold one partial per
-// (channel, tile, consumer warp), qp one row of nbins per the same.
+// h and g point at the host's tap vectors of the filter's and the
+// envelope's modes (ChainKernel.h_taps / g_taps: TF32 [hi | lo] floats or
+// bf16 [hi | lo] pair words, each half T + 2 TPAD long with TPAD zeros in
+// front); ws at the K-major slices of the pair-interleaved analysis matrix
+// in the PSD's mode (ChainKernel.ws_slices); light at the flags of the
+// filter's units from phase_f, then the envelope's from phase_e.  pp and
+// gp hold one partial per (channel, tile, consumer warp), qp one row of
+// nbins per the same.
 int chain_launch(const void* x, int x_i16, long long xlen, int C,
-                 long long n, const float* h, int Tf, const float* g, int L,
+                 long long n, const void* h, int Tf, const void* g, int L,
                  int delay, int lead, int tail, int hb, const float* ws,
-                 int nfft, int tj, int env_clamp, int want_f, int want_e,
-                 int want_s, float* y, float* e, float* s, float* pp,
-                 float* gp, float* qp, void* stream) {
-  if (tj < 128 || tj > TILE_MAX || tj % 128 || nfft % SLICE_COLS)
+                 int nfft, int tj, int mode_f, int mode_e, int mode_s,
+                 int phase_f, int phase_e, const int* light, int env_clamp,
+                 int want_f, int want_e, int want_s, float* y, float* e,
+                 float* s, float* pp, float* gp, float* qp, void* stream) {
+  const bool modes_ok = mode_f >= TF32X3 && mode_f <= BF16X4 &&
+                        mode_e >= TF32X3 && mode_e <= BF16X4 &&
+                        mode_s >= TF32X3 && mode_s <= BF16X4;
+  const bool phases_ok = phase_f >= 0 && phase_f < 128 / kwidth(mode_f) &&
+                         phase_e >= 0 && phase_e < 128 / kwidth(mode_e);
+  if (tj < 128 || tj > TILE_MAX || tj % 128 || nfft % SLICE_COLS ||
+      !modes_ok || !phases_ok)
     return (int)cudaErrorInvalidValue;
-  const Geometry geo = geometry(Tf, L, delay, lead, tail, hb, nfft, tj);
+  Geometry geo = geometry(Tf, L, delay, lead, tail, hb, nfft, tj, mode_f,
+                          mode_e);
+  geo.mode_s = mode_s;
+  geo.st_f = wgconv::steps(Tf, Tf - 1, kwidth(mode_f), phase_f);
+  geo.st_e = wgconv::steps(L, lead + delay, kwidth(mode_e), phase_e);
   const long long smem = smem_bytes(geo);
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
+  cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const long long items = ((n + tj - 1) / tj) * (long long)C;
+  if (items >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)(items < sms ? items : sms);
+  err = cudaFuncSetAttribute(
+      chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   chain_kernel<<<grid, NT, (size_t)smem, (cudaStream_t)stream>>>(
-      x, x_i16, xlen, n, C, geo, h, g, ws, env_clamp, want_f, want_e,
-      want_s, y, e, s, pp, gp, qp);
+      x, x_i16, xlen, n, C, geo, h, g, ws, light, light + geo.st_f.nvb,
+      env_clamp, want_f, want_e, want_s, y, e, s, pp, gp, qp);
   return (int)cudaGetLastError();
 }
 

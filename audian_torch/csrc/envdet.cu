@@ -1,5 +1,5 @@
 // Single-pass song-detection envelope on Hopper's tensor cores (sm_90a,
-// 3xTF32 wgmma): int16 or float32 PCM -> zero-phase band-pass -> square ->
+// TF32 wgmma): int16 or float32 PCM -> zero-phase band-pass -> square ->
 // decimating envelope low-pass -> 2 sqrt(max(e, 0)).
 //
 // Replaces audian_tpu/ops/pallas/envdet.py:_envdet_kernel (via
@@ -14,10 +14,13 @@
 // step * lb multiply-adds for its share of the band-passed stream plus ll
 // for the envelope (10,732 at the song detector's default design, lb 511,
 // ll 1023, step 19, 90 % of them in the band-pass) against 38 bytes read.
-// Both stages run on the tensor cores in three TF32 passes, which keeps
-// the fp32 precision of the sums; the least time of the true taps is then
+// The band-pass runs on the tensor cores in three TF32 passes by default,
+// which keeps the fp32 precision of the sums, or in one (the mode the
+// host's precision picks: DEFAULT), its light units (host flags) in one
+// pass either way; the least time of the true taps at three passes is then
 // 3 x 3.8e10 FLOP at 495 TFLOP/s, about 0.23 ms a headline chunk, against
-// 0.022 ms of device-memory traffic.
+// 0.022 ms of device-memory traffic.  The decimating stage runs in fp32
+// FMAs under every precision.
 //
 // Design.  A block of two warpgroups owns T consecutive outputs of one
 // channel (grid: the C blocks of one tile side by side, channel fastest):
@@ -83,6 +86,7 @@ constexpr float RAW16_SCALE = 1.0f / 32768.0f;
 
 struct Geometry {
   int lb, d_bp, ll, d_lp, step, nout, hb, T;
+  int mode, phase;   // the band-pass's core mode (TF32X3 or TF32X1), units
   unsigned long long inv_step;   // ceil(2^32 / step): i / step for small i
   int q;        // taps a phase of stage 2
   int q8;       // q rounded up to 8 (the host's phase rows)
@@ -107,6 +111,8 @@ __host__ __device__ inline Geometry geometry(int lb, int d_bp, int ll,
   g.nout = nout;
   g.hb = hb;
   g.T = T;
+  g.mode = wgconv::TF32X3;
+  g.phase = 0;
   g.inv_step = ((1ULL << 32) + step - 1) / step;
   g.q = (ll + step - 1) / step;
   g.q8 = (g.q + 7) & ~7;
@@ -163,7 +169,8 @@ __device__ __forceinline__ void stage_span(const T* __restrict__ x,
 __global__ void __launch_bounds__(NT, 2)
 envdet_kernel(const void* __restrict__ xv, int x_i16, long long W, int C,
               Geometry g, const float* __restrict__ bp,
-              const float* __restrict__ lp, float* __restrict__ env) {
+              const int* __restrict__ light, const float* __restrict__ lp,
+              float* __restrict__ env) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint32_t* xw = reinterpret_cast<uint32_t*>(smem);     // split input span
   float* red = reinterpret_cast<float*>(smem);          // stage-2 shares
@@ -171,7 +178,7 @@ envdet_kernel(const void* __restrict__ xv, int x_i16, long long W, int C,
   float* z = reinterpret_cast<float*>(smem + (xbytes > rbytes ? xbytes
                                                                : rbytes));
   const uint32_t x_at = hopper::smem_u32(xw);
-  const wgconv::Stream xs{x_at, x_at + 256u * g.nu1, g.nu1};
+  const wgconv::Stream xs = wgconv::stream_at(x_at, wgconv::TF32X3, g.nu1);
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -205,13 +212,14 @@ envdet_kernel(const void* __restrict__ xv, int x_i16, long long W, int C,
 
   // stage 1: y[s0 + i] = sum_m g_bp[m] x[i + lb - 1 - m], squared into
   // z_p[n] = y^2[s0 + step n + p]
-  const wgconv::Steps st1 = wgconv::steps(g.lb, g.lb - 1);
+  const wgconv::Stage sg{bp, g.lb, g.lb - 1, g.mode,
+                         wgconv::steps(g.lb, g.lb - 1, 8, g.phase), light};
   for (int ch = wg; ch * COL < g.ncols1; ch += 2) {
     const int col0 = min(ch * COL, max(g.ncols1 - COL, 0));
     float acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-    wgconv::conv<64, 1>(xs, bp, g.lb, g.lb - 1, st1, col0, 0, st1.nvb, acc);
+    wgconv::conv<64, 1>(xs, sg, col0, 0, sg.st.nvb, acc);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int U = col0 + wgconv::out_col(i);
@@ -280,23 +288,31 @@ long long envdet_smem_bytes(int lb, int ll, int step, int T) {
 
 // env is (C, nout) float32; x is the (W, C) window, contiguous, int16 or
 // float32.  bp points at the host's split band-pass taps [hi | lo], each
-// lb + 2 TPAD long with TPAD zeros in front (EnvDetKernel.bp_split); lp at
-// the phase taps, step rows of q rounded up to 8 (EnvDetKernel.lp_phase).
-// T is a multiple of 64 from TILE_MIN to TILE_MAX.
+// lb + 2 TPAD long with TPAD zeros in front (EnvDetKernel.bp_split), run in
+// `mode` (TF32X3 or TF32X1) with the units from `phase` flagged by light
+// (EnvDetKernel.light); lp at the phase taps, step rows of q rounded up to
+// 8 (EnvDetKernel.lp_phase).  T is a multiple of 64 from TILE_MIN to
+// TILE_MAX.
 int envdet_launch(const void* x, int x_i16, long long W, int C,
-                  const float* bp, int lb, int d_bp, const float* lp,
-                  int ll, int d_lp, int step, int nout, int hb, int T,
-                  float* env, void* stream) {
-  if (T < TILE_MIN || T > TILE_MAX || T % 64)
+                  const float* bp, int lb, int d_bp, int mode, int phase,
+                  const int* light, const float* lp, int ll, int d_lp,
+                  int step, int nout, int hb, int T, float* env,
+                  void* stream) {
+  if (T < TILE_MIN || T > TILE_MAX || T % 64 ||
+      (mode != wgconv::TF32X3 && mode != wgconv::TF32X1) || phase < 0 ||
+      phase >= 16)
     return (int)cudaErrorInvalidValue;
-  const Geometry g = geometry(lb, d_bp, ll, d_lp, step, nout, hb, T);
+  Geometry g = geometry(lb, d_bp, ll, d_lp, step, nout, hb, T);
+  g.mode = mode;
+  g.phase = phase;
   const long long smem = smem_bytes(g);
   cudaError_t err = cudaFuncSetAttribute(
       envdet_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)C * ((nout + T - 1) / T);
   envdet_kernel<<<(unsigned)blocks, NT, (size_t)smem,
-                  (cudaStream_t)stream>>>(x, x_i16, W, C, g, bp, lp, env);
+                  (cudaStream_t)stream>>>(x, x_i16, W, C, g, bp, light, lp,
+                                          env);
   return (int)cudaGetLastError();
 }
 

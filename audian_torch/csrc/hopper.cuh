@@ -1,24 +1,33 @@
 // Hopper building blocks (sm_90a) shared by the tensor-core kernels:
-// TF32 splitting, warpgroup MMAs (wgmma.mma_async, TF32 with A from
-// registers and B through a shared-memory descriptor), mbarriers and bulk
-// copies from device memory into shared memory.
+// TF32 and bf16 splitting, warpgroup MMAs (wgmma.mma_async, TF32 at k8 and
+// bf16 at k16, A from registers and B through a shared-memory descriptor),
+// mbarriers and bulk copies from device memory into shared memory.
 //
 // wgmma fragments (PTX's m64nNk8 .tf32 layouts), for thread x of a
 // warpgroup with w = x / 32 (its warp), g = x % 32 / 4, t = x % 4:
 //   A (64 x 8, registers): a0 = A[16w + g][t], a1 = A[16w + g + 8][t],
 //                          a2 = A[16w + g][t + 4], a3 = A[16w + g + 8][t + 4]
 //   D (64 x N, fp32):      d[4j + e] = D[16w + g + 8 (e >> 1)][8j + 2t + (e & 1)]
-// B (8 x N) is read from shared memory as K-major "core matrices" with no
-// swizzle: eight rows along N of four words along K, 16 bytes a row and
-// 128 bytes a matrix; the descriptor gives the byte offset between the two
-// matrices along K (LBO) and between consecutive 8-row groups along N
-// (SBO).  TF32 has no transposed form: both operands are K-major.
+// and at m64nNk16 .bf16 each A register holds two bf16 along K, the lower
+// column in the low half:
+//   A (64 x 16):           a0 = A[16w + g][2t, 2t + 1], a1 = rows + 8,
+//                          a2 = A[16w + g][2t + 8, 2t + 9], a3 = rows + 8
+// B (8 x N, or 16 x N) is read from shared memory as K-major "core
+// matrices" with no swizzle: eight rows along N of 16 bytes along K (four
+// TF32 words or eight bf16), 128 bytes a matrix; the descriptor gives the
+// byte offset between the two matrices along K (LBO) and between
+// consecutive 8-row groups along N (SBO).  TF32 has no transposed form,
+// and bf16 with A in registers reads B K-major here: both operands are
+// K-major.
 //
-// A product of fp32 values a b is taken in three TF32 passes (3xTF32):
-// a = ah + al and b = bh + bl with each part rounded to TF32, then
-// ah bl + al bh + ah bh into one fp32 accumulator, the small passes first.
-// The dropped al bl and the rounding of the parts are about 2^-22 of
-// |a b|: the precision of the fp32 FMA this replaces.
+// A product of fp32 values a b is taken in passes over split operands:
+// 3xTF32 splits a = ah + al and b = bh + bl with each part rounded to TF32
+// and sums ah bl + al bh + ah bh into one fp32 accumulator, the small
+// passes first; the dropped al bl and the rounding of the parts are about
+// 2^-22 of |a b|, the precision of the fp32 FMA this replaces.  One TF32
+// pass (ah bh) keeps about 2^-10.  The split-bf16 passes (BF16X3: ah bl +
+// al bh + ah bh with bf16 parts, both rounded to nearest even; BF16X4 adds
+// al bl) keep about 2^-16 of |a b|, since lo is rounded to bf16 too.
 //
 // Rules kept by the callers: a thread's writes to shared memory that a
 // wgmma (or a bulk copy) then reads or overwrites are ordered by
@@ -44,6 +53,31 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = to_tf32(x);
   lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// (a, b) rounded to bf16 (to nearest even) as one register, a in the low
+// half
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(b), "f"(a));
+  return r;
+}
+
+// the two bf16 of a register as floats: the low half, the high half
+__device__ __forceinline__ float bf16_lo(uint32_t r) {
+  return __uint_as_float(r << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t r) {
+  return __uint_as_float(r & 0xFFFF0000u);
+}
+
+// (a, b) split into bf16 pairs: hi = bf16(a, b), lo = bf16(a - hi_a,
+// b - hi_b), both rounded to nearest even
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - bf16_lo(hi), b - bf16_hi(hi));
 }
 
 __host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
@@ -348,6 +382,109 @@ struct Mma<176> {
                                              const uint32_t (&a)[4],
                                              uint64_t desc, int scale_d) {
     mma_n176(d, a, desc, scale_d);
+  }
+};
+
+// d[4] (+)= a * B, one m64n8k16 bf16 pass: A from registers (bf16
+// pairs), B through its shared-memory descriptor (K-major); scale_d == 0
+// overwrites d
+__device__ __forceinline__ void mma16_n8(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d[32] (+)= a * B, one m64n64k16 bf16 pass: A from registers (bf16
+// pairs), B through its shared-memory descriptor (K-major); scale_d == 0
+// overwrites d
+__device__ __forceinline__ void mma16_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d[64] (+)= a * B, one m64n128k16 bf16 pass: A from registers (bf16
+// pairs), B through its shared-memory descriptor (K-major); scale_d == 0
+// overwrites d
+__device__ __forceinline__ void mma16_n128(float (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// mma16_n<N>: the bf16 pass of the above for N columns
+template <int N>
+struct Mma16;
+template <>
+struct Mma16<8> {
+  __device__ __forceinline__ static void run(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    mma16_n8(d, a, desc, scale_d);
+  }
+};
+template <>
+struct Mma16<64> {
+  __device__ __forceinline__ static void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    mma16_n64(d, a, desc, scale_d);
+  }
+};
+template <>
+struct Mma16<128> {
+  __device__ __forceinline__ static void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    mma16_n128(d, a, desc, scale_d);
   }
 };
 

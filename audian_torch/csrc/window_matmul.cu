@@ -1,4 +1,4 @@
-// Strided-window matrix product on Hopper's tensor cores (sm_90a, 3xTF32
+// Strided-window matrix product on Hopper's tensor cores (sm_90a, TF32
 // warpgroup wgmma, hopper.cuh).
 //
 //   y[f, c, o] = sum_{k<K} p(x[c, f*S + k]) * w[k, o]      f < nframes
@@ -15,6 +15,12 @@
 // stages of the IFIR envelope, and the two stages of the song-detection
 // EnvDet (band-pass bank K=638 on int16 with the dequantizer; the
 // decimating envelope bank K=3436 at stride 2432 with the square).
+//
+// Precision.  HIGHEST (and HIGH) run each product as three TF32 passes
+// (3xTF32: fp32 precision), DEFAULT as one, hi*hi, the pass XLA runs an
+// f32 DEFAULT dot as on this card: a template instance of its own, whose
+// ring carries only the hi part of w's split and whose A is rounded to
+// TF32 alone.
 //
 // What bounds it on the H100: arithmetic.  An output costs K multiply-adds
 // in three TF32 passes against 4 bytes written and S / O input bytes read,
@@ -100,6 +106,7 @@ enum { SPAN_FULL0, SPAN_EMPTY0 = 2, FULL0 = 4, EMPTY0 = FULL0 + RING_MAX,
        NBAR = EMPTY0 + RING_MAX };
 
 struct Geometry {
+  int one;            // one TF32 pass (DEFAULT) instead of three
   int K, V, Vp;       // taps; 8-tap steps; steps padded to whole stages
   int O, N, ncb;      // columns; a column block's; column blocks
   int S, es, lsh;     // stride; bytes a sample; log2 of a span chunk
@@ -111,8 +118,9 @@ struct Geometry {
 
 __host__ __device__ inline Geometry geometry(int K, int O, int S, int es,
                                              int N, int mode, int lsh,
-                                             int nbuf, int ring) {
+                                             int nbuf, int ring, int one) {
   Geometry g;
+  g.one = one;
   g.K = K;
   g.V = (K + 7) / 8;
   g.Vp = (g.V + SPS - 1) / SPS * SPS;
@@ -125,7 +133,7 @@ __host__ __device__ inline Geometry geometry(int K, int O, int S, int es,
   g.mode = mode;
   g.nbuf = mode == SPAN ? nbuf : 2;
   g.ring = ring;
-  g.b_bytes = SPS * 2 * 8 * N * 4;
+  g.b_bytes = SPS * (one ? 1 : 2) * 8 * N * 4;
   // a unit's taps and up to 15 bytes of alignment, rounded to 16 bytes
   g.rp = ROW_TAPS * es + 16;
   if (mode == SPAN) {
@@ -230,6 +238,16 @@ __device__ __forceinline__ void mma3(float (&part)[N / 2],
   hopper::wgmma_commit();
 }
 
+// one step's one pass (DEFAULT) into part from the stage's hi at b
+template <int N>
+__device__ __forceinline__ void mma1(float (&part)[N / 2],
+                                     const uint32_t (&ah)[4], uint32_t b,
+                                     int first) {
+  hopper::wgmma_fence();
+  hopper::Mma<N>::run(part, ah, hopper::desc(b, 16 * N, 128), !first);
+  hopper::wgmma_commit();
+}
+
 // A's TF32 split: hi is cvt.rna.tf32.f32 in integer arithmetic (x + half
 // a TF32 unit, the low 13 bits cleared: equal for every finite x and for
 // +-inf), lo is x - hi as it is, truncated to TF32 by the tensor cores,
@@ -256,14 +274,21 @@ __device__ __forceinline__ float load_at(const unsigned char* p) {
 }
 
 // A of step v (taps 8v + t, 8v + t + 4 of rows m0, m0 + 8): premapped and
-// split into (ah, al); a[j] is the value, ok[j] whether it lies in the
-// window and the tensor
+// split into (ah, al), or with ONE rounded into ah alone by cvt.rna (which
+// keeps a NaN a NaN, where the integer rounding may not); a[j] is the
+// value, ok[j] whether it lies in the window and the tensor
+template <bool ONE>
 __device__ __forceinline__ void split_a(const float (&a)[4],
                                         const bool (&ok)[4], int premap,
                                         uint32_t (&ah)[4], uint32_t (&al)[4]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    split_fast(premap_of(ok[j] ? a[j] : 0.0f, premap), ah[j], al[j]);
+  for (int j = 0; j < 4; ++j) {
+    const float v = premap_of(ok[j] ? a[j] : 0.0f, premap);
+    if (ONE)
+      ah[j] = hopper::to_tf32(v);
+    else
+      split_fast(v, ah[j], al[j]);
+  }
 }
 
 struct Args {
@@ -274,7 +299,7 @@ struct Args {
   float* y;
 };
 
-template <int N, bool I16>
+template <int N, bool I16, bool ONE>
 __global__ void __launch_bounds__(NT, 1) window_matmul_kernel(Args a,
                                                               Geometry geo) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -316,12 +341,20 @@ __global__ void __launch_bounds__(NT, 1) window_matmul_kernel(Args a,
         for (int cb = 0; cb < geo.ncb; ++cb)
           for (int s = 0; s < nst; ++s, ++sc) {
             const int st = sc % geo.ring;
+            const uint32_t* src =
+                a.wt + ((long long)cb * geo.Vp + SPS * s) * 16 * N;
             mbar_wait(&bar[EMPTY0 + st], ((sc / geo.ring) & 1) ^ 1);
             mbar_expect(&bar[FULL0 + st], geo.b_bytes);
-            hopper::bulk_load(
-                ring + st * geo.b_bytes,
-                a.wt + ((long long)cb * geo.Vp + SPS * s) * 16 * N,
-                geo.b_bytes, &bar[FULL0 + st]);
+            if (ONE) {
+              // the hi part of each step: 8 N words from every 16 N
+              for (int j = 0; j < SPS; ++j)
+                hopper::bulk_load(ring + st * geo.b_bytes + j * 32 * N,
+                                  src + j * 16 * N, 32 * N,
+                                  &bar[FULL0 + st]);
+            } else {
+              hopper::bulk_load(ring + st * geo.b_bytes, src, geo.b_bytes,
+                                &bar[FULL0 + st]);
+            }
           }
     } else if (pw == 1) {
       int ka = 0;
@@ -443,7 +476,7 @@ __global__ void __launch_bounds__(NT, 1) window_matmul_kernel(Args a,
           ok[3] = kt + 4 < geo.K && rcol1 + kt + 4 < a.n;
         }
       }
-      split_a(x4, ok, a.premap, ah, al);
+      split_a<ONE>(x4, ok, a.premap, ah, al);
     };
 
     for (int cb = 0; cb < geo.ncb; ++cb) {
@@ -468,7 +501,10 @@ __global__ void __launch_bounds__(NT, 1) window_matmul_kernel(Args a,
             gather(std::false_type(), v, ah0, al0);
           else
             gather(std::true_type(), v, ah0, al0);
-          mma3<N>(part, ah0, al0, b, s == s0);
+          if (ONE)
+            mma1<N>(part, ah0, b, s == s0);
+          else
+            mma3<N>(part, ah0, al0, b, s == s0);
           hopper::wgmma_wait<1>();
           // the previous stage's last step has retired: hand it back
           if (s > 0 && lane == 0) mbar_arrive(&bar[EMPTY0 + st_p]);
@@ -477,7 +513,10 @@ __global__ void __launch_bounds__(NT, 1) window_matmul_kernel(Args a,
               gather(std::false_type(), v + 1, ah1, al1);
             else
               gather(std::true_type(), v + 1, ah1, al1);
-            mma3<N>(part, ah1, al1, b + 64 * N, 0);
+            if (ONE)
+              mma1<N>(part, ah1, b + 32 * N, 0);
+            else
+              mma3<N>(part, ah1, al1, b + 64 * N, 0);
             hopper::wgmma_wait<1>();
           }
           st_p = st_w;
@@ -529,11 +568,11 @@ __global__ void __launch_bounds__(NT, 1) window_matmul_kernel(Args a,
   }
 }
 
-template <int N, bool I16>
+template <int N, bool I16, bool ONE>
 int launch(const Args& a, const Geometry& geo, cudaStream_t stream) {
   const long long smem = smem_bytes(geo);
   cudaError_t err = cudaFuncSetAttribute(
-      window_matmul_kernel<N, I16>,
+      window_matmul_kernel<N, I16, ONE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
@@ -544,15 +583,19 @@ int launch(const Args& a, const Geometry& geo, cudaStream_t stream) {
   const long long items =
       (long long)((a.nframes + F - 1) / F) * a.C;
   const unsigned grid = (unsigned)(items < sms ? items : sms);
-  window_matmul_kernel<N, I16><<<grid, NT, (size_t)smem, stream>>>(a, geo);
+  window_matmul_kernel<N, I16, ONE><<<grid, NT, (size_t)smem, stream>>>(a,
+                                                                        geo);
   return (int)cudaGetLastError();
 }
 
 template <int N>
 int launch_n(const Args& a, const Geometry& geo, int x_i16,
              cudaStream_t stream) {
-  return x_i16 ? launch<N, true>(a, geo, stream)
-               : launch<N, false>(a, geo, stream);
+  if (geo.one)
+    return x_i16 ? launch<N, true, true>(a, geo, stream)
+                 : launch<N, false, true>(a, geo, stream);
+  return x_i16 ? launch<N, true, false>(a, geo, stream)
+               : launch<N, false, false>(a, geo, stream);
 }
 
 bool valid(const Geometry& g) {
@@ -569,20 +612,21 @@ bool valid(const Geometry& g) {
 extern "C" {
 
 long long window_matmul_smem_bytes(int K, int O, int S, int es, int N,
-                                   int mode, int lsh, int nbuf, int ring) {
-  return smem_bytes(geometry(K, O, S, es, N, mode, lsh, nbuf, ring));
+                                   int mode, int lsh, int nbuf, int ring,
+                                   int one) {
+  return smem_bytes(geometry(K, O, S, es, N, mode, lsh, nbuf, ring, one));
 }
 
 // 32-bit words of w's split for column blocks of N
 long long window_matmul_split_words(int K, int O, int N) {
-  const Geometry g = geometry(K, O, 1, 4, N, ROWS, 0, 0, 2);
+  const Geometry g = geometry(K, O, 1, 4, N, ROWS, 0, 0, 2, 0);
   return (long long)g.ncb * g.Vp * 16 * N;
 }
 
 int window_matmul_split_launch(const float* w, int K, int O, int N,
                                uint32_t* wt, void* stream) {
   const long long words = window_matmul_split_words(K, O, N);
-  const Geometry g = geometry(K, O, 1, 4, N, ROWS, 0, 0, 2);
+  const Geometry g = geometry(K, O, 1, 4, N, ROWS, 0, 0, 2, 0);
   const long long blocks = (words + 255) / 256;
   split_w_kernel<<<(unsigned)(blocks < 2048 ? blocks : 2048), 256, 0,
                    (cudaStream_t)stream>>>(w, K, O, N, g.Vp, words, wt);
@@ -591,13 +635,15 @@ int window_matmul_split_launch(const float* w, int K, int O, int N,
 
 // wt: window_matmul_split_words(K, O, N) words from
 // window_matmul_split_launch; the geometry (N, mode, lsh, nbuf, ring) is
-// the host's plan (ops/cuda/window_matmul.py:plan)
+// the host's plan (ops/cuda/window_matmul.py:plan); one: one TF32 pass
+// (DEFAULT) instead of three
 int window_matmul_launch(const void* x, int x_i16, long long n, int C,
                          const uint32_t* wt, int K, int O, int S,
                          int nframes, int premap, int layout, float* y, int N,
-                         int mode, int lsh, int nbuf, int ring, void* stream) {
+                         int mode, int lsh, int nbuf, int ring, int one,
+                         void* stream) {
   const Geometry geo =
-      geometry(K, O, S, x_i16 ? 2 : 4, N, mode, lsh, nbuf, ring);
+      geometry(K, O, S, x_i16 ? 2 : 4, N, mode, lsh, nbuf, ring, one != 0);
   if (!valid(geo)) return (int)cudaErrorInvalidValue;
   const Args a{x, n, C, nframes, premap, layout, wt, y};
   cudaStream_t s = (cudaStream_t)stream;

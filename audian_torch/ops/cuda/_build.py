@@ -41,22 +41,25 @@ _SIGNATURES = {
     "chain_tile_max": ([], _I),
     "chain_tap_pad": ([], _I),
     "chain_warps": ([], _I),
-    "chain_smem_bytes": ([_I, _I, _I, _I, _I, _I, _I], _LL),
+    "chain_smem_bytes": ([_I, _I, _I, _I, _I, _I, _I, _I, _I], _LL),
     "chain_launch": ([_P, _I, _LL, _I, _LL, _P, _I, _P, _I, _I, _I, _I, _I,
-                      _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                      _P], _I),
-    "window_matmul_smem_bytes": ([_I, _I, _I, _I, _I, _I, _I, _I, _I], _LL),
+                      _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I,
+                      _P, _P, _P, _P, _P, _P, _P], _I),
+    "window_matmul_smem_bytes": ([_I, _I, _I, _I, _I, _I, _I, _I, _I, _I],
+                                 _LL),
     "window_matmul_split_words": ([_I, _I, _I], _LL),
     "window_matmul_split_launch": ([_P, _I, _I, _I, _P, _P], _I),
     "window_matmul_launch": ([_P, _I, _LL, _I, _P, _I, _I, _I, _I, _I, _I,
-                              _P, _I, _I, _I, _I, _I, _P], _I),
-    "conv_probe_launch": ([_P, _I, _P, _I, _I, _I, _P, _P, _P], _I),
-    "conv_rate_launch": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
+                              _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    "conv_probe_launch": ([_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+                          _I),
+    "conv_rate_launch": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+                         _I),
     "envdet_tile_max": ([], _I),
     "envdet_tile_min": ([], _I),
     "envdet_smem_bytes": ([_I, _I, _I, _I], _LL),
-    "envdet_launch": ([_P, _I, _LL, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I,
-                       _I, _P, _P], _I),
+    "envdet_launch": ([_P, _I, _LL, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I,
+                       _I, _I, _I, _I, _P, _P], _I),
 }
 
 _lock = threading.Lock()

@@ -6,11 +6,14 @@ band-pass -> square -> decimating envelope low-pass -> ``2 sqrt(max(e, 0))``.
 ``window_need`` and static contract (the window's first output sits at
 exactly ``hb``).  The CUDA kernel (``csrc/envdet.cu``) reads the
 time-first window as it is: the band-pass runs on the tensor cores as
-Toeplitz products (3xTF32 wgmma, ``csrc/wgmma_conv.cuh``) against the taps
-split on the host (``bp_split``, as the chain's), and the decimating
-envelope as a sum over ``step`` polyphase streams of correlations with
-``q = ceil(ll / step)`` taps each (:func:`phase_taps`, reversed and padded
-into ``lp_phase``) in fp32 FMAs.  :func:`geometry` is the block geometry
+Toeplitz products (TF32 wgmma, ``csrc/wgmma_conv.cuh``: three passes at
+HIGHEST and HIGH, one at DEFAULT, the light units of
+:func:`audian_torch.ops.cuda.chain.light_units` one pass either way)
+against the taps split on the host (``bp_split``, as the chain's), and the
+decimating envelope as a sum over ``step`` polyphase streams of
+correlations with ``q = ceil(ll / step)`` taps each (:func:`phase_taps`,
+reversed and padded into ``lp_phase``) in fp32 FMAs under every
+precision.  :func:`geometry` is the block geometry
 the kernel computes, :func:`smem_bytes` its shared memory and
 :func:`pick_tile` the host's tile choice.
 
@@ -30,7 +33,9 @@ from ..envdet import EnvDetDesign, _float_window
 from ..raw16 import dequant16
 from ..sos import _fir_valid_cf, full_fp32
 from ._build import SMEM_LIMIT, check, count_launch, load_library
-from .chain import _split_taps, stream_rows
+from .chain import _split_taps, flags_tensor, light_units, stream_rows
+from .precision import MATMUL_RUNGS, core_mode
+from .precision import check as check_precision
 
 #: shared memory of the SM that two resident blocks share (228 KB, less
 #: the 1 KB the runtime reserves for each block)
@@ -123,7 +128,11 @@ class EnvDetKernel(EnvDetDesign):
     exactly ``hb`` (``__call__`` rejects other offsets).  Raises ValueError
     when the headroom is smaller than the combined look-back of the two
     filters, or when one output's span does not fit a block's shared
-    memory (callers then take :class:`audian_torch.ops.envdet.EnvDet`)."""
+    memory (callers then take :class:`audian_torch.ops.envdet.EnvDet`).
+
+    ``light`` flags the band-pass's units that run one pass (from
+    ``phase``, :func:`audian_torch.ops.cuda.chain.light_units`); a check
+    may set them all ``False`` to run every unit in full."""
 
     def _build(self):
         if self.hb < self.lead2 + self.lb - 1 - self.d_bp:
@@ -137,6 +146,9 @@ class EnvDetKernel(EnvDetDesign):
         self.g_bp = self._tensor(self.g_bp_np)
         self.g_lp = self._tensor(self.g_lp_np)
         self.bp_split = self._tensor(_split_taps(self.g_bp_np))
+        # the band-pass's core mode and its light units (one pass)
+        self.mode = core_mode(self.precision)
+        self.phase, self.light = light_units(self.g_bp_np, self.lb - 1)
         self.lp_phase = self._tensor(phase_rows(self.g_lp_np, self.step))
 
     def __call__(self, xw, off0):
@@ -167,7 +179,9 @@ def _check_window(xw):
 def envdet_plain(ed, xw):
     """Plain PyTorch version of :func:`envdet`: ``conv1d`` of the
     dequantized window with ``g_bp``, the square, then ``conv1d`` with
-    ``g_lp`` at ``stride=step``, in full float32."""
+    ``g_lp`` at ``stride=step``, in full float32 whatever ``ed.precision``
+    (checked)."""
+    check_precision(ed.precision, MATMUL_RUNGS)
     _check_window(xw)
     x = xw.T
     x = dequant16(x) if x.dtype == torch.int16 else x.to(torch.float32)
@@ -212,7 +226,9 @@ def envdet(ed, xw):
     with torch.cuda.device(xw.device):
         code = lib.envdet_launch(
             x.data_ptr(), int(x.dtype == torch.int16), W, C,
-            ed.bp_split.data_ptr(), ed.lb, ed.d_bp, ed.lp_phase.data_ptr(),
+            ed.bp_split.data_ptr(), ed.lb, ed.d_bp, ed.mode, ed.phase,
+            flags_tensor(tuple(ed.light), xw.device).data_ptr(),
+            ed.lp_phase.data_ptr(),
             ed.ll, ed.d_lp, ed.step, ed.nout, ed.hb, ed.tile, env.data_ptr(),
             torch.cuda.current_stream(xw.device).cuda_stream)
     check(code, "envdet")

@@ -4,10 +4,13 @@ The wrapper :func:`window_matmul` launches the CUDA kernel
 (``csrc/window_matmul.cu``, the port of
 ``audian_tpu/ops/pallas/window_matmul.py:_kernel``) on a CUDA tensor and
 runs the plain PyTorch version :func:`window_matmul_plain` on a CPU
-tensor; any other device raises.  The kernel runs 3xTF32 warpgroup
-``wgmma`` products with the frames on M and ``w``'s columns on N: ``w``
-split into its TF32 parts once per bank (:func:`split_w`, held beside
-the bank by its owner in a :class:`BankSplit`) and streamed through a ring of bulk copies, the
+tensor; any other device raises.  The kernel runs TF32 warpgroup
+``wgmma`` products with the frames on M and ``w``'s columns on N, three
+passes (3xTF32) at ``precision`` HIGHEST and HIGH, one at DEFAULT (its own
+template instance, whose ring carries only ``w``'s hi part): ``w`` split
+into its TF32 parts once per bank (:func:`split_w`, held beside the bank
+by its owner in a :class:`BankSplit`) and streamed through a ring of
+bulk copies, the
 input staged as one span a tile of 128 frames (or, where the span does
 not fit, as each stage's window rows), the geometry chosen here
 (:func:`plan`, whose :func:`smem_bytes` mirrors the kernel's).  It serves
@@ -31,6 +34,8 @@ import torch
 from ..raw16 import dequant16
 from ..sos import full_fp32
 from ._build import SMEM_LIMIT, check, count_launch, load_library
+from .precision import DEFAULT, HIGHEST, MATMUL_RUNGS
+from .precision import check as check_precision
 
 __all__ = ["FRAMES", "PREMAPS", "WIDTHS", "BankSplit", "Plan",
            "column_blocks", "plan", "smem_bytes", "span_shift", "split_w",
@@ -75,12 +80,13 @@ def column_blocks(O):
     return N, -(-int(O) // N)
 
 
-def _geometry(K, O, S, es, N, mode, lsh, nbuf):
+def _geometry(K, O, S, es, N, mode, lsh, nbuf, one=False):
     """``(stage bytes, A-buffer bytes, A buffers)`` as ``geometry`` in
-    csrc/window_matmul.cu computes them: a stage holds w's two steps, an A
-    buffer a span or, in rows mode, 128 window rows of a unit's taps."""
+    csrc/window_matmul.cu computes them: a stage holds w's two steps (hi
+    and lo, or with ``one`` hi alone), an A buffer a span or, in rows mode,
+    128 window rows of a unit's taps."""
     V = -(-int(K) // 8)
-    stage = _SPS * 2 * 8 * N * 4
+    stage = _SPS * (1 if one else 2) * 8 * N * 4
     if mode != "span":
         return stage, FRAMES * (_ROW_TAPS * es + 16), 2
     e = 16 // es - 1 + (FRAMES - 1) * int(S) + 8 * V
@@ -88,11 +94,11 @@ def _geometry(K, O, S, es, N, mode, lsh, nbuf):
     return stage, chunks * ((es << lsh) + 16), nbuf
 
 
-def smem_bytes(K, O, S, es, N, mode, lsh, nbuf, ring):
+def smem_bytes(K, O, S, es, N, mode, lsh, nbuf, ring, one=False):
     """Shared memory of one kernel block (``window_matmul_smem_bytes`` in
     csrc/window_matmul.cu): the ring's stages, the A buffers and the
-    mbarriers."""
-    stage, span, nbuf = _geometry(K, O, S, es, N, mode, lsh, nbuf)
+    mbarriers; ``one`` for the one-pass (DEFAULT) instance."""
+    stage, span, nbuf = _geometry(K, O, S, es, N, mode, lsh, nbuf, one)
     return ring * stage + nbuf * span + 8 * _NBAR
 
 
@@ -133,24 +139,26 @@ def span_shift(S, es):
 
 
 @lru_cache(maxsize=256)
-def plan(K, O, S, es):
+def plan(K, O, S, es, one=False):
     """The kernel's geometry for a (K, O) bank at stride ``S`` over
-    ``es``-byte samples: span mode with two span buffers where they fit
-    beside a ring of 4 stages, else one; rows mode where no span fits
-    (two buffers of 128 window rows of a unit's 128 taps)."""
+    ``es``-byte samples, for three TF32 passes or (``one``) one: span mode
+    with two span buffers where they fit beside a ring of 4 stages, else
+    one; rows mode where no span fits (two buffers of 128 window rows of a
+    unit's 128 taps)."""
     N, ncb = column_blocks(O)
     lsh = span_shift(int(S), es)
     for nbuf in (2, 1):
-        stage, span, _ = _geometry(K, O, S, es, N, "span", lsh, nbuf)
+        stage, span, _ = _geometry(K, O, S, es, N, "span", lsh, nbuf, one)
         ring = min(_RING_MAX,
                    (SMEM_LIMIT - 8 * _NBAR - nbuf * span) // stage)
         if ring >= 4:
             return Plan("span", N, ncb, lsh, nbuf, ring,
-                        smem_bytes(K, O, S, es, N, "span", lsh, nbuf, ring))
-    stage, rows, _ = _geometry(K, O, S, es, N, "rows", 0, 2)
+                        smem_bytes(K, O, S, es, N, "span", lsh, nbuf, ring,
+                                   one))
+    stage, rows, _ = _geometry(K, O, S, es, N, "rows", 0, 2, one)
     ring = min(_RING_MAX, (SMEM_LIMIT - 8 * _NBAR - 2 * rows) // stage)
     return Plan("rows", N, ncb, 0, 2, ring,
-                smem_bytes(K, O, S, es, N, "rows", 0, 2, ring))
+                smem_bytes(K, O, S, es, N, "rows", 0, 2, ring, one))
 
 
 def _check_args(x, w, stride, nframes, premap, out_layout):
@@ -174,10 +182,12 @@ def _reshape_out(y, out_layout):
 
 
 @full_fp32()
-def window_matmul_plain(x, w, stride, nframes, premap=None, out_layout="fco"):
+def window_matmul_plain(x, w, stride, nframes, premap=None, out_layout="fco",
+                        *, precision=HIGHEST):
     """Plain PyTorch version of :func:`window_matmul`: the frames as an
     ``unfold`` view of the zero-extended stream, then one ``matmul`` in
-    full float32."""
+    full float32 whatever ``precision`` (checked)."""
+    check_precision(precision, MATMUL_RUNGS)
     _check_args(x, w, stride, nframes, premap, out_layout)
     C, n = x.shape
     K, O = w.shape
@@ -254,7 +264,7 @@ class BankSplit:
 
 
 def window_matmul(x, w, stride, nframes, premap=None, out_layout="fco", *,
-                  split=None):
+                  split=None, precision=HIGHEST):
     """``y[f, c, :] = p(x[c, f*stride : f*stride + K]) @ w`` for
     ``f < nframes``, with ``x`` zero-extended past its end.
 
@@ -266,12 +276,16 @@ def window_matmul(x, w, stride, nframes, premap=None, out_layout="fco", *,
     split : the :class:`BankSplit` that holds ``w``'s TF32 split across
         calls (the bank's owner keeps one beside the bank); without it a
         call on the card splits ``w`` first, one launch more.
+    precision : HIGHEST (the default) or HIGH, three TF32 passes; DEFAULT,
+        one (:mod:`.precision`); anything else raises ValueError.
 
     A CUDA tensor runs the kernel (counted in ``window_matmul.launches``);
     a CPU tensor runs :func:`window_matmul_plain`.
     """
     if x.device.type == "cpu":
-        return window_matmul_plain(x, w, stride, nframes, premap, out_layout)
+        return window_matmul_plain(x, w, stride, nframes, premap, out_layout,
+                                   precision=precision)
+    one = check_precision(precision, MATMUL_RUNGS) == DEFAULT
     if x.device.type != "cuda":
         raise ValueError(f"window_matmul runs on cuda or cpu, not {x.device}")
     _check_args(x, w, stride, nframes, premap, out_layout)
@@ -297,7 +311,7 @@ def window_matmul(x, w, stride, nframes, premap=None, out_layout="fco", *,
         raise ValueError("window_matmul indexes a channel with 32-bit "
                          "offsets: (nframes + 64) * stride + K and n must "
                          "stay below 2^31")
-    p = plan(K, O, S, x.element_size())
+    p = plan(K, O, S, x.element_size(), one)
     lib = load_library()
     # launched on the tensor's device: the current device may be another
     with _on_device(x.device):
@@ -307,7 +321,8 @@ def window_matmul(x, w, stride, nframes, premap=None, out_layout="fco", *,
             x.data_ptr(), int(x.dtype == torch.int16), n, C, wt.data_ptr(),
             K, O, S, nframes, PREMAPS.index(premap),
             _LAYOUTS.index(out_layout), y.data_ptr(), p.N,
-            MODES.index(p.mode), p.lsh, p.nbuf, p.ring, stream.cuda_stream)
+            MODES.index(p.mode), p.lsh, p.nbuf, p.ring, int(one),
+            stream.cuda_stream)
     check(code, "window_matmul")
     count_launch(window_matmul)
     return y.reshape(C, nframes * O) if out_layout == "cf" else y

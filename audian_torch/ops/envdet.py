@@ -19,8 +19,15 @@ The symmetric kernels come from
 :func:`audian_torch.ops.design.filtfilt_sym_kernel` at the designs'
 (power-of-two) FIR budgets.  Interior samples match scipy's
 ``sosfiltfilt`` chain to the truncation ``eps``; the caller supplies the
-halos (``audian_torch.analysis.events``).  The port computes in float32;
-the JAX package's bf16 ``precision`` opt-in is not ported.
+halos (``audian_torch.analysis.events``).
+
+``precision`` (:mod:`.cuda.precision`) takes the JAX package's values for
+both forms: HIGHEST (the default) and HIGH run the tensor-core products
+as three TF32 passes, within about 1e-6 of the float64 oracle; DEFAULT as
+one TF32 pass, about 1e-3 relative, the throughput opt-in of batch jobs
+(the TPU's DEFAULT is one bf16 pass).  The split-bf16 rungs are refused,
+as the JAX package's decimating stage refuses them.  The kernel's
+decimating stage runs in fp32 FMAs under every rung.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import resolve_device
+from .cuda.precision import HIGHEST, MATMUL_RUNGS, check
 from .cuda.window_matmul import BankSplit, window_matmul
 from .design import filtfilt_sym_kernel
 from .sos import _toeplitz_bank_np
@@ -67,26 +75,34 @@ class EnvDetDesign:
 
     ``fdesign``/``edesign`` are :class:`audian_torch.ops.design.FilterDesign`
     values; their ``fir.length`` budgets set the kernel lengths.
-    ``device`` defaults to the CUDA card ("cpu" runs the plain versions).
-    Raises ValueError when the geometry cannot be covered.
+    ``precision`` is HIGHEST (``None``, the default), HIGH or DEFAULT (see
+    the module).  ``device`` defaults to the CUDA card ("cpu" runs the
+    plain versions).  Raises ValueError when the geometry cannot be
+    covered or on another precision.
     """
 
-    def __init__(self, fdesign, edesign, step, nout, hb, device=None):
+    def __init__(self, fdesign, edesign, step, nout, hb, precision=None,
+                 device=None):
         g_bp, d_bp = filtfilt_sym_kernel(fdesign.sos,
                                          pad_to=fdesign.fir.length)
         g_lp, d_lp = filtfilt_sym_kernel(edesign.sos,
                                          pad_to=edesign.fir.length)
-        self._setup(g_bp, d_bp, g_lp, d_lp, step, nout, hb, device)
+        self._setup(g_bp, d_bp, g_lp, d_lp, step, nout, hb, precision,
+                    device)
 
     @classmethod
     def from_kernels(cls, g_bp, d_bp, g_lp, d_lp, step, nout, hb,
-                     device=None):
+                     precision=None, device=None):
         """The same envelope over precomputed symmetric kernels."""
         self = cls.__new__(cls)
-        self._setup(g_bp, d_bp, g_lp, d_lp, step, nout, hb, device)
+        self._setup(g_bp, d_bp, g_lp, d_lp, step, nout, hb, precision,
+                    device)
         return self
 
-    def _setup(self, g_bp, d_bp, g_lp, d_lp, step, nout, hb, device):
+    def _setup(self, g_bp, d_bp, g_lp, d_lp, step, nout, hb, precision,
+               device):
+        self.precision = check(HIGHEST if precision is None else precision,
+                               MATMUL_RUNGS)
         self.device = resolve_device(device)
         self.g_bp_np = np.asarray(g_bp, np.float64)
         self.g_lp_np = np.asarray(g_lp, np.float64)
@@ -151,13 +167,13 @@ class EnvDet(EnvDetDesign):
         xp = F.pad(xs, (self.lb - 1, 0))
         caus = window_matmul(xp, self.w_bp, 128, -(-w2 // 128),
                              premap="dequant", out_layout="cf",
-                             split=self._split_bp)
+                             split=self._split_bp, precision=self.precision)
         y_ext = caus[:, base : base + n_y].contiguous()
         # stage 2: the decimating squared-envelope conv (square as premap)
         raw = window_matmul(y_ext, self.b2, 128 * self.step,
                             -(-self.nout // 128), premap="square",
-                            out_layout="fco",
-                            split=self._split_b2)     # (nf2, C, 128)
+                            out_layout="fco", split=self._split_b2,
+                            precision=self.precision)     # (nf2, C, 128)
         env = raw.permute(1, 0, 2).reshape(C, -1)[:, : self.nout]
         # env = sqrt(2 * e) with e = 2*conv  ->  2*sqrt(conv)
         return (2.0 * torch.sqrt(torch.clamp_min(env, 0.0))).T

@@ -27,8 +27,11 @@ from the last ``T`` inputs, so block-chaining stays exact up to ``eps``.
 
 The FIR functions are the building blocks of the fused chain's plain
 version; the convolutions run through ``torch.nn.functional.conv1d`` and
-the state corrections through ``matmul``, all products here in full
-float32 (:func:`full_fp32`).
+the state corrections through ``matmul``, all products in full float32
+(:func:`full_fp32`) unless a FIR function is given ``precision=DEFAULT``
+(:mod:`.cuda.precision`): then cuBLAS and cuDNN may take TF32 for that
+call (:func:`matmul_precision`), as the JAX package's DEFAULT runs one
+pass.  HIGHEST, the default, and HIGH keep full float32.
 """
 
 from __future__ import annotations
@@ -43,10 +46,12 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import on_device
+from .cuda.precision import DEFAULT, HIGHEST, MATMUL_RUNGS, check
 from .design import filtfilt_padlen
 
 __all__ = [
     "full_fp32",
+    "matmul_precision",
     "odd_ext",
     "sosfilt",
     "sosfilt_fir",
@@ -61,22 +66,30 @@ IIR_BLOCK = 128
 
 
 @contextlib.contextmanager
-def full_fp32():
-    """Run float32 matrix products and convolutions in full float32 on the
+def matmul_precision(precision=HIGHEST):
+    """Run float32 matrix products and convolutions at ``precision`` on the
     GPU for the duration of the block (or of the decorated call), then put
-    both TF32 flags back as the caller left them.  cuDNN runs float32
-    convolutions in TF32 (about three decimal digits) unless told not to,
-    which would break the 1e-5 contract of the plain versions the kernels
-    are held against; the caller's own matmuls keep its setting."""
+    both TF32 flags back as the caller left them: HIGHEST and HIGH in full
+    float32 (both flags off), DEFAULT in TF32 where cuBLAS and cuDNN take
+    it (both on); another value raises ValueError."""
+    tf32 = check(precision, MATMUL_RUNGS) == DEFAULT
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
     try:
         yield
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def full_fp32():
+    """:func:`matmul_precision` at HIGHEST.  cuDNN runs float32
+    convolutions in TF32 (about three decimal digits) unless told not to,
+    which would break the 1e-5 contract of the plain versions the kernels
+    are held against; the caller's own matmuls keep its setting."""
+    return matmul_precision(HIGHEST)
 
 
 def _toeplitz_bank_np(h, block):
@@ -91,22 +104,22 @@ def _toeplitz_bank_np(h, block):
                     h[np.clip(idx, 0, T - 1)], h.dtype.type(0))
 
 
-@full_fp32()
-def _fir_valid_cf(x_cf, h):
+def _fir_valid_cf(x_cf, h, precision=HIGHEST):
     """``out[c, i] = sum_m h[m] x[c, i + T - 1 - m]`` for ``i`` in
     ``[0, n - T + 1)``: the causal FIR over a channels-first stream whose
-    first ``T - 1`` samples are history."""
-    h = torch.as_tensor(h, dtype=x_cf.dtype, device=x_cf.device)
-    w = torch.flip(h, (0,)).reshape(1, 1, -1)
-    return F.conv1d(x_cf.unsqueeze(1), w).squeeze(1)
+    first ``T - 1`` samples are history, at ``precision``."""
+    with matmul_precision(precision):
+        h = torch.as_tensor(h, dtype=x_cf.dtype, device=x_cf.device)
+        w = torch.flip(h, (0,)).reshape(1, 1, -1)
+        return F.conv1d(x_cf.unsqueeze(1), w).squeeze(1)
 
 
-def _conv1d_same_causal(x, h):
+def _conv1d_same_causal(x, h, precision=HIGHEST):
     """Causal convolution ``y[n] = sum_j h[j] x[n-j]`` along axis 0 of a
-    (n, channels) array with zero history."""
+    (n, channels) array with zero history, at ``precision``."""
     T = len(h)
     xp = F.pad(x.T, (T - 1, 0))
-    return _fir_valid_cf(xp, h).T
+    return _fir_valid_cf(xp, h, precision).T
 
 
 def _time_first(x, axis):
@@ -123,50 +136,55 @@ def _time_first(x, axis):
     return xt.reshape(shape[0], -1), restore
 
 
-@full_fp32()
-def sosfilt_fir(kernels, x, zi=None, axis=0, return_zf=None):
+def sosfilt_fir(kernels, x, zi=None, axis=0, return_zf=None,
+                precision=HIGHEST):
     """Causal SOS filtering through the truncated impulse response.
 
     ``kernels`` is a :class:`audian_torch.ops.design.FirKernels`.  Output
     matches scipy ``sosfilt`` within ``kernels.eps`` (relative).  ``zi``
     uses scipy's per-section convention ``(nsec, ..., 2, ...)``; the final
     conditions come from the last ``T`` samples, plus ``A**n`` times the
-    initial state when the block is shorter than the kernel.
+    initial state when the block is shorter than the kernel.  Its
+    products run at ``precision`` (HIGHEST, HIGH or DEFAULT; see
+    :func:`matmul_precision`).
     """
-    if return_zf is None:
-        return_zf = zi is not None
-    ndim = x.ndim
-    axis = axis % max(ndim, 1)
-    flat, restore = _time_first(x, axis)
-    dtype, dev = flat.dtype, flat.device
-    n = flat.shape[0]
-    y = _conv1d_same_causal(flat, kernels.h)
-    nstate = kernels.state_out.shape[1]
-    s0 = None
-    if zi is not None:
-        zi_t = torch.movedim(torch.as_tensor(zi, dtype=dtype, device=dev),
-                             1 + axis, 1)
-        s0 = zi_t.reshape(nstate, -1)                       # (2*nsec, cols)
-        G = torch.as_tensor(kernels.state_out[: min(n, kernels.length)],
-                            dtype=dtype, device=dev)
-        y = torch.cat([y[: G.shape[0]] + G @ s0, y[G.shape[0]:]])
-    out = restore(y)
-    if not return_zf:
-        return out
-    T = min(kernels.length, n)
-    Phi = torch.as_tensor(np.ascontiguousarray(kernels.input_state[:T][::-1]),
-                          dtype=dtype, device=dev)          # (T, 2*nsec)
-    zf = Phi.T @ flat[n - T:]                               # (2*nsec, cols)
-    if s0 is not None and n < kernels.length and kernels.A is not None:
-        # the initial state has not decayed within this short block
-        An = torch.as_tensor(np.linalg.matrix_power(kernels.A, n),
-                             dtype=dtype, device=dev)
-        zf = zf + An @ s0
-    xt_shape = torch.movedim(x, axis, 0).shape
-    zf = zf.reshape((nstate // 2, 2) + tuple(xt_shape[1:]))
-    if ndim > 1:
-        zf = torch.movedim(zf, 1, 1 + axis)
-    return out, zf
+    with matmul_precision(precision):
+        if return_zf is None:
+            return_zf = zi is not None
+        ndim = x.ndim
+        axis = axis % max(ndim, 1)
+        flat, restore = _time_first(x, axis)
+        dtype, dev = flat.dtype, flat.device
+        n = flat.shape[0]
+        y = _conv1d_same_causal(flat, kernels.h, precision)
+        nstate = kernels.state_out.shape[1]
+        s0 = None
+        if zi is not None:
+            zi_t = torch.movedim(
+                torch.as_tensor(zi, dtype=dtype, device=dev), 1 + axis, 1)
+            s0 = zi_t.reshape(nstate, -1)                   # (2*nsec, cols)
+            G = torch.as_tensor(
+                kernels.state_out[: min(n, kernels.length)], dtype=dtype,
+                device=dev)
+            y = torch.cat([y[: G.shape[0]] + G @ s0, y[G.shape[0]:]])
+        out = restore(y)
+        if not return_zf:
+            return out
+        T = min(kernels.length, n)
+        Phi = torch.as_tensor(
+            np.ascontiguousarray(kernels.input_state[:T][::-1]),
+            dtype=dtype, device=dev)                        # (T, 2*nsec)
+        zf = Phi.T @ flat[n - T:]                           # (2*nsec, cols)
+        if s0 is not None and n < kernels.length and kernels.A is not None:
+            # the initial state has not decayed within this short block
+            An = torch.as_tensor(np.linalg.matrix_power(kernels.A, n),
+                                 dtype=dtype, device=dev)
+            zf = zf + An @ s0
+        xt_shape = torch.movedim(x, axis, 0).shape
+        zf = zf.reshape((nstate // 2, 2) + tuple(xt_shape[1:]))
+        if ndim > 1:
+            zf = torch.movedim(zf, 1, 1 + axis)
+        return out, zf
 
 
 def odd_ext(x, n, axis=0):
@@ -219,14 +237,15 @@ def sosfiltfilt_fir(kernels, x, zi0, padlen, axis=0):
         x, zi0, padlen, axis)
 
 
-def sosfiltfilt_sym(g, delay, x, axis=0):
+def sosfiltfilt_sym(g, delay, x, axis=0, precision=HIGHEST):
     """Zero-phase filtering as one symmetric convolution with ``(g, delay)``
-    from :func:`audian_torch.ops.design.filtfilt_sym_kernel`.  Interior
-    samples match ``sosfiltfilt``; within ``delay`` samples of the ends
-    the input is taken as zero, so callers carry halos."""
+    from :func:`audian_torch.ops.design.filtfilt_sym_kernel`, at
+    ``precision``.  Interior samples match ``sosfiltfilt``; within
+    ``delay`` samples of the ends the input is taken as zero, so callers
+    carry halos."""
     flat, restore = _time_first(x, axis)
     ext = F.pad(flat.T, (0, delay))
-    y = _conv1d_same_causal(ext.T, g)[delay:]
+    y = _conv1d_same_causal(ext.T, g, precision)[delay:]
     return restore(y)
 
 

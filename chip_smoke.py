@@ -10,16 +10,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``nvcc`` a source, all started together); from ``ptxas -v`` the
    registers, spill bytes, any serialized-``wgmma`` warning and the waits
    ptxas injected of chain, envdet and window_matmul (every template
-   instance), which must neither spill nor serialize, and from
-   ``cuobjdump -sass`` of the built library each kernel's ``HGMMA`` and
-   ``HMMA`` count (the three must show ``HGMMA`` and no ``HMMA``);
+   instance: window_matmul's columns, int16 input and one-pass DEFAULT),
+   which must neither spill nor serialize, and from ``cuobjdump -sass`` of
+   the built library each kernel's ``HGMMA`` and ``HMMA`` count (every
+   instance must show ``HGMMA`` and none ``HMMA``);
 1b. the bare convolution core (``csrc/wgmma_conv.cuh`` through
-   ``csrc/conv_probe.cu``: one warpgroup, m64n64k8 and m64n8k8) on four
-   short known convolutions (the headline filter, the headline
-   envelope's delay past its taps, envdet's band-pass, a 54-tap phase)
-   against float64, 1e-5 at unit-scale outputs, before anything runs on
-   it, and its rate (``csrc/conv_probe.cu:conv_rate``) at N = 8, 64 and
-   128 with one and two blocks an SM;
+   ``csrc/conv_probe.cu``: one warpgroup at N = 64 and 8) on four short
+   known convolutions (the headline filter, the headline envelope's delay
+   past its taps, envdet's band-pass, a 54-tap phase) in each of its
+   modes (3xTF32, one TF32 pass, BF16X3, BF16X4), every unit full and
+   with the host's light units, against float64 at unit-scale outputs
+   (1e-5, 2e-3, 1e-4, 1e-4), before anything runs on it, and its rate
+   (``csrc/conv_probe.cu:conv_rate``) at N = 8, 64 and 128 with one and
+   two blocks an SM, and in BF16X3 at N = 64 and 128;
 2. ``window_matmul`` kernel against its plain version at 16 ch x 2^20
    samples, at every caller's shapes: the ``bioacoustics`` per-stage
    filter, rectified envelope and PSD, the same three of ``ultrasound``
@@ -29,7 +32,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    below one 128-frame tile; each case's plan (span or rows mode, column
    blocks, ring) and its shared memory against the kernel's formula; a
    NaN and an infinity on the input of IFIR stage B and of the rectified
-   envelope leave exactly the plain version's outputs non-finite;
+   envelope leave exactly the plain version's outputs non-finite, at
+   HIGHEST and at DEFAULT (the one-pass instance; the others within 1e-2
+   of scale);
 3. ``chain`` kernel against its plain version at the headline chunk
    (16 ch x 2^22 int16, ``bioacoustics``, eps 2e-6, stats; the host's
    tile and its shared memory against the kernel's formula), int16
@@ -194,7 +199,26 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     dense envelope; then the exact IIR filters on 60 s x 16 ch float32:
     ``sosfilt`` (2-40 kHz) whole and in three chunks with the state
     carried, ``sosfiltfilt`` and ``envelope``, two channels against scipy
-    float64, with host-clock times beside the FIR path's.
+    float64, with host-clock times beside the FIR path's;
+17. the precision rungs (``ops/cuda/precision.py``) of the three kernels
+    against their plain versions at the headline shapes.  The chain on a
+    16 ch x 2^22 int16 chunk at (HIGHEST,) * 3, the JAX package's default
+    (HIGHEST, BF16X3, BF16X3), (BF16X3,) * 3, (BF16X4, BF16X3, BF16X3) and
+    (DEFAULT,) * 3: filtered and envelope within 1e-5 of a float64
+    evaluation and the PSD within 0.013 dB of the plain version where the
+    filter is HIGHEST, DEFAULT within 1e-2 of each output's scale; the
+    light units against every unit full at HIGHEST (filtered < 1e-6,
+    envelope < 5e-6, PSD < 0.05 dB, each non-zero); (HIGHEST, BF16X3,
+    BF16X3) against (HIGHEST,) * 3 (the filtered stream bit for bit, the
+    envelope 0 < d < 1e-5, the PSD within 0.013 dB); a BF16X3 filter
+    within 1e-5 of the HIGHEST one and a BF16X4 one at least as close;
+    a design whose light mass sits just under the budget, full-scale
+    sign-matched signals, at both HIGHEST rungs against every unit full
+    (1e-5).  window_matmul at DEFAULT on the three bioacoustics stages
+    (1e-2 of scale; HIGH == HIGHEST bit for bit); envdet at DEFAULT and
+    the two-stage EnvDet at DEFAULT on the detect chunk (1e-2 of scale),
+    envdet's light units against every unit full.  CUDA-event medians of
+    each rung beside its own bound.
 
 Phase 4 starts with both TF32 flags on and checks that they are still on
 after it: the port scopes full float32 to its own calls.
@@ -211,6 +235,12 @@ true-tap operations in three TF32 passes at 495 TFLOP/s, or the bytes at
 over their time.  Chain carries its ``tile``, ``stage_ms`` (phase 5's
 filtered-, envelope- and spectrogram-only times), ``core_max_abs_err``
 and ``core_tflops`` (phase 1b); envdet its ``tile``.
+Every kernel carries ``precision``: for each rung of phase 17 its ``ms``,
+``max_abs_err`` and ``bound_tc_ms``, the least time at that rung's passes
+and tensor rate (TF32 495, bf16 989 TFLOP/s) with the light units at one
+pass (the chain's "(H,H,H) all full" entry at three passes everywhere,
+the kernel's ``bound_tc_ms``; window_matmul's HIGHEST entry its phase-5
+sums).
 Chain and envdet also carry ``flac_launches``, their launches on the FLAC
 runs of phase 13, and envdet ``viewer_launches``, its launches on the song
 viewer's envelope keys of phase 14.  Every kernel carries
@@ -275,6 +305,8 @@ TOL_ENVELOPE = 1e-5
 TOL_PSD_DB = 0.013       # bins within 60 dB of the chunk peak
 TOL_STATS_RTOL = 1e-5
 TOL_WINDOW = 1e-5        # times the output scale
+TOL_DEFAULT = 1e-2       # one TF32 pass: times each output's scale
+                         # (tests/test_songdetector.py:602-621)
 WM_CALLS = 10            # window_matmul and cuBLAS timed 10 calls a run
 # chunked against whole: the same samples go through the same kernel
 # arithmetic, so the tolerance of tests/test_chunk_equivalence.py holds
@@ -378,6 +410,16 @@ def wgmma_health(report):
     return out
 
 
+def template_args(mangled):
+    """``"<128,1,0>"``: the int and bool template arguments of a mangled
+    kernel name (window_matmul's columns, int16 input and one pass), or
+    ``""``."""
+    m = re.search(r"I((?:L[ib]\d+E)+)E", mangled)
+    if not m:
+        return ""
+    return "<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(1))) + ">"
+
+
 def sass_mma_counts(library):
     """``{kernel: (HGMMA, HMMA)}``: the warpgroup and the warp-level MMA
     instructions in each kernel's SASS (``cuobjdump -sass`` of the built
@@ -393,11 +435,9 @@ def sass_mma_counts(library):
             mangled = m.group(1)
             name = next((k for k in ("chain_kernel", "envdet_kernel",
                                      "window_matmul_kernel", "conv_probe",
-                                     "split_w_kernel") if k in mangled),
-                        mangled[:40])
-            arg = re.search(r"ILi(\d+)E", mangled)
-            if arg:
-                name += f"<{arg.group(1)}>"
+                                     "conv_rate", "split_w_kernel")
+                          if k in mangled), mangled[:40])
+            name += template_args(mangled)
             counts.setdefault(name, [0, 0])
         elif name and "HGMMA" in line:
             counts[name][0] += 1
@@ -418,9 +458,7 @@ def kernel_resources(report):
             name = next((k for k in ("chain_kernel", "window_matmul_kernel",
                                      "split_w_kernel", "envdet_kernel")
                          if k in mangled), mangled[:40])
-            arg = re.search(r"ILi(\d+)E", mangled)
-            if arg:
-                name += f"<{arg.group(1)}>"
+            name += template_args(mangled)
         elif name and ("registers" in line or "spill" in line):
             out.append(f"{name}: {line.strip()}")
     return out
@@ -431,86 +469,122 @@ def kernel_resources(report):
 #: its taps (the first steps skipped), eleven 128-tap units; envdet's
 #: band-pass over 40 columns; one 54-tap phase of envdet's stage 2 over 5
 CORE_CASES = ((175, 174, 64), (1393, 1464, 64), (511, 510, 40), (54, 53, 5))
+#: the core's modes (``wgconv::Mode``) and each one's budget against
+#: float64 at unit-scale outputs: 3xTF32 the fp32 contract; one TF32 pass
+#: about 2^-10 of the taps' mass; split bf16 about 2^-15
+CORE_MODES = (("TF32X3", 0, TOL_FILTERED), ("TF32X1", 1, 2e-3),
+              ("BF16X3", 2, 1e-4), ("BF16X4", 3, 1e-4))
+
+
+def core_taps(taps, mode):
+    """The host's tap operand of the core in ``mode``: TF32 ``[hi | lo]``
+    floats or bf16 ``[hi | lo]`` pair words."""
+    from audian_torch.ops.cuda.chain import _split_taps, pair_taps
+
+    return torch.from_numpy(pair_taps(taps) if mode >= 2
+                            else _split_taps(taps))
 
 
 def core_phase(lib, dev):
     """The bare convolution core (``wgmma_conv.cuh``'s ``conv`` through
-    ``csrc/conv_probe.cu``: one warpgroup, m64n64k8 over up to 64 columns
-    and m64n8k8 over the first 8) on :data:`CORE_CASES` against a float64
-    convolution, taps of unit L1 norm over samples in [-1, 1], so that
-    every output lies in [-1, 1]; returns the largest error."""
+    ``csrc/conv_probe.cu``: one warpgroup at N = 64 and N = 8) on
+    :data:`CORE_CASES` in each of :data:`CORE_MODES`, every unit in full
+    and with the host's light units, against a float64 convolution, taps
+    of unit L1 norm over samples in [-1, 1], so that every output lies in
+    [-1, 1]; returns ``{mode: largest error}``."""
     from audian_torch.ops.cuda._build import check
-    from audian_torch.ops.cuda.chain import _split_taps
+    from audian_torch.ops.cuda.chain import light_units
 
     rng = np.random.default_rng(SEED)
-    worst = 0.0
+    worst = {}
     for T, D, ncols in CORE_CASES:
         taps = rng.standard_normal(T)
         taps = (taps / np.abs(taps).sum()).astype(np.float32)
-        nsrc = 64 * ncols + D + 8
+        nsrc = 64 * ncols + D + 16
         src = rng.uniform(-1.0, 1.0, nsrc).astype(np.float32)
         full = np.convolve(src.astype(np.float64), taps.astype(np.float64))
         ref = full[D : D + 64 * ncols]
         ts = torch.from_numpy(src).to(dev)
-        tp = torch.from_numpy(_split_taps(taps)).to(dev)
-        out = torch.full((64 * ncols,), float("nan"), device=dev)
-        out8 = torch.full((64 * min(ncols, 8),), float("nan"), device=dev)
-        check(lib.conv_probe_launch(
-            ts.data_ptr(), nsrc, tp.data_ptr(), T, D, ncols, out.data_ptr(),
-            out8.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
-            "conv_probe")
-        torch.cuda.synchronize()
-        e64 = float(np.abs(out.cpu().numpy() - ref).max())
-        e8 = float(np.abs(out8.cpu().numpy() - ref[: out8.numel()]).max())
-        require(e64 <= TOL_FILTERED and e8 <= TOL_FILTERED,
-                f"core T={T} D={D}: {e64} {e8}")
-        worst = max(worst, e64, e8)
-        print(f"  core T={T} D={D} over {ncols} columns: m64n64k8 "
-              f"{e64:.3e}  m64n8k8 {e8:.3e} against float64")
+        line = []
+        for name, mode, tol in CORE_MODES:
+            tp = core_taps(taps, mode).to(dev)
+            phase, light = light_units(taps, D, 16 if mode >= 2 else 8)
+            flags = torch.tensor([int(f) for f in light], dtype=torch.int32,
+                                 device=dev)
+            errs = []
+            for ph, fl in ((0, None), (phase, flags)):
+                out = torch.full((64 * ncols,), float("nan"), device=dev)
+                out8 = torch.full((64 * min(ncols, 8),), float("nan"),
+                                  device=dev)
+                check(lib.conv_probe_launch(
+                    ts.data_ptr(), nsrc, tp.data_ptr(), T, D, ncols, mode,
+                    ph, 0 if fl is None else fl.data_ptr(), out.data_ptr(),
+                    out8.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream),
+                    "conv_probe")
+                torch.cuda.synchronize()
+                e64 = float(np.abs(out.cpu().numpy() - ref).max())
+                e8 = float(np.abs(out8.cpu().numpy()
+                                  - ref[: out8.numel()]).max())
+                require(e64 <= tol and e8 <= tol,
+                        f"core {name} T={T} D={D} light={fl is not None}: "
+                        f"{e64} {e8}")
+                errs.append(max(e64, e8))
+            worst[name] = max(worst.get(name, 0.0), *errs)
+            line.append(f"{name} {errs[0]:.3e} / {errs[1]:.3e} "
+                        f"({sum(light)} of {len(light)} units light)")
+        print(f"  core T={T} D={D} over {ncols} columns, N = 64 and 8, "
+              f"full / light units, against float64: " + "; ".join(line))
     return worst
 
 
 #: the core's rate: blocks of two warpgroups repeating the headline
 #: envelope's convolution (1393 taps at delay 1464), at N columns and one
-#: or two blocks an SM (set by the shared memory a block takes)
-CORE_RATE = ((8, 1), (64, 1), (128, 1), (8, 2), (64, 2), (128, 2))
+#: or two blocks an SM (set by the shared memory a block takes), in
+#: 3xTF32 and (at N = 64 and 128, one block an SM) in BF16X3
+CORE_RATE = ((8, 1, 0), (64, 1, 0), (128, 1, 0), (8, 2, 0), (64, 2, 0),
+             (128, 2, 0), (64, 1, 2), (128, 1, 2))
 
 
 def core_rate(lib, dev):
-    """TFLOP/s (three TF32 passes counted) of the bare core at each
-    :data:`CORE_RATE` width and occupancy, CUDA events: what a wgmma of N
-    columns costs when the two warpgroups of a block (and another block's,
-    at two an SM) interleave."""
+    """TFLOP/s (every pass counted) of the bare core at each
+    :data:`CORE_RATE` width, occupancy and mode, CUDA events: what a wgmma
+    of N columns costs when the two warpgroups of a block (and another
+    block's, at two an SM) interleave."""
     from audian_torch.ops.cuda._build import check
-    from audian_torch.ops.cuda.chain import _split_taps
 
     T, D = 1393, 1464
     rng = np.random.default_rng(SEED)
-    nsrc = 64 * 128 + D + 8
+    nsrc = 64 * 128 + D + 16
     src = torch.from_numpy(rng.uniform(-1, 1, nsrc).astype(np.float32)).to(
         dev)
-    tp = torch.from_numpy(_split_taps(
-        rng.standard_normal(T).astype(np.float32))).to(dev)
+    taps = rng.standard_normal(T).astype(np.float32)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.empty(2 * sms * 256, device=dev)
-    steps = (D + 63) // 8 - (D - T - 6 + 7) // 8 + 1
     rates = {}
-    for N, per_sm in CORE_RATE:
+    for N, per_sm, mode in CORE_RATE:
         blocks, reps = per_sm * sms, 8
         smem = 150000 if per_sm == 1 else 100000
+        tp = core_taps(taps, mode).to(dev)
+        kw = 16 if mode >= 2 else 8
+        x = D - T - (kw - 2)
+        steps = (D + 63) // kw - ((x + kw - 1) // kw if x > 0 else 0) + 1
 
         def run():
             check(lib.conv_rate_launch(
-                src.data_ptr(), nsrc, tp.data_ptr(), T, D, blocks, N, reps,
-                smem, out.data_ptr(),
+                src.data_ptr(), nsrc, tp.data_ptr(), T, D, mode, blocks, N,
+                reps, smem, out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream), "conv_rate")
 
         ms = median_ms(run)
-        flop = blocks * 2 * reps * steps * TF32_PASSES * 64 * N * 8 * 2
-        rates[f"n{N}x{per_sm}"] = flop / ms / 1e9
-        print(f"  core rate at N = {N}, {per_sm} block(s) an SM: "
-              f"{flop / ms / 1e9:.1f} TFLOP/s ({100 * flop / ms / 1e9 / 495:.1f}"
-              f" % of 495)")
+        flop = blocks * 2 * reps * steps * TF32_PASSES * 64 * N * kw * 2
+        peak = 495 if mode < 2 else 989
+        key = f"n{N}x{per_sm}" + ("" if mode == 0 else "_bf16x3")
+        rates[key] = flop / ms / 1e9
+        print(f"  core rate at N = {N}, {per_sm} block(s) an SM, "
+              f"{'3xTF32' if mode == 0 else 'BF16X3'}: "
+              f"{flop / ms / 1e9:.1f} TFLOP/s ({100 * flop / ms / 1e9 / peak:.1f}"
+              f" % of {peak})")
     return rates
 
 
@@ -963,6 +1037,306 @@ def check_chain(ck, x_ext, n, label):
     print(f"  {label}: filtered {ey:.3e}  envelope {ee:.3e}  "
           f"psd {es:.3e} dB  psd_sum {eq:.3e} dB")
     return max(ey, ee), got
+
+
+# -- phase 17: the precision rungs ----------------------------------------
+
+#: the chain's rungs, (filter, envelope, PSD): the port's default, the JAX
+#: package's default, split bf16 everywhere, a 4-pass filter, DEFAULT
+CHAIN_RUNGS = (("highest",) * 3, ("highest", "bf16x3", "bf16x3"),
+               ("bf16x3",) * 3, ("bf16x4", "bf16x3", "bf16x3"),
+               ("default",) * 3)
+#: light units against every unit full on the headline design: filtered,
+#: envelope (absolute) and PSD (dB within 60 dB of the peak), each also
+#: non-zero (tests/test_device_tpu.py:246-254)
+TOL_LIGHT = (1e-6, 5e-6, 0.05)
+#: the core's passes and tensor rate (TFLOP/s) of each mode
+MODE_PASSES = {0: 3, 1: 1, 2: 3, 3: 4}
+MODE_PEAK = {0: 495e12, 1: 495e12, 2: 989e12, 3: 989e12}
+BOUNDARY_N = 1 << 18
+
+
+def rung_name(prec):
+    """``"(H,B3,B3)"`` of a chain's per-stage rungs."""
+    short = {"highest": "H", "high": "HI", "default": "D", "bf16x3": "B3",
+             "bf16x4": "B4"}
+    return "(" + ",".join(short[p] for p in prec) + ")"
+
+
+def light_share(T, D, mode, phase, flags):
+    """The share of a stage's core steps that its light units hold."""
+    from audian_torch.ops.cuda.chain import unit_steps
+
+    spans = unit_steps(T, D, 16 if mode >= 2 else 8, phase)
+    total = sum(ve - vs for vs, ve in spans)
+    return sum(ve - vs for (vs, ve), f in zip(spans, flags) if f) / total
+
+
+def chain_rung_bound(ck, x_ext, n):
+    """The least ms of one chain call at ``ck``'s rungs: each stage's
+    true-tap operations times its passes (its light units' share at one
+    pass) at its mode's tensor rate (TF32 495, bf16 989 TFLOP/s), or the
+    bytes at 3.35 TB/s, whichever is larger."""
+    C, nf = x_ext.shape[0], n // 128
+    ops = (2 * C * n * len(ck.h), 2 * C * n * len(ck.g),
+           nf * C * (2 * ck.nfft * ck.nfft + 3 * ck.nbins))
+    light = (light_share(len(ck.h), len(ck.h) - 1, ck.modes[0], ck.phase_f,
+                         ck.light_f),
+             light_share(len(ck.g), ck.lead + ck.delay, ck.modes[1],
+                         ck.phase_e, ck.light_e), 0.0)
+    t = sum(op * ((1 - f) * MODE_PASSES[m] + f) / MODE_PEAK[m]
+            for op, m, f in zip(ops, ck.modes, light))
+    return 1e3 * max(t, chain_work(ck, x_ext, n)[1] / PEAK_BYTES)
+
+
+def envdet_rung_bound(ed, xw):
+    """The least ms of one envdet call at ``ed``'s rung: the band-pass's
+    operations times its passes (light units at one), the decimating
+    stage's at three TF32 passes (it keeps fp32 precision under every
+    rung), at 495 TFLOP/s, or the bytes."""
+    C = xw.shape[1]
+    ny = (ed.nout - 1) * ed.step + ed.ll
+    f = light_share(ed.lb, ed.lb - 1, ed.mode, ed.phase, ed.light)
+    t = (C * ny * (2 * ed.lb) * ((1 - f) * MODE_PASSES[ed.mode] + f)
+         + 3 * C * (ny + 2 * ed.nout * ed.ll)) / 495e12
+    return 1e3 * max(t, envdet_work(ed, xw)[1] / PEAK_BYTES)
+
+
+def all_full(kernel):
+    """A copy of a chain or envdet kernel whose units all run in full."""
+    k = copy.copy(kernel)
+    for attr in ("light_f", "light_e", "light"):
+        if hasattr(k, attr):
+            setattr(k, attr, (False,) * len(getattr(k, attr)))
+    return k
+
+
+def boundary_taps(taps, nblocks=3):
+    """``taps`` with a flat alternating-sign tail over ``nblocks`` 128-tap
+    blocks whose L1 mass is 0.98 of the light budget of the whole
+    (tests/test_device_tpu.py:266-274)."""
+    from audian_torch.ops.cuda.chain import LIGHT_MASS_FRAC as frac
+
+    mass = float(np.abs(taps).sum())
+    total = 0.98 * frac * mass / (1.0 - 0.98 * frac)
+    tail = np.full(nblocks * 128, total / (nblocks * 128))
+    tail[1::2] *= -1.0
+    return np.concatenate([np.asarray(taps, np.float64), tail])
+
+
+def boundary_signal(n):
+    """Four full-scale channels (float32): the Nyquist alternation (the
+    boundary tail's sign pattern), DC, clipped noise, a 30 kHz square
+    wave."""
+    rng = np.random.default_rng(7)
+    return np.stack([
+        np.tile([1.0, -1.0], n // 2), np.ones(n),
+        np.clip(rng.standard_normal(n) / 3.0, -1.0, 1.0),
+        np.sign(np.sin(2 * np.pi * 30000.0 * np.arange(n) / RATE)),
+    ]).astype(np.float32)
+
+
+def precision_phase(card, dev, bio, wm_cases, ed, qd):
+    """Phase 17: every rung of the three kernels against its plain
+    version (and float64) at the headline shapes, the light units against
+    every unit full, the boundary design, and each rung's CUDA-event
+    time beside its bound; returns the kernels line's ``precision``
+    entries."""
+    from audian_torch.ops.cuda.chain import (LIGHT_MASS_FRAC, ChainKernel,
+                                             chain, chain_plain,
+                                             unit_masses)
+    from audian_torch.ops.cuda.envdet import (EnvDetKernel, envdet,
+                                              envdet_plain)
+    from audian_torch.ops.cuda.window_matmul import (BankSplit,
+                                                     window_matmul,
+                                                     window_matmul_plain)
+    from audian_torch.ops.envdet import EnvDet
+
+    print("phase 17: the precision rungs against their plain versions")
+    out = {"chain": {}, "window_matmul": {}, "envdet": {}}
+    ck0 = bio.chain_kernel
+    spec_w = ck0.spec_w.cpu().numpy()
+
+    def build(prec, h=bio._h_filt, g=bio._g_env):
+        return ChainKernel(RATE, h, g, bio.env_delay, spec_w, ck0.nbins,
+                           env_clamp=ck0.env_clamp, nfft=ck0.nfft,
+                           device=dev, precision=prec)
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    q = int16_chunk(gen, (C, ck0.hb + CHUNK + ck0.ha), dev)
+    plain = chain_plain(ck0, q, CHUNK)
+    ref_y, ref_e = chain_f64(ck0, q, CHUNK)
+    scales = [float(v.abs().max()) for v in plain]
+    runs = {}
+    for prec in CHAIN_RUNGS:
+        k = build(prec)
+        name = rung_name(prec)
+        got = chain(k, q, CHUNK)
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(v).all()) for v in got),
+                f"chain {name} finite")
+        ey, ee = max_abs(got[0], ref_y), max_abs(got[1], ref_e)
+        es = psd_db_err(got[2], plain[2])
+        rel = [max_abs(a, b) / sc for a, b, sc in zip(got, plain, scales)]
+        if prec == ("default",) * 3:
+            require(max(rel) <= TOL_DEFAULT,
+                    f"chain {name} within {TOL_DEFAULT} of scale: {rel}")
+        elif prec[0] == "highest":
+            require(ey <= TOL_FILTERED and ee <= TOL_ENVELOPE
+                    and es <= TOL_PSD_DB, f"chain {name}: {ey} {ee} {es}")
+        ms = median_ms(lambda: chain(k, q, CHUNK, stats=True))
+        bnd = chain_rung_bound(k, q, CHUNK)
+        out["chain"][name] = {"ms": ms, "max_abs_err": max(ey, ee),
+                              "psd_db": es, "bound_tc_ms": bnd,
+                              "tile": k.tile}
+        runs[name] = (k, got)
+        print(f"  chain {name} (tile {k.tile}): vs float64 filtered "
+              f"{ey:.3e} envelope {ee:.3e}; PSD {es:.3e} dB; vs plain "
+              f"{rel[0]:.2e} / {rel[1]:.2e} / {rel[2]:.2e} of scale; "
+              f"{ms:.4f} ms, rung bound_tc {bnd:.4f} ms "
+              f"({100 * bnd / ms:.1f} %)  [{card}]")
+    del plain, ref_y, ref_e
+    # the light units against every unit full, at the port's default
+    kh, (yl, el, sl) = runs["(H,H,H)"]
+    kf = all_full(kh)
+    yf, ef, sf = chain(kf, q, CHUNK)
+    torch.cuda.synchronize()
+    dl = (max_abs(yl, yf), max_abs(el, ef), psd_db_err(sl, sf))
+    require(0 < dl[0] < TOL_LIGHT[0] and 0 < dl[1] < TOL_LIGHT[1]
+            and max_abs(sl, sf) > 0 and dl[2] < TOL_LIGHT[2],
+            f"light units vs all full: {dl}")
+    ms = median_ms(lambda: chain(kf, q, CHUNK, stats=True))
+    bnd = 1e3 * max(3 * chain_work(kf, q, CHUNK)[0] / 495e12,
+                    chain_work(kf, q, CHUNK)[1] / PEAK_BYTES)
+    out["chain"]["(H,H,H) all full"] = {
+        "ms": ms, "max_abs_err": 0.0, "bound_tc_ms": bnd,
+        "light_vs_full": list(dl)}
+    print(f"  chain (H,H,H), light units ({sum(kh.light_f)} of "
+          f"{len(kh.light_f)} filter, {sum(kh.light_e)} of "
+          f"{len(kh.light_e)} envelope) vs every unit full: filtered "
+          f"{dl[0]:.3e} envelope {dl[1]:.3e} PSD {dl[2]:.3e} dB (non-zero, "
+          f"under {TOL_LIGHT}); all full {ms:.4f} ms, its 3xTF32 bound_tc "
+          f"{bnd:.4f} ms (the kernel's bound_tc_ms)  [{card}]")
+    del yf, ef, sf
+    # the JAX default: the filter bit for bit, the split stages live
+    _, (yb, eb, sb) = runs["(H,B3,B3)"]
+    de = max_abs(eb, el)
+    ds = psd_db_err(sb, sl)
+    require(torch.equal(yb, yl), "(H,B3,B3) filtered == (H,H,H)")
+    require(0 < de < TOL_ENVELOPE and ds <= TOL_PSD_DB
+            and max_abs(sb, sl) > 0, f"(H,B3,B3) vs (H,H,H): {de} {ds}")
+    print(f"  chain (H,B3,B3) vs (H,H,H): filtered identical, envelope "
+          f"{de:.3e}, PSD {ds:.3e} dB")
+    # a split-bf16 filter against the HIGHEST one
+    d3 = max_abs(runs["(B3,B3,B3)"][1][0], yl)
+    d4 = max_abs(runs["(B4,B3,B3)"][1][0], yl)
+    require(0 < d3 < TOL_FILTERED and d4 <= d3,
+            f"bf16 filters vs HIGHEST: x3 {d3} x4 {d4}")
+    print(f"  chain filtered vs the HIGHEST filter: BF16X3 {d3:.3e}, "
+          f"BF16X4 {d4:.3e}")
+    del runs, yl, el, sl, yb, eb, sb, q
+    # the boundary design: light mass just under the budget, full-scale
+    # signals sign-matched to the tail, against every unit full at HIGHEST
+    h_adv, g_adv = boundary_taps(bio._h_filt), boundary_taps(bio._g_env)
+    ref_k = all_full(build(("highest",) * 3, h_adv, g_adv))
+    sig = boundary_signal(BOUNDARY_N)
+    x_adv = torch.from_numpy(np.pad(sig, [(0, 0), (ref_k.hb, ref_k.ha)])).to(
+        dev)
+    y0, e0, _ = chain(ref_k, x_adv, BOUNDARY_N)
+    for prec in CHAIN_RUNGS[:2]:
+        k = build(prec, h_adv, g_adv)
+        shares = []
+        for taps, D, mode, phase, flags in (
+                (h_adv, len(h_adv) - 1, k.modes[0], k.phase_f, k.light_f),
+                (g_adv, k.lead + k.delay, k.modes[1], k.phase_e,
+                 k.light_e)):
+            mass = unit_masses(taps, D, 16 if mode >= 2 else 8, phase)
+            shares.append(sum(m for m, f in zip(mass, flags) if f)
+                          / float(np.abs(taps).sum()))
+        require(all(0.5 * LIGHT_MASS_FRAC < sh <= LIGHT_MASS_FRAC
+                    for sh in shares), f"boundary light shares {shares}")
+        y1, e1, _ = chain(k, x_adv, BOUNDARY_N)
+        torch.cuda.synchronize()
+        dy, de = max_abs(y1, y0), max_abs(e1, e0)
+        require(dy < TOL_FILTERED and de < TOL_ENVELOPE,
+                f"boundary design {rung_name(prec)}: {dy} {de}")
+        print(f"  boundary design {rung_name(prec)} (light mass "
+              f"{shares[0]:.2e} / {shares[1]:.2e} of the taps') vs every "
+              f"unit full at HIGHEST: filtered {dy:.3e} envelope {de:.3e}")
+    del x_adv, y0, e0, y1, e1
+    # window_matmul at DEFAULT on the three bioacoustics stages
+    wm = {"ms": 0.0, "ms_back_to_back": 0.0, "max_abs_err": 0.0,
+          "bound_tc_ms": 0.0}
+    for label in ("bioacoustics filter", "bioacoustics envelope",
+                  "bioacoustics psd"):
+        x, w, S, nfr, pm, lay = wm_cases[label]
+        want = window_matmul_plain(x, w, S, nfr, pm, lay)
+        got = window_matmul(x, w, S, nfr, pm, lay, precision="default")
+        hi = window_matmul(x, w, S, nfr, pm, lay, precision="high")
+        torch.cuda.synchronize()
+        require(torch.equal(hi, window_matmul(x, w, S, nfr, pm, lay)),
+                f"window_matmul {label}: HIGH runs HIGHEST's passes")
+        scale = float(want.abs().max())
+        err = max_abs(got, want)
+        require(err <= TOL_DEFAULT * scale,
+                f"window_matmul {label} DEFAULT {err}")
+        held = BankSplit()
+
+        def run():
+            return window_matmul(x, w, S, nfr, pm, lay, split=held,
+                                 precision="default")
+
+        k_ms, kb_ms = median_ms(run), median_ms(run, calls=WM_CALLS)
+        f, b = window_matmul_work(x, w, S, nfr)
+        bnd = 1e3 * max(f / 495e12, b / PEAK_BYTES)
+        for key, v in (("ms", k_ms), ("ms_back_to_back", kb_ms),
+                       ("bound_tc_ms", bnd)):
+            wm[key] += v
+        wm["max_abs_err"] = max(wm["max_abs_err"], err)
+        print(f"  window_matmul {label} DEFAULT: max_abs_err {err:.3e} "
+              f"({err / scale:.2e} of scale {scale:.3e}); {k_ms:.4f} ms a "
+              f"lone call, {kb_ms:.4f} back to back; one-pass bound_tc "
+              f"{bnd:.4f} ms  [{card}]")
+    out["window_matmul"]["DEFAULT"] = wm
+    print(f"  window_matmul DEFAULT, three bioacoustics stages: "
+          f"{wm['ms']:.4f} ms lone, {wm['ms_back_to_back']:.4f} back to "
+          f"back, bound_tc {wm['bound_tc_ms']:.4f}  [{card}]")
+    # envdet and EnvDet on the detect chunk: DEFAULT within 1e-2 of scale,
+    # HIGHEST's light units against every unit full
+    want = envdet_plain(ed, qd)
+    scale = float(want.abs().max())
+    ed_d = EnvDetKernel.from_kernels(ed.g_bp_np, ed.d_bp, ed.g_lp_np,
+                                     ed.d_lp, ed.step, ed.nout, ed.hb,
+                                     precision="default", device=dev)
+    two_d = EnvDet.from_kernels(ed.g_bp_np, ed.d_bp, ed.g_lp_np, ed.d_lp,
+                                ed.step, ed.nout, ed.hb, precision="default",
+                                device=dev)
+    ed_f = all_full(ed)
+    got_h, got_f = envdet(ed, qd), envdet(ed_f, qd)
+    got_d, got_2 = envdet(ed_d, qd), two_d(qd, ed.hb)
+    torch.cuda.synchronize()
+    eh, ef_ = max_abs(got_h, want), max_abs(got_f, want)
+    ed_err, e2 = max_abs(got_d, want), max_abs(got_2, want)
+    dl_env = max_abs(got_h, got_f)
+    require(ed_err <= TOL_DEFAULT * scale and e2 <= TOL_DEFAULT * scale,
+            f"envdet DEFAULT {ed_err}, EnvDet DEFAULT {e2}")
+    require(eh <= TOL_DETECT * scale and ef_ <= TOL_DETECT * scale
+            and dl_env <= TOL_DETECT * scale,
+            f"envdet HIGHEST light {eh}, full {ef_}, between {dl_env}")
+    for name, k, err in (("HIGHEST", ed, eh), ("HIGHEST all full", ed_f, ef_),
+                         ("DEFAULT", ed_d, ed_err)):
+        ms = median_ms(lambda: envdet(k, qd))
+        bnd = envdet_rung_bound(k, qd)
+        out["envdet"][name] = {"ms": ms, "max_abs_err": err,
+                               "bound_tc_ms": bnd}
+        print(f"  envdet {name} ({sum(k.light)} of {len(k.light)} band-pass "
+              f"units light): vs plain {err:.3e} ({err / scale:.2e} of "
+              f"scale); {ms:.4f} ms, bound_tc {bnd:.4f} ms  [{card}]")
+    two_ms = median_ms(lambda: two_d(qd, ed.hb))
+    print(f"  envdet light units vs every unit full: {dl_env:.3e}; EnvDet "
+          f"DEFAULT vs plain {e2:.3e} ({e2 / scale:.2e} of scale), "
+          f"{two_ms:.4f} ms (two window_matmul calls)  [{card}]")
+    return out
 
 
 # -- phases 10-11: the interactive path -----------------------------------
@@ -3177,7 +3551,7 @@ def main():
               f"{err:.3e} (scale {scale:.3e})")
         require(lib.window_matmul_smem_bytes(
             w.shape[0], w.shape[1], S, x.element_size(), p.N,
-            ("span", "rows").index(p.mode), p.lsh, p.nbuf, p.ring)
+            ("span", "rows").index(p.mode), p.lsh, p.nbuf, p.ring, 0)
             == p.smem <= _build.SMEM_LIMIT, "shared-memory formula agrees")
     # a NaN and an infinity on a stage's input (stage B's, which stage A
     # makes on the card; the rectified envelope's, which the filter makes)
@@ -3188,24 +3562,29 @@ def main():
                       (xe_bad, 2, 49000)):
         t[r, col] = float("nan")
     u_bad[5, 2000] = xe_bad[1, 20000] = float("inf")
+    # (and at each rung window_matmul takes: DEFAULT is its own instance)
     for label, x, w, S, nfr, pm, lay in (
             ("IFIR stage B, NaN and inf on its input", u_bad, *b_args),
             ("bioacoustics envelope, NaN and inf on its input", xe_bad,
              bio.env_w, 128, 400, "rectify", "cf")):
-        got = window_matmul(x, w, S, nfr, premap=pm, out_layout=lay)
         want = window_matmul_plain(x, w, S, nfr, premap=pm, out_layout=lay)
-        torch.cuda.synchronize()
         bad = ~torch.isfinite(want)
-        require(bool(bad.any()) and torch.equal(~torch.isfinite(got), bad),
-                f"window_matmul {label}: the plain version's non-finite "
-                f"outputs and no others")
-        err = max_abs(got[~bad], want[~bad])
         scale = float(want[~bad].abs().max())
-        require(err <= TOL_WINDOW * scale, f"window_matmul {label} {err}")
-        wm_err = max(wm_err, err)
-        print(f"  {label}: {int(bad.sum())} non-finite outputs as in the "
-              f"plain version; the others max_abs_err {err:.3e} (scale "
-              f"{scale:.3e})")
+        for prec, tol in (("highest", TOL_WINDOW), ("default", TOL_DEFAULT)):
+            got = window_matmul(x, w, S, nfr, premap=pm, out_layout=lay,
+                                precision=prec)
+            torch.cuda.synchronize()
+            require(bool(bad.any())
+                    and torch.equal(~torch.isfinite(got), bad),
+                    f"window_matmul {label} at {prec}: the plain version's "
+                    f"non-finite outputs and no others")
+            err = max_abs(got[~bad], want[~bad])
+            require(err <= tol * scale, f"window_matmul {label} {prec} {err}")
+            if prec == "highest":
+                wm_err = max(wm_err, err)
+            print(f"  {label}, {prec}: {int(bad.sum())} non-finite outputs "
+                  f"as in the plain version; the others max_abs_err "
+                  f"{err:.3e} (scale {scale:.3e})")
     del u_pm, q_wm, x3, u_bad, xe_bad
 
     # -- phase 3: chain ------------------------------------------------------
@@ -3213,7 +3592,7 @@ def main():
     ck = bio.chain_kernel
     require(ck is not None, "bioacoustics takes the single-pass chain")
     require(lib.chain_smem_bytes(len(ck.h), len(ck.g), ck.delay, ck.lead,
-                                 ck.tail, ck.nfft, ck.tile)
+                                 ck.tail, ck.nfft, ck.tile, *ck.modes[:2])
             == ck.smem_bytes <= _build.SMEM_LIMIT,
             "shared-memory formula agrees")
     require(lib.chain_tile_max() == CHAIN_TILES[0], "chain tile")
@@ -3797,6 +4176,9 @@ def main():
     wm_err = max(wm_err, ifir_err)
     iir_phase(card, dev)
 
+    # -- phase 17: the precision rungs ---------------------------------------
+    rungs = precision_phase(card, dev, bio, wm_times, ed, qd)
+
     wm_bound = bound(wm_flop, wm_bytes)
     wm_bound_tc = bound_tc(wm_flop, wm_bytes)
     print(f"  window_matmul, three bioacoustics stages: kernel {wm['ms']:.4f} "
@@ -3815,10 +4197,12 @@ def main():
          "ms": ch_ms, "plain_ms": ch_plain_ms, "bound_ms": ch_bound[0],
          "bound_by": ch_bound[1], "bound_tc_ms": ch_bound_tc,
          "bound_share": ch_bound_tc / ch_ms, "tile": ck.tile,
-         "stage_ms": ch_stage_ms, "core_max_abs_err": core_err,
+         "stage_ms": ch_stage_ms, "core_max_abs_err": core_err["TF32X3"],
+         "core_max_abs_err_by_mode": core_err,
          "core_tflops": core_rates,
          "library_ms": None, "flac_launches": flac_launches["chain"],
-         "multidevice_launches": md_launches["chain"]},
+         "multidevice_launches": md_launches["chain"],
+         "precision": rungs["chain"]},
         {"name": "window_matmul", "route": "cuda",
          "source": "audian_torch/csrc/window_matmul.cu",
          "replaces": "audian_tpu/ops/pallas/window_matmul.py:41",
@@ -3834,7 +4218,10 @@ def main():
          "stage_ms_back_to_back": wm_stage_b2b, "split_ms": wm_split_ms,
          "slower_than_library": wm_slower,
          "multidevice_launches": md_launches["window_matmul"],
-         "ifir_launches": ifir_launches, "ifir_ms": ifir_ms},
+         "ifir_launches": ifir_launches, "ifir_ms": ifir_ms,
+         "precision": dict(rungs["window_matmul"], HIGHEST={
+             "ms": wm["ms"], "ms_back_to_back": wm["ms_back_to_back"],
+             "max_abs_err": wm_err, "bound_tc_ms": wm_bound_tc})},
         {"name": "envdet", "route": "cuda",
          "source": "audian_torch/csrc/envdet.cu",
          "replaces": "audian_tpu/ops/pallas/envdet.py:64",
@@ -3844,7 +4231,8 @@ def main():
          "bound_share": env_bound_tc / env_ms, "tile": ed.tile,
          "library_ms": None, "flac_launches": flac_launches["envdet"],
          "viewer_launches": viewer_launches,
-         "multidevice_launches": md_launches["envdet"]},
+         "multidevice_launches": md_launches["envdet"],
+         "precision": rungs["envdet"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
