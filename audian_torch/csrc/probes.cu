@@ -1,0 +1,610 @@
+// The benchmark probes' kernels on Hopper (sm_90a): the device-copy and
+// output floors of the chain and the phase-major relayout of the IFIR
+// envelope, each a hand-written counterpart of a Pallas probe.
+//
+//   copy_add1       y = x + 1 over (C, T) in (C, N) column blocks
+//                   (benchmarks/call_scaling_bench.py:copy_kernel,
+//                   benchmarks/dma_floor_bench.py:copy_kernel,
+//                   benchmarks/phase_restructure_bench.py:k_base)
+//   copy_pm_add1    the same over program-major (nprog, C, N) blocks
+//                   (benchmarks/dma_floor_bench.py:copy_pm_kernel)
+//   outputs_floor   the chain's six output blocks with no compute
+//                   (benchmarks/dma_floor_bench.py:outputs_kernel)
+//   pm_forward      u (C, M Q) -> u_pm (C M, Q), u_pm[c M + m, q] =
+//                   u[c, m + M q]: the IFIR envelope's relayout
+//                   (audian_tpu/ops/fused.py:192; the probe's subject)
+//   pm_inverse      its inverse, e_pm (C M, Q) -> e (C, M Q)
+//                   (audian_tpu/ops/fused.py:197)
+//   pm_roundtrip    both relayouts within each (C, N) block with + 1
+//                   between, y = x + 1 by way of the relayout
+//                   (benchmarks/phase_restructure_bench.py:k_reshape)
+//   select_pm       the group-local phase-major relayout as 0/1 selection
+//                   products on the tensor cores, + 1: within each group of
+//                   1024 samples y[c, 1024 g + 128 m + k] =
+//                   x[c, 1024 g + m + 8 k] + 1 (what
+//                   benchmarks/phase_restructure_bench.py:k_matmul means;
+//                   as written it builds one non-zero selection matrix of
+//                   eight and fails to trace, so its body is not carried)
+//
+// What bounds them on the H100: device memory.  Every kernel but select_pm
+// moves each byte once and computes nothing worth counting, so its least
+// time is its bytes over 3.35 TB/s; select_pm adds 128 multiply-adds an
+// output a TF32 pass (2^26 outputs at the reference's size: 1.7e10 FLOP a
+// pass, 0.035 ms at 495 TFLOP/s against 0.16 ms of bytes).
+//
+// Design.  The copies read and write 16-byte vectors, neighbouring threads
+// on neighbouring addresses: a thread takes one column of a block's rows,
+// four rows' vectors in flight.  The grid is the reference's, one block a
+// (C, N) block, each cut into `shares` blocks interleaved along its rows
+// where the reference's grid has fewer blocks than eight an SM (the host
+// picks it: 512 blocks of 256 threads at N = 8192 would keep half the
+// threads an SM can hold, 64 at N = 65536 would leave half the SMs idle).
+// The relayouts go through shared memory, where a word is padded in after
+// every 32 (the natural order) or 32 / M after every phase row (the
+// phase-major order), so that both the stride-M reads and the contiguous
+// writes of a warp fall in 32 distinct banks (M a power of two up to 32:
+// the IFIR strides 4 and 8 among them); reads and writes of device memory
+// run along the sample axis, 16 bytes a thread where the strides allow, and
+// a row stride lets them read u[:, :n_u] and e_pm[:, :q_out] where they
+// lie.
+//
+// select_pm.  The selection matrices S_{b,m}[i, k] = 1 iff 128 b + i =
+// m + 8 k (b the source block of 128 samples, m the phase) each hold their
+// 16 ones in the columns k = 16 b + j, j < 16, and these columns are the
+// same for every b: S_{b,m}[i, 16 b + j] = U[i, 16 m + j] with U[i, 16 m +
+// j] = 1 iff i = m + 8 j, a 128 x 128 permutation.  So the sum over b of
+// X_b S_{b,m} is a concatenation: Z_b = X_b U (64 rows of one source block
+// each, m64n128k8 wgmmas over 16 steps), and Z_b[:, 16 m + j] lands at
+// y[128 m + 16 b + j].  The zero blocks are skipped, 128 multiply-adds an
+// output instead of 1024.  A block is one warpgroup; U lives in shared
+// memory (64 KB, K-major core matrices, built once a block: the grid is
+// persistent), with its rows permuted so that a thread's A fragments of
+// two steps are one 16-byte load (4 t .. 4 t + 3 of each 16 samples) and
+// its columns so that a thread's accumulators of one phase are one 16-byte
+// store.  The 0/1 operand is exact in TF32, so HIGHEST runs two passes
+// (x_lo U, x_hi U: the products with U's zero low part are left out) and
+// DEFAULT one (x rounded by cvt.rna).  A NaN or an infinity in a source
+// block makes the 128 outputs of its row in that block NaN (0 x inf and
+// 0 x NaN are NaN): a product spreads what a copy would not.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int NT = 256;        // threads of a copy or relayout block
+constexpr int TS = 4096;       // samples of a relayout tile
+constexpr int GROUP = 1024;    // samples of a select_pm group
+constexpr int SBLK = 128;      // samples of a source block
+constexpr int SNT = 128;       // threads of a select_pm block
+constexpr int U_WORDS = 16 * 8 * SBLK;   // 16 steps of 8 x 128 TF32 words
+
+__device__ __forceinline__ int pad32(int s) { return s + (s >> 5); }
+
+__device__ __forceinline__ float4 add4(float4 v, float a) {
+  return make_float4(v.x + a, v.y + a, v.z + a, v.w + a);
+}
+
+// y = x + a over a rows x cols block (row stride ld for both), this block's
+// share of the columns: 16-byte vectors where vec (cols and ld multiples
+// of 4, both aligned), else single words; a thread's column of four rows
+// at a time, four loads in flight.  Not inlined: inlined into
+// copy_pm_add1_kernel, ptxas gave it 32 registers and spilled one
+__device__ __noinline__ void add_block(const float* __restrict__ x,
+                                          float* __restrict__ y, long long ld,
+                                          int rows, int cols, float a,
+                                          int share, int shares, bool vec) {
+  const int per = shares * NT, first = share * NT + threadIdx.x;
+  if (!vec) {
+    for (int r = 0; r < rows; ++r)
+      for (int k = first; k < cols; k += per)
+        y[r * ld + k] = x[r * ld + k] + a;
+    return;
+  }
+  const long long ld4 = ld / 4;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* y4 = reinterpret_cast<float4*>(y);
+  for (int k = first; k < cols / 4; k += per) {
+    int r = 0;
+    for (; r + 4 <= rows; r += 4) {
+      float4 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = x4[(r + j) * ld4 + k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) y4[(r + j) * ld4 + k] = add4(v[j], a);
+    }
+    for (; r < rows; ++r) y4[r * ld4 + k] = add4(x4[r * ld4 + k], a);
+  }
+}
+
+// n words at p (16-byte aligned where vec) set to v, this block's share
+__device__ __forceinline__ void fill(float* __restrict__ p, long long n,
+                                     float v, int share, int shares,
+                                     bool vec) {
+  const long long step = (long long)shares * NT;
+  long long f = (long long)share * NT + threadIdx.x;
+  if (vec) {
+    const float4 v4 = make_float4(v, v, v, v);
+    for (; f < n / 4; f += step) reinterpret_cast<float4*>(p)[f] = v4;
+    return;
+  }
+  for (; f < n; f += step) p[f] = v;
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+// -- the copies ---------------------------------------------------------------
+
+// (C, T) rows: block (i, s) takes share s of columns [i N, i N + N)
+__global__ void __launch_bounds__(NT) copy_add1_kernel(
+    const float* __restrict__ x, float* __restrict__ y, int C, long long T,
+    int N, bool vec) {
+  const long long c0 = (long long)blockIdx.x * N;
+  const int cols = (int)min((long long)N, T - c0);
+  add_block(x + c0, y + c0, T, C, cols, 1.0f, blockIdx.y, gridDim.y,
+            vec && cols % 4 == 0);
+}
+
+// (nprog, C, N) program-major: block (i, s) takes share s of program i's
+// contiguous (C, N) block
+__global__ void __launch_bounds__(NT) copy_pm_add1_kernel(
+    const float* __restrict__ x, float* __restrict__ y, int C, int N,
+    bool vec) {
+  // program i's block is (C, N) at row stride N
+  const long long o = (long long)blockIdx.x * C * N;
+  add_block(x + o, y + o, N, C, N, 1.0f, blockIdx.y, gridDim.y, vec);
+}
+
+// the chain's output set of program i with no compute: y = x + 1 and
+// e = x + 2 over its (C, N) block (x read once), its PSD block (F, C,
+// nbins) and qo block (C, nbins) filled with 0 + x[0, 0] and 0 + x[0, 2]
+// (the reference adds the value to zeros), po and go its columns 0 and 1.
+// vec: x, y and e in 16-byte words; vso, vqo: so and qo filled in them
+struct Outputs {
+  float *y, *e, *so, *po, *go, *qo;
+};
+
+__global__ void __launch_bounds__(NT) outputs_floor_kernel(
+    const float* __restrict__ x, int C, long long T, int N, int nbins,
+    Outputs o, bool vec, bool vso, bool vqo) {
+  const int i = blockIdx.x, share = blockIdx.y, shares = gridDim.y;
+  const float* xb = x + (long long)i * N;
+  const int per = shares * NT, first = share * NT + threadIdx.x;
+  if (vec) {
+    // a thread's column of the block, two rows at a time
+    const long long T4 = T / 4;
+    const float4* x4 = reinterpret_cast<const float4*>(xb);
+    float4* y4 = reinterpret_cast<float4*>(o.y + (long long)i * N);
+    float4* e4 = reinterpret_cast<float4*>(o.e + (long long)i * N);
+    for (int k = first; k < N / 4; k += per) {
+      int r = 0;
+      for (; r + 2 <= C; r += 2) {
+        const float4 v0 = x4[r * T4 + k], v1 = x4[(r + 1) * T4 + k];
+        y4[r * T4 + k] = add4(v0, 1.0f);
+        y4[(r + 1) * T4 + k] = add4(v1, 1.0f);
+        e4[r * T4 + k] = add4(v0, 2.0f);
+        e4[(r + 1) * T4 + k] = add4(v1, 2.0f);
+      }
+      if (r < C) {
+        const float4 v = x4[r * T4 + k];
+        y4[r * T4 + k] = add4(v, 1.0f);
+        e4[r * T4 + k] = add4(v, 2.0f);
+      }
+    }
+  } else {
+    for (int r = 0; r < C; ++r)
+      for (int k = first; k < N; k += per) {
+        const long long off = r * T + (long long)i * N + k;
+        const float v = x[off];
+        o.y[off] = v + 1.0f;
+        o.e[off] = v + 2.0f;
+      }
+  }
+  const long long psd = (long long)(N / 128) * C * nbins;
+  fill(o.so + i * psd, psd, __fadd_rn(0.0f, xb[0]), share, shares, vso);
+  const long long q = (long long)C * nbins;
+  fill(o.qo + i * q, q, __fadd_rn(0.0f, xb[2]), share, shares, vqo);
+  if (share == 0)
+    for (int c = threadIdx.x; c < C; c += NT) {
+      o.po[(long long)i * C + c] = xb[(long long)c * T];
+      o.go[(long long)i * C + c] = xb[(long long)c * T + 1];
+    }
+}
+
+// -- the phase-major relayouts ------------------------------------------------
+
+// tile (j, c): phase columns q0 = tq j .. of channel c, tq = TS / M.  The
+// natural samples go to shared memory at pad32(s); the phase rows leave
+// from there, four columns a thread as one 16-byte store where vout (Q a
+// multiple of 4: thread f's words 33 f + const apart at M = 8, in distinct
+// banks)
+__global__ void __launch_bounds__(NT) pm_forward_kernel(
+    const float* __restrict__ u, long long ldu, int Q, int M, int tq,
+    float* __restrict__ out, bool vin, bool vout) {
+  __shared__ float tile[TS + TS / 32];
+  const int c = blockIdx.y;
+  const int q0 = blockIdx.x * tq, nq = min(tq, Q - q0);
+  const float* src = u + (long long)c * ldu + (long long)q0 * M;
+  const int ns = nq * M;
+  int s0 = 0;
+  if (vin) {
+    for (int f = threadIdx.x; f < ns / 4; f += NT) {
+      const float4 v = reinterpret_cast<const float4*>(src)[f];
+      tile[pad32(4 * f)] = v.x;
+      tile[pad32(4 * f + 1)] = v.y;
+      tile[pad32(4 * f + 2)] = v.z;
+      tile[pad32(4 * f + 3)] = v.w;
+    }
+    s0 = ns & ~3;
+  }
+  for (int s = s0 + threadIdx.x; s < ns; s += NT) tile[pad32(s)] = src[s];
+  __syncthreads();
+  float* dst = out + (long long)c * M * Q + q0;
+  if (vout) {
+    const int t4 = tq / 4;
+    for (int f = threadIdx.x; f < M * t4; f += NT) {
+      const int m = f / t4, ql = 4 * (f % t4);
+      if (ql < nq)
+        *reinterpret_cast<float4*>(dst + (long long)m * Q + ql) =
+            make_float4(tile[pad32(ql * M + m)],
+                        tile[pad32((ql + 1) * M + m)],
+                        tile[pad32((ql + 2) * M + m)],
+                        tile[pad32((ql + 3) * M + m)]);
+    }
+    return;
+  }
+  for (int f = threadIdx.x; f < M * tq; f += NT) {
+    const int m = f / tq, ql = f % tq;
+    if (ql < nq) dst[(long long)m * Q + ql] = tile[pad32(ql * M + m)];
+  }
+}
+
+// tile (j, c): the M phase rows of channel c over q0 = tq j .. into shared
+// memory in natural order (four columns a thread as one 16-byte load where
+// vin), then out along the samples
+__global__ void __launch_bounds__(NT) pm_inverse_kernel(
+    const float* __restrict__ e, long long lde, int Q, int M, int tq,
+    float* __restrict__ out, bool vin, bool vout) {
+  __shared__ float tile[TS + TS / 32];
+  const int c = blockIdx.y;
+  const int q0 = blockIdx.x * tq, nq = min(tq, Q - q0);
+  const float* src = e + (long long)c * M * lde + q0;
+  if (vin) {
+    const int t4 = tq / 4;
+    for (int f = threadIdx.x; f < M * t4; f += NT) {
+      const int m = f / t4, ql = 4 * (f % t4);
+      if (ql < nq) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(src + (long long)m * lde + ql);
+        tile[pad32(ql * M + m)] = v.x;
+        tile[pad32((ql + 1) * M + m)] = v.y;
+        tile[pad32((ql + 2) * M + m)] = v.z;
+        tile[pad32((ql + 3) * M + m)] = v.w;
+      }
+    }
+  } else {
+    for (int f = threadIdx.x; f < M * tq; f += NT) {
+      const int m = f / tq, ql = f % tq;
+      if (ql < nq) tile[pad32(ql * M + m)] = src[(long long)m * lde + ql];
+    }
+  }
+  __syncthreads();
+  float* dst = out + (long long)c * M * Q + (long long)q0 * M;
+  const int ns = nq * M;
+  int s0 = 0;
+  if (vout) {
+    for (int f = threadIdx.x; f < ns / 4; f += NT)
+      reinterpret_cast<float4*>(dst)[f] =
+          make_float4(tile[pad32(4 * f)], tile[pad32(4 * f + 1)],
+                      tile[pad32(4 * f + 2)], tile[pad32(4 * f + 3)]);
+    s0 = ns & ~3;
+  }
+  for (int s = s0 + threadIdx.x; s < ns; s += NT) dst[s] = tile[pad32(s)];
+}
+
+__host__ __device__ constexpr int rt_nat_words(int N) { return N + N / 32; }
+
+__host__ __device__ constexpr int rt_row(int N, int M) {
+  return N / M + 32 / M;
+}
+
+// block (i, c): the (C, N) block i's row c through both relayouts in shared
+// memory, + 1 in phase-major order: nat[pad32(s)] = x[s]; pm[m][q] =
+// nat[q M + m] + 1; y[s] = pm[s % M][s / M]
+__global__ void __launch_bounds__(NT) pm_roundtrip_kernel(
+    const float* __restrict__ x, float* __restrict__ y, long long T, int N,
+    int M) {
+  extern __shared__ __align__(16) float sm[];
+  float* nat = sm;
+  float* pm = sm + rt_nat_words(N);
+  const int row = rt_row(N, M), Q = N / M;
+  const long long base = (long long)blockIdx.y * T + (long long)blockIdx.x * N;
+  const float4* src = reinterpret_cast<const float4*>(x + base);
+  for (int f = threadIdx.x; f < N / 4; f += NT) {
+    const float4 v = src[f];
+    nat[pad32(4 * f)] = v.x;
+    nat[pad32(4 * f + 1)] = v.y;
+    nat[pad32(4 * f + 2)] = v.z;
+    nat[pad32(4 * f + 3)] = v.w;
+  }
+  __syncthreads();
+  for (int f = threadIdx.x; f < N; f += NT) {
+    const int m = f / Q, q = f % Q;
+    pm[m * row + q] = nat[pad32(q * M + m)] + 1.0f;
+  }
+  __syncthreads();
+  float4* dst = reinterpret_cast<float4*>(y + base);
+  for (int f = threadIdx.x; f < N / 4; f += NT) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = 4 * f + j;
+      v[j] = pm[(s % M) * row + s / M];
+    }
+    dst[f] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+long long roundtrip_smem(int N, int M) {
+  return 4LL * (rt_nat_words(N) + (long long)M * rt_row(N, M));
+}
+
+// -- the selection products ---------------------------------------------------
+
+// U, the 128 x 128 permutation of the header, as 16 k8 steps of K-major
+// core matrices (hopper.cuh: element (k = 4 q + kk, n = 8 j + r) of a step
+// at word 512 q + 32 j + 4 r + kk).  Row i = 16 p + 4 t + r4 of U (source
+// sample i) is K index t + 4 (r4 & 1) of step 2 p + (r4 >> 1); column
+// 16 m + jj (phase m, output jj of 16) is n = 16 m + 8 h + 2 t' + e with
+// jj = 4 t' + 2 h + e
+__device__ void build_u(uint32_t* u) {
+  for (int w = threadIdx.x; w < U_WORDS; w += SNT) u[w] = 0u;
+  __syncthreads();
+  for (int i = threadIdx.x; i < SBLK; i += SNT) {
+    const int p = i >> 4, t = (i >> 2) & 3, r4 = i & 3;
+    const int step = 2 * p + (r4 >> 1), q = r4 & 1;
+    const int m = i & 7, jj = i >> 3;
+    const int n = 16 * m + 8 * ((jj >> 1) & 1) + 2 * (jj >> 2) + (jj & 1);
+    u[step * 8 * SBLK + 512 * q + 32 * (n >> 3) + 4 * (n & 7) + t] =
+        0x3F800000u;   // 1.0f
+  }
+}
+
+// 64 rows (c, g) of C G a tile, one warpgroup a block over the tiles: for
+// each source block b, Z_b = X_b U in two halves of eight steps (the
+// thread's four 16-byte loads of each of its rows, split, then one wgmma
+// group), then Z_b + 1 to y as four 16-byte stores a row
+template <bool ONE>
+__global__ void __launch_bounds__(SNT, 2) select_pm_kernel(
+    const float* __restrict__ x, float* __restrict__ y, int C,
+    long long T) {
+  extern __shared__ __align__(128) uint32_t ush[];
+  build_u(ush);
+  hopper::fence_async();
+  __syncthreads();
+  const uint32_t ubase = hopper::smem_u32(ush);
+  const int tid = threadIdx.x;
+  const int w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
+  const long long G = T / GROUP, R = (long long)C * G;
+  const long long ntiles = (R + 63) / 64;
+  float d[64];
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    long long off[2];
+    bool ok[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long r = 64 * tile + 16 * w + g + 8 * h;
+      ok[h] = r < R;
+      off[h] = ok[h] ? (r / G) * T + (r % G) * GROUP : 0;
+    }
+    for (int b = 0; b < GROUP / SBLK; ++b) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float4 v[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            v[h][p] = ok[h] ? *reinterpret_cast<const float4*>(
+                                  x + off[h] + SBLK * b +
+                                  16 * (4 * half + p) + 4 * t)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        // step 2 p + s: a0 = row 0's sample 4 t + 2 s, a1 row 1's, a2 and
+        // a3 the next sample of each
+        uint32_t ah[8][4], al[8][4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            const float a[4] = {s ? v[0][p].z : v[0][p].x,
+                                s ? v[1][p].z : v[1][p].x,
+                                s ? v[0][p].w : v[0][p].y,
+                                s ? v[1][p].w : v[1][p].y};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (ONE)
+                ah[2 * p + s][j] = hopper::to_tf32(a[j]);
+              else
+                hopper::split_tf32(a[j], ah[2 * p + s][j], al[2 * p + s][j]);
+            }
+          }
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int step = 8 * half + k;
+          const uint64_t desc =
+              hopper::desc(ubase + step * 8 * SBLK * 4, 16 * SBLK, 128);
+          const int acc = half > 0 || k > 0;
+          if (!ONE) hopper::mma_n128(d, al[k], desc, acc);
+          hopper::mma_n128(d, ah[k], desc, ONE ? acc : 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(d);
+      }
+      // row h's phase m: accumulators 8 m + 2 h + {0, 1, 4, 5}, outputs
+      // 128 m + 16 b + 4 t .. + 3
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!ok[h]) continue;
+        float* dst = y + off[h] + 16 * b + 4 * t;
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          *reinterpret_cast<float4*>(dst + 128 * m) = make_float4(
+              d[8 * m + 2 * h] + 1.0f, d[8 * m + 2 * h + 1] + 1.0f,
+              d[8 * m + 2 * h + 4] + 1.0f, d[8 * m + 2 * h + 5] + 1.0f);
+      }
+    }
+  }
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 132;
+  return n;
+}
+
+// blocks a (C, N) block is cut into: enough that the grid holds eight
+// blocks an SM (2048 threads, the most an SM keeps), no fewer than NT
+// columns of `vectors` a block
+int shares_for(long long nblocks, long long vectors) {
+  const long long want = (8LL * sm_count() + nblocks - 1) / nblocks;
+  const long long most = (vectors + NT - 1) / NT;
+  return (int)std::max(1LL, std::min(want, std::max(1LL, most)));
+}
+
+}  // namespace
+
+extern "C" {
+
+// x and y (C, T) float32, contiguous; N > 0
+int probe_copy_add1_launch(const float* x, float* y, int C, long long T,
+                           int N, void* stream) {
+  if (C < 1 || T < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const long long nb = (T + N - 1) / N;
+  const bool vec = T % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(y);
+  const dim3 grid((unsigned)nb, shares_for(nb, N / 4));
+  copy_add1_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(x, y, C, T, N,
+                                                          vec);
+  return (int)cudaGetLastError();
+}
+
+// x and y (nprog, C, N) float32, contiguous
+int probe_copy_pm_add1_launch(const float* x, float* y, int nprog, int C,
+                              int N, void* stream) {
+  if (nprog < 1 || C < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = N % 4 == 0 && aligned16(x) && aligned16(y);
+  const dim3 grid((unsigned)nprog, shares_for(nprog, N / 4));
+  copy_pm_add1_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(x, y, C, N,
+                                                             vec);
+  return (int)cudaGetLastError();
+}
+
+// x (C, T) with T = nprog N; y, e (C, T); so (nprog, N / 128, C, nbins);
+// po, go (nprog, 1, C); qo (nprog, C, nbins); all float32, contiguous
+int probe_outputs_floor_launch(const float* x, int C, long long T, int N,
+                               int nbins, float* y, float* e, float* so,
+                               float* po, float* go, float* qo,
+                               void* stream) {
+  if (C < 1 || N < 128 || N % 128 || T % N || nbins < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long nprog = T / N;
+  const bool vec = N % 4 == 0 && T % 4 == 0 && aligned16(x) &&
+                   aligned16(y) && aligned16(e);
+  // a program's PSD and qo blocks start on 16-byte words where the first
+  // does and the blocks are whole words
+  const long long q = (long long)C * nbins;
+  const bool vso = aligned16(so) && (N / 128) * q % 4 == 0;
+  const bool vqo = aligned16(qo) && q % 4 == 0;
+  const dim3 grid((unsigned)nprog, shares_for(nprog, N / 4));
+  outputs_floor_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+      x, C, T, N, nbins, Outputs{y, e, so, po, go, qo}, vec, vso, vqo);
+  return (int)cudaGetLastError();
+}
+
+// u (C, M Q) at row stride ldu (>= M Q) -> out (C M, Q) contiguous;
+// 1 <= M <= TS
+int probe_pm_forward_launch(const float* u, long long ldu, int C, int Q,
+                            int M, float* out, void* stream) {
+  if (M < 1 || M > TS || C < 1 || C > 65535 || Q < 1 ||
+      ldu < (long long)M * Q)
+    return (int)cudaErrorInvalidValue;
+  const int tq = TS / M;
+  const bool vin = ldu % 4 == 0 && (tq * M) % 4 == 0 && aligned16(u);
+  const bool vout = Q % 4 == 0 && tq % 4 == 0 && aligned16(out);
+  const dim3 grid((Q + tq - 1) / tq, C);
+  pm_forward_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(u, ldu, Q, M, tq,
+                                                           out, vin, vout);
+  return (int)cudaGetLastError();
+}
+
+// e (C M, Q) at row stride lde (>= Q) -> out (C, M Q) contiguous;
+// 1 <= M <= TS
+int probe_pm_inverse_launch(const float* e, long long lde, int C, int Q,
+                            int M, float* out, void* stream) {
+  if (M < 1 || M > TS || C < 1 || C > 65535 || Q < 1 || lde < Q)
+    return (int)cudaErrorInvalidValue;
+  const int tq = TS / M;
+  const bool vin = lde % 4 == 0 && Q % 4 == 0 && tq % 4 == 0 && aligned16(e);
+  const bool vout =
+      ((long long)M * Q) % 4 == 0 && (tq * M) % 4 == 0 && aligned16(out);
+  const dim3 grid((Q + tq - 1) / tq, C);
+  pm_inverse_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(e, lde, Q, M, tq,
+                                                           out, vin, vout);
+  return (int)cudaGetLastError();
+}
+
+long long probe_pm_roundtrip_smem_bytes(int N, int M) {
+  return roundtrip_smem(N, M);
+}
+
+// x and y (C, T) float32, contiguous, 16-byte aligned; T a multiple of N,
+// N of 32, M 4 or 8
+int probe_pm_roundtrip_add1_launch(const float* x, float* y, int C,
+                                   long long T, int N, int M, void* stream) {
+  if ((M != 4 && M != 8) || C < 1 || C > 65535 || N < 32 || N % 32 ||
+      T % N || !aligned16(x) || !aligned16(y))
+    return (int)cudaErrorInvalidValue;
+  const long long smem = roundtrip_smem(N, M);
+  cudaError_t err = cudaFuncSetAttribute(
+      pm_roundtrip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(T / N), C);
+  pm_roundtrip_kernel<<<grid, NT, (size_t)smem, (cudaStream_t)stream>>>(
+      x, y, T, N, M);
+  return (int)cudaGetLastError();
+}
+
+// x and y (C, T) float32, contiguous, 16-byte aligned, T a multiple of
+// 1024; one: a single TF32 pass (DEFAULT), else two (HIGHEST, HIGH)
+int probe_select_pm_add1_launch(const float* x, float* y, int C,
+                                long long T, int one, void* stream) {
+  if (C < 1 || T < GROUP || T % GROUP || !aligned16(x) || !aligned16(y))
+    return (int)cudaErrorInvalidValue;
+  const int smem = U_WORDS * 4;
+  auto kernel = one ? select_pm_kernel<true> : select_pm_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, SNT,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long ntiles = ((long long)C * (T / GROUP) + 63) / 64;
+  const long long grid =
+      std::min(ntiles, (long long)std::max(per_sm, 1) * sm_count());
+  kernel<<<(unsigned)grid, SNT, smem, (cudaStream_t)stream>>>(x, y, C, T);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -25,6 +25,7 @@ from torch import nn
 from ..utils import resolve_device
 from . import design
 from .cuda.chain import ALL_OUTPUTS, ChainKernel, fits
+from .cuda.probes import pm_forward, pm_inverse
 from .cuda.window_matmul import BankSplit, window_matmul
 from .sos import _toeplitz_bank_np
 from .stft import _dft_matrices, hann_window, one_sided_doubling
@@ -243,7 +244,11 @@ class FusedChainCF(nn.Module):
         is laid out phase-major, ``(C, Q, M) -> (C*M, Q)``, so the model
         filter at stride ``M`` is a plain causal FIR along each row:
         ``e[t] = sum_j g[j] u[t + delay - j*M]`` (stage B).  The inverse
-        relayout gives the stream back.  Both relayouts are torch copies."""
+        relayout gives the stream back.  Both relayouts are the tiled
+        transposes of :mod:`.cuda.probes` (:func:`~.cuda.probes.pm_forward`,
+        :func:`~.cuda.probes.pm_inverse`), which read the stage outputs'
+        slices where they lie; on the CPU their plain versions, torch
+        copies."""
         C, n = y_cf.shape
         B, M = self.block, self.ifir_M
         n_pad = -(-n // M) * M
@@ -252,13 +257,12 @@ class FusedChainCF(nn.Module):
         u = window_matmul(xp, self.env_i_w, B, -(-n_u // B),
                           premap="rectify", out_layout="cf",
                           split=self._splits["env_i_w"])[:, :n_u]
-        Q, q_out = n_u // M, n_pad // M
-        u_pm = u.reshape(C, Q, M).transpose(1, 2).reshape(C * M, Q)
+        q_out = n_pad // M
+        u_pm = pm_forward(u, M)
         e_pm = window_matmul(u_pm, self.env_g_w, B, -(-q_out // B),
                              out_layout="cf",
                              split=self._splits["env_g_w"])[:, :q_out]
-        e = e_pm.reshape(C, M, q_out).transpose(1, 2).reshape(C, n_pad)
-        e = e[:, :n]
+        e = pm_inverse(e_pm, M)[:, :n]
         return torch.clamp_min(e, 0.0) if self.env_clamp else e
 
     def spectrogram_fc(self, y_cf, nframes=None):

@@ -10,10 +10,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``nvcc`` a source, all started together); from ``ptxas -v`` the
    registers, spill bytes, any serialized-``wgmma`` warning and the waits
    ptxas injected of chain, envdet and window_matmul (every template
-   instance: window_matmul's columns, int16 input and one-pass DEFAULT),
-   which must neither spill nor serialize, and from ``cuobjdump -sass`` of
-   the built library each kernel's ``HGMMA`` and ``HMMA`` count (every
-   instance must show ``HGMMA`` and none ``HMMA``);
+   instance: window_matmul's columns, int16 input and one-pass DEFAULT)
+   and of the probes' selection products (``select_pm_kernel``, both
+   rungs), which must neither spill nor serialize, and from ``cuobjdump
+   -sass`` of the built library each kernel's ``HGMMA`` and ``HMMA`` count
+   (every instance must show ``HGMMA`` and none ``HMMA``); the probes' six
+   copy and relayout kernels (``csrc/probes.cu``) must not spill either;
 1b. the bare convolution core (``csrc/wgmma_conv.cuh`` through
    ``csrc/conv_probe.cu``: one warpgroup at N = 64 and 8) on four short
    known convolutions (the headline filter, the headline envelope's delay
@@ -193,10 +195,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 16. the interpolated-FIR envelope: ``FusedChainCF(ifir=True)`` at the
     bioacoustics envelope (500 Hz, eps 1e-7) on one headline chunk
     (16 ch x 2^22 float32): two window_matmul launches, each held against
-    its plain version at its shapes, the envelope against the dense one
-    (3e-6) and an interior slice against scipy float64 (1e-5); CUDA-event
-    times of the envelope, its two launches, its two relayouts and the
-    dense envelope; then the exact IIR filters on 60 s x 16 ch float32:
+    its plain version at its shapes, and one launch each of the relayout
+    kernels ``pm_forward`` and ``pm_inverse`` (counters zeroed just before,
+    read just after); the envelope equal bit for bit to the one the torch
+    reshape-and-transpose copies give, against the dense one (3e-6) and an
+    interior slice against scipy float64 (1e-5); CUDA-event times of the
+    envelope, its two launches, its two relayouts beside the torch copies
+    (one ``copy_`` each, the library column) and the plain versions, and
+    the dense envelope; then the exact IIR filters on 60 s x 16 ch float32:
     ``sosfilt`` (2-40 kHz) whole and in three chunks with the state
     carried, ``sosfiltfilt`` and ``envelope``, two channels against scipy
     float64, with host-clock times beside the FIR path's;
@@ -219,6 +225,22 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     the two-stage EnvDet at DEFAULT on the detect chunk (1e-2 of scale),
     envdet's light units against every unit full.  CUDA-event medians of
     each rung beside its own bound.
+18. the benchmark probes (``csrc/probes.cu``, ``audian_torch.probes``):
+    each kernel against its plain version on 16 ch x 2^22 float32 with
+    NaNs and infinities planted where the copies, the output set's fills
+    and columns and the relayouts carry them, bit for bit: ``copy_add1``
+    at N = 4096, 8192, 65536 and a C = 3 stream of odd rows,
+    ``copy_pm_add1`` at N = 8192, 32768, ``outputs_floor`` at N = 8192 and
+    129, 128, 256 bins, ``pm_forward`` / ``pm_inverse`` at the IFIR
+    shapes (strided slices of wider streams) at M = 8, 4, 16 and their
+    round trip, ``pm_roundtrip_add1`` at M = 8, 4; ``select_pm_add1`` on a
+    unit-normal input from seed 0 within 2^-20 max|x| at HIGHEST and
+    2^-10 at DEFAULT.  The plain versions and the torch calls timed; then
+    the three sweeps (``python -m audian_torch.probes.dma_floor``,
+    ``call_scaling``, ``phase_restructure``) with the probes' launch
+    counters zeroed just before and read just after, each kernel launched;
+    and the floor ratio: phase 5's headline chain time over the output
+    floor (N = 8192, 129 bins) of this run, and over the copy floor.
 
 Phase 4 starts with both TF32 flags on and checks that they are still on
 after it: the port scopes full float32 to its own calls.
@@ -255,6 +277,15 @@ envelope of one headline chunk and that envelope's time; its ``ms``,
 (the host's enqueue of a call), ``stage_ms`` and ``stage_ms_back_to_back``
 (phase 5's time of each case), ``split_ms`` (w's split) and
 ``slower_than_library`` (the cases slower than ``unfold @ w``).
+The probes' five entries (phase 18: ``copy_add1``, ``copy_pm_add1``,
+``outputs_floor``, ``phase_major``, ``select_pm_add1``) carry their
+sweeps' times (the IFIR envelope's two relayouts for ``phase_major``,
+phase 16), their launches on the sweeps (on the IFIR envelope for
+``phase_major``, with the round trip's in ``roundtrip``, its library call
+torch's ``x + 1``), the bytes bound (``select_pm_add1``: the larger of it
+and its two TF32 passes at 495 TFLOP/s) and ``bound_share``;
+``outputs_floor`` the ``floor_ratio`` and ``bound_ms_int16_in``, the bytes
+bound of the output set with the chain's int16 input.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -278,6 +309,8 @@ import numpy as np
 import scipy.io.wavfile
 import scipy.signal as sps
 import torch
+
+from audian_torch.probes._common import card_line, median_ms
 
 RATE = 96000.0
 C = 16
@@ -324,34 +357,6 @@ def require(ok, what):
         raise RuntimeError(f"check failed: {what}")
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def median_ms(fn, reps=5, calls=1):
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after a
-    warm-up; with ``calls`` > 1 each run is that many calls back to back,
-    divided by ``calls``, so that the host's enqueue of one call overlaps
-    the card's work on the one before (a kernel's device time)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(calls):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-    return float(np.median(times))
-
-
 def max_abs(a, b):
     return float((a.double() - b.double()).abs().max())
 
@@ -369,22 +374,28 @@ def bound_tc(flop, nbytes):
     return bound(TF32_PASSES * flop, nbytes, PEAK_TF32)[0]
 
 
-#: the kernels that run on warpgroup MMAs (and must show HGMMA in SASS)
-WGMMA_KERNELS = ("chain_kernel", "envdet_kernel", "window_matmul_kernel")
+#: the kernels that run on warpgroup MMAs (and must show HGMMA in SASS):
+#: the three program kernels and the probes' selection products
+WGMMA_KERNELS = ("chain_kernel", "envdet_kernel", "window_matmul_kernel",
+                 "select_pm_kernel")
+#: the probes' copy and relayout kernels (csrc/probes.cu), which must not
+#: spill either
+PROBE_KERNELS = ("copy_add1_kernel", "copy_pm_add1_kernel",
+                 "outputs_floor_kernel", "pm_forward_kernel",
+                 "pm_inverse_kernel", "pm_roundtrip_kernel")
 
 
-def wgmma_health(report):
-    """For each of :data:`WGMMA_KERNELS`, from ``ptxas -v``'s report, over
-    all its template instances: its most registers, its spill bytes
-    (stores + loads, summed), whether ptxas serialized any of its wgmma
-    instructions (warning C7512) and how many waits ptxas injected for
-    accumulator registers (note C7517); both name the function in their
-    own line."""
+def wgmma_health(report, kernels=WGMMA_KERNELS):
+    """For each of ``kernels``, from ``ptxas -v``'s report, over all its
+    template instances: its most registers, its spill bytes (stores +
+    loads, summed), whether ptxas serialized any of its wgmma instructions
+    (warning C7512) and how many waits ptxas injected for accumulator
+    registers (note C7517); both name the function in their own line."""
     out = {k: {"registers": None, "spill_bytes": None, "serialized": False,
-               "injected_waits": 0} for k in WGMMA_KERNELS}
+               "injected_waits": 0} for k in kernels}
     name = None
     for line in report.splitlines():
-        hit = next((k for k in WGMMA_KERNELS if k in line), None)
+        hit = next((k for k in kernels if k in line), None)
         if "serialized" in line and hit:
             out[hit]["serialized"] = True
             continue
@@ -393,7 +404,7 @@ def wgmma_health(report):
             continue
         m = re.search(r"Compiling entry function '?(\w+)", line)
         if m:
-            name = next((k for k in WGMMA_KERNELS if k in m.group(1)), None)
+            name = next((k for k in kernels if k in m.group(1)), None)
             continue
         if name is None:
             continue
@@ -435,7 +446,8 @@ def sass_mma_counts(library):
             mangled = m.group(1)
             name = next((k for k in ("chain_kernel", "envdet_kernel",
                                      "window_matmul_kernel", "conv_probe",
-                                     "conv_rate", "split_w_kernel")
+                                     "conv_rate", "split_w_kernel",
+                                     *WGMMA_KERNELS[3:], *PROBE_KERNELS)
                           if k in mangled), mangled[:40])
             name += template_args(mangled)
             counts.setdefault(name, [0, 0])
@@ -456,7 +468,8 @@ def kernel_resources(report):
         if m:
             mangled = m.group(1)
             name = next((k for k in ("chain_kernel", "window_matmul_kernel",
-                                     "split_w_kernel", "envdet_kernel")
+                                     "split_w_kernel", "envdet_kernel",
+                                     *WGMMA_KERNELS[3:], *PROBE_KERNELS)
                          if k in mangled), mangled[:40])
             name += template_args(mangled)
         elif name and ("registers" in line or "spill" in line):
@@ -708,25 +721,30 @@ TOL_IIR_SCIPY = 1e-6
 TOL_IIRFF_SCIPY = 2e-6
 
 
-def ifir_stages(fc, y):
+def ifir_stages(fc, y, torch_copies=False):
     """The stages of ``fc``'s IFIR envelope of ``y``, as
     ``FusedChainCF._envelope_ifir_cf`` runs them: each window_matmul's
-    arguments, and the relayouts between them as functions."""
+    arguments, and the relayouts between them as functions (the port's
+    ``pm_forward`` / ``pm_inverse``, or with ``torch_copies`` their plain
+    versions, the torch reshape-and-transpose copies they replaced)."""
+    from audian_torch.ops.cuda import probes as P
+
     C, n = y.shape
     B, M = fc.block, fc.ifir_M
     n_pad = -(-n // M) * M
     n_u = n_pad + (fc.ifir_Lg - 1) * M
-    Q, q_out = n_u // M, n_pad // M
+    q_out = n_pad // M
     xp = torch.nn.functional.pad(y, (fc.env_halo,
                                      fc.env_delay + n_pad - n))
     a_args = (xp, fc.env_i_w, B, -(-n_u // B), "rectify", "cf")
+    forward, inverse = ((P.pm_forward_plain, P.pm_inverse_plain)
+                        if torch_copies else (P.pm_forward, P.pm_inverse))
 
     def to_pm(u):
-        return u[:, :n_u].reshape(C, Q, M).transpose(1, 2).reshape(C * M, Q)
+        return forward(u[:, :n_u], M)
 
     def from_pm(e_pm):
-        e = e_pm[:, :q_out].reshape(C, M, q_out).transpose(1, 2)
-        return e.reshape(C, n_pad)[:, :n]
+        return inverse(e_pm[:, :q_out], M)[:, :n]
 
     return a_args, to_pm, (fc.env_g_w, B, -(-q_out // B), None, "cf"), \
         from_pm
@@ -734,8 +752,11 @@ def ifir_stages(fc, y):
 
 def ifir_phase(card, dev):
     """Phase 16a: ``FusedChainCF(ifir=True)``'s envelope of one headline
-    chunk.  Returns window_matmul's launches on it (counter zeroed just
-    before, read just after) and its CUDA-event time."""
+    chunk.  Returns window_matmul's launches on it (counters zeroed just
+    before, read just after), its CUDA-event time, window_matmul's largest
+    error and a dict of the relayouts: their launches, the kernels' and
+    the torch copies' times and the bytes they move."""
+    from audian_torch.ops.cuda.probes import pm_forward, pm_inverse
     from audian_torch.ops.cuda.window_matmul import (window_matmul,
                                                      window_matmul_plain)
     from audian_torch.ops.design import design_envelope_filter
@@ -779,12 +800,17 @@ def ifir_phase(card, dev):
     y = (0.4 * tone + 0.05 * torch.randn((C, CHUNK), generator=gen,
                                          dtype=torch.float64))
     y = y.to(torch.float32).to(dev)
-    window_matmul.launches = 0
+    window_matmul.launches = pm_forward.launches = pm_inverse.launches = 0
     e = fi.envelope_cf(y)
     torch.cuda.synchronize()
     launches = window_matmul.launches
+    pm_launches = {"pm_forward": pm_forward.launches,
+                   "pm_inverse": pm_inverse.launches}
     require(launches == 2, f"the IFIR envelope launches window_matmul "
             f"twice, {launches}")
+    require(pm_launches == {"pm_forward": 1, "pm_inverse": 1},
+            f"the IFIR envelope launches each relayout kernel once, "
+            f"{pm_launches}")
     require(e.shape == y.shape and bool(torch.isfinite(e).all()),
             f"IFIR envelope shape {tuple(e.shape)}")
     # each window_matmul call against its plain version, at its shapes
@@ -808,6 +834,19 @@ def ifir_phase(card, dev):
               f"max_abs_err {d:.3e} (scale {scale:.3e})")
     require(torch.equal(torch.clamp_min(from_pm(e_pm), 0.0), e),
             "the stages give envelope_cf's result")
+    # the torch copies the kernels replaced give the same envelope, bit
+    # for bit: a relayout moves words and computes nothing
+    _, to_pm_t, _, from_pm_t = ifir_stages(fi, y, torch_copies=True)
+    u_pm_t = to_pm_t(u)
+    require(torch.equal(u_pm.view(torch.int32), u_pm_t.view(torch.int32)),
+            "pm_forward == the torch relayout, bit for bit")
+    e_t = torch.clamp_min(from_pm_t(window_matmul(
+        u_pm_t, *b_args[:3], premap=b_args[3], out_layout=b_args[4])), 0.0)
+    require(torch.equal(e_t.view(torch.int32), e.view(torch.int32)),
+            "the kernel-relayout envelope == the torch-relayout envelope")
+    print(f"  relayouts: pm_forward and pm_inverse launched once each; the "
+          f"envelope equals the torch-copy relayouts' bit for bit")
+    del u_pm_t, e_t
     ed = dense.envelope_cf(y)
     dd = max_abs(e, ed)
     require(dd <= TOL_IFIR_DENSE, f"IFIR against dense {dd}")
@@ -841,19 +880,48 @@ def ifir_phase(card, dev):
         "relayout back": median_ms(lambda: from_pm(e_pm).contiguous()),
         "dense": median_ms(lambda: dense.envelope_cf(y)),
     }
+    # the library column: the torch copies, one call each into a tensor
+    # made before (the plain versions are the same expressions)
+    n_u, q_out = u_pm.shape[1] * fi.ifir_M, e.shape[1] // fi.ifir_M
+    u_view = u[:, :n_u].reshape(C, -1, fi.ifir_M).transpose(1, 2)
+    e_view = e_pm[:, :q_out].reshape(C, fi.ifir_M, q_out).transpose(1, 2)
+    u_out = torch.empty(u_view.shape, device=dev)
+    e_out = torch.empty(e_view.shape, device=dev)
+    ms_torch = {
+        "relayout to phase-major": median_ms(lambda: u_out.copy_(u_view)),
+        "relayout back": median_ms(lambda: e_out.copy_(e_view)),
+    }
+    ms_plain = {
+        "relayout to phase-major": median_ms(lambda: to_pm_t(u)),
+        "relayout back": median_ms(lambda: from_pm_t(e_pm).contiguous()),
+    }
     flop = 2 * C * CHUNK * macs_ifir
     nbytes = 2 * 4 * C * CHUNK
     b32 = bound(flop, nbytes)
     btc = bound(TF32_PASSES * flop, nbytes, PEAK_TF32)
-    share = (ms["relayout to phase-major"] + ms["relayout back"]) / ms["ifir"]
+    relayout_ms = ms["relayout to phase-major"] + ms["relayout back"]
+    relayout_torch_ms = sum(ms_torch.values())
+    relayout_bytes = 2 * 4 * (u_pm.numel() + e.numel())
     print(f"  times (CUDA events, ms): " + "  ".join(
         f"{k} {v:.4f}" for k, v in ms.items()) + f"  [{card}]")
+    print(f"  torch copies (one copy_ each, the library column): " +
+          "  ".join(f"{k} {v:.4f}" for k, v in ms_torch.items()) +
+          "; plain: " + "  ".join(f"{k} {v:.4f}" for k, v in
+                                  ms_plain.items()) + f"  [{card}]")
     print(f"  IFIR against dense {ms['dense'] / ms['ifir']:.2f}x; the "
-          f"relayouts {100 * share:.1f} % of the IFIR envelope; its bound "
+          f"relayout kernels {relayout_ms:.4f} ms, "
+          f"{100 * relayout_ms / ms['ifir']:.1f} % of the IFIR envelope "
+          f"(the torch copies {relayout_torch_ms:.4f} ms; bound "
+          f"{1e3 * relayout_bytes / PEAK_BYTES:.4f} ms, bytes); its bound "
           f"{b32[0]:.4f} ms ({b32[1]}, fp32 at 67 TFLOP/s), as 3xTF32 "
-          f"{btc[0]:.4f} ms ({btc[1]})")
-    del u, u_pm, e_pm, e, y
-    return launches, ms["ifir"], err
+          f"{btc[0]:.4f} ms ({btc[1]})  [{card}]")
+    relayout = {"launches": pm_launches, "ms": relayout_ms,
+                "stage_ms": {k: ms[k] for k in ms_torch},
+                "plain_ms": sum(ms_plain.values()),
+                "library_ms": relayout_torch_ms, "bytes": relayout_bytes,
+                "share_of_ifir": relayout_ms / ms["ifir"]}
+    del u, u_pm, e_pm, e, y, u_out, e_out
+    return launches, ms["ifir"], err, relayout
 
 
 def iir_phase(card, dev):
@@ -3389,6 +3457,262 @@ def multidevice_phase(card, dev, tmp, path, song):
     return launches
 
 
+# -- phase 18: the benchmark probes ------------------------------------------
+
+PROBE_N = 8192           # the chain's block, the probes' headline column block
+PROBE_NBINS = 129        # the headline PSD's bins
+# the selection products against the plain relayout, at unit-normal input:
+# HIGHEST keeps x_hi + x_lo (within 2^-22 |x|), DEFAULT x rounded to TF32
+# (2^-11 |x|)
+TOL_SELECT = {"highest": 2.0 ** -20, "default": 2.0 ** -10}
+
+
+def bits_equal(a, b):
+    """The same shape and the same 32-bit words (a copy moves words)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def values_equal(a, b):
+    """The same shape, NaNs in the same places and the same words
+    elsewhere (an addition may give a NaN another payload)."""
+    nan = a.isnan()
+    return (a.shape == b.shape and torch.equal(nan, b.isnan())
+            and bits_equal(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)))
+
+
+def probes_phase(card, dev, chain_ms, relayout):
+    """Phase 18: each kernel of ``csrc/probes.cu`` against its plain version
+    at the probes' shapes, with a NaN and infinities on the copies' and
+    relayouts' inputs, then the three probe sweeps (launch counters zeroed
+    just before, read just after) and the headline chain's floor ratio.
+    ``chain_ms`` is phase 5's headline chain time, ``relayout`` phase
+    16's relayout dict.  Returns the kernels line's five entries."""
+    from audian_torch.ops.cuda import _build
+    from audian_torch.ops.cuda import probes as P
+    from audian_torch.probes import call_scaling, dma_floor, phase_restructure
+
+    print(f"phase 18: the benchmark probes' kernels at {C} ch x {CHUNK} "
+          f"float32")
+    gen = torch.Generator(dev).manual_seed(SEED + 18)
+    x = torch.randn((C, CHUNK), generator=gen, device=dev)
+    # non-finite words where the copies, the outputs' fills and columns and
+    # the relayouts carry them: program 3's x[0, 0] (its PSD fill), program
+    # 7's x[5, 1] (go), program 9's x[0, 2] (qo), and two samples inside
+    bad = ((0, 3 * PROBE_N, "nan"), (5, 7 * PROBE_N + 1, "inf"),
+           (0, 9 * PROBE_N + 2, "-inf"), (C - 5, CHUNK // 4 + 3, "nan"),
+           (2, CHUNK - 7, "-inf"))
+    for c, t, v in bad:
+        x[c, t] = float(v)
+    errs = {}
+
+    def hold(name, label, got, want, exact=values_equal):
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        ok = all(exact(a, b) for a, b in zip(got, want))
+        require(ok and len(got) == len(want),
+                f"{name} {label} equals its plain version bit for bit")
+        nonfinite = sum(int((~torch.isfinite(a)).sum()) for a in got)
+        errs[name] = 0.0
+        print(f"  {name} {label}: bit for bit the plain version's "
+              f"({nonfinite} non-finite outputs where it has them)")
+
+    for N in (4096, PROBE_N, 65536):
+        hold("copy_add1", f"N={N}", P.copy_add1(x, N),
+             P.copy_add1_plain(x, N))
+    x3 = x[:3, : 3 * 16391].contiguous()
+    hold("copy_add1", "C = 3, N = 16391 (rows not of whole 16-byte words)",
+         P.copy_add1(x3, 16391), P.copy_add1_plain(x3, 16391))
+    for N in (PROBE_N, 32768):
+        xpm = dma_floor.to_program_major(x, N)
+        hold("copy_pm_add1", f"N={N}", P.copy_pm_add1(xpm),
+             P.copy_pm_add1_plain(xpm))
+    for nb in (PROBE_NBINS, 128, 256):
+        hold("outputs_floor", f"N={PROBE_N} nbins={nb}",
+             P.outputs_floor(x, PROBE_N, nb),
+             P.outputs_floor_plain(x, PROBE_N, nb))
+    # the relayouts at the IFIR envelope's shapes (M = 8: stage A's u of
+    # 2^22 + 164 x 8 samples read from its 128-sample blocks; stage B's
+    # e_pm of 2^19 columns from its blocks) and at M = 4 and 16
+    for M in (8, 4, 16):
+        n_u = CHUNK + 164 * M
+        wide = torch.randn((C, -(-n_u // 128) * 128), generator=gen,
+                           device=dev)
+        wide[1, 17] = float("nan")
+        wide[C - 1, n_u - 1] = float("inf")
+        u = wide[:, :n_u]
+        u_pm = P.pm_forward(u, M)
+        hold("phase_major", f"pm_forward M={M}, u (C, {n_u}) of a "
+             f"({C}, {wide.shape[1]}) stream", u_pm,
+             P.pm_forward_plain(u, M), bits_equal)
+        q = CHUNK // M
+        e_wide = torch.randn((C * M, -(-q // 128) * 128 + 128),
+                             generator=gen, device=dev)
+        e_wide[3, 5] = float("nan")
+        e_wide[C * M - 1, q - 1] = float("-inf")
+        e_pm = e_wide[:, :q]
+        hold("phase_major", f"pm_inverse M={M}, e_pm ({C * M}, {q}) of a "
+             f"row stride {e_wide.shape[1]}", P.pm_inverse(e_pm, M),
+             P.pm_inverse_plain(e_pm, M), bits_equal)
+        hold("phase_major", f"pm_inverse(pm_forward(u)) == u, M={M}",
+             P.pm_inverse(u_pm, M), u.contiguous(), bits_equal)
+        del wide, u, u_pm, e_wide, e_pm
+    for M in (8, 4):
+        require(_build.load_library().probe_pm_roundtrip_smem_bytes(
+            PROBE_N, M) == P.roundtrip_smem_bytes(PROBE_N, M),
+            "the round trip's shared-memory formula agrees")
+        hold("phase_major", f"pm_roundtrip_add1 N={PROBE_N} M={M}",
+             P.pm_roundtrip_add1(x, PROBE_N, M),
+             P.pm_roundtrip_add1_plain(x, PROBE_N, M))
+    # the selection products: within TOL_SELECT of max|x| on a unit-normal
+    # input from seed 0 (a NaN or an infinity would spread over its row's
+    # 128 outputs of that source block, so none is planted here)
+    xs = torch.randn((C, CHUNK), generator=torch.Generator(dev).manual_seed(
+        SEED), device=dev)
+    scale = float(xs.abs().max())
+    want = P.select_pm_add1_plain(xs)
+    select = {}
+    for prec, tol in TOL_SELECT.items():
+        got = P.select_pm_add1(xs, precision=prec)
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        require(bool(torch.isfinite(got).all()) and err <= tol * scale,
+                f"select_pm_add1 at {prec}: {err} (max|x| {scale})")
+        select[prec] = {"max_abs_err": err}
+        print(f"  select_pm_add1 {prec}: max_abs_err {err:.3e} (budget "
+              f"{tol * scale:.3e}, {tol:.3e} of max|x| {scale:.4f})")
+    errs["select_pm_add1"] = select["highest"]["max_abs_err"]
+    del x3, xpm, got, want
+
+    # the plain versions' and the library calls' times at the headline
+    # shapes (the kernels' own come from the sweeps below)
+    xpm = dma_floor.to_program_major(xs, PROBE_N)
+    view = xs.reshape(C, CHUNK // P.GROUP, P.GROUP // 8, 8).transpose(2, 3)
+    sel_out = torch.empty(view.shape, device=dev)
+    plain = {
+        "copy_add1": median_ms(lambda: P.copy_add1_plain(xs, PROBE_N)),
+        "copy_pm_add1": median_ms(lambda: P.copy_pm_add1_plain(xpm)),
+        "outputs_floor": median_ms(
+            lambda: P.outputs_floor_plain(xs, PROBE_N, PROBE_NBINS)),
+        "pm_roundtrip_add1": median_ms(
+            lambda: P.pm_roundtrip_add1_plain(xs, PROBE_N, 8)),
+        "select_pm_add1": median_ms(lambda: P.select_pm_add1_plain(xs)),
+    }
+    library = {
+        "x + 1": median_ms(lambda: xs + 1.0),
+        "copy_pm_add1": median_ms(lambda: xpm + 1.0),
+        "select_pm_add1": median_ms(
+            lambda: torch.add(view, 1.0, out=sel_out)),
+    }
+    print("  plain versions (ms): " + "  ".join(
+        f"{k} {v:.4f}" for k, v in plain.items()) + "; torch calls: "
+        f"x + 1 {library['x + 1']:.4f}, program-major "
+        f"{library['copy_pm_add1']:.4f}, the "
+        f"selection's relayout + 1 as one add {library['select_pm_add1']:.4f}"
+        f"  [{card}]")
+    del x, xs, xpm, view, sel_out
+
+    # -- the sweeps: the probes' main path ------------------------------------
+    kernels = (P.copy_add1, P.copy_pm_add1, P.outputs_floor,
+               P.pm_roundtrip_add1, P.select_pm_add1)
+    for k in kernels:
+        k.launches = 0
+    rows = {}
+    for mod in (dma_floor, call_scaling, phase_restructure):
+        print(f"  python -m {mod.__name__}  [{card}]")
+        rows[mod.__name__.rsplit(".", 1)[1]] = mod.sweep(device=dev,
+                                                         echo=True)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"  launches on the sweeps: {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"{name} launched on the probe sweeps")
+
+    def row(probe, label):
+        return next(r for r in rows[probe] if r["label"] == label)
+
+    copy_row = row("dma_floor", f"copy rows N={PROBE_N}")
+    floor_row = row("dma_floor", f"y+e+psd({PROBE_NBINS})+stats")
+    torch_row = row("call_scaling", "torch  copy 2^22")
+    # the output floor reads float32, as the reference's; the chain reads
+    # int16, so its own output set moves the input's half fewer bytes
+    bytes_int16 = floor_row["bytes"] - 2 * C * CHUNK
+    print(f"  floor ratio: the headline chain {chain_ms:.4f} ms (phase 5) "
+          f"over its output floor {floor_row['ms']:.4f} ms (N={PROBE_N}, "
+          f"{PROBE_NBINS} bins, float32 in) = "
+          f"{chain_ms / floor_row['ms']:.3f}; over the copy floor "
+          f"{copy_row['ms']:.4f} ms = {chain_ms / copy_row['ms']:.3f}; the "
+          f"output set's bytes bound with int16 in "
+          f"{bound(0, bytes_int16)[0]:.4f} ms ({bytes_int16 / 1e9:.3f} GB), "
+          f"float32 in {bound(0, floor_row['bytes'])[0]:.4f} ms  [{card}]")
+
+    def entry(name, replaces, ms, nbytes, plain_ms, library_ms, flop=0.0,
+              peak=PEAK_FLOPS, **more):
+        b = bound(flop, nbytes, peak)
+        return {"name": name, "route": "cuda",
+                "source": "audian_torch/csrc/probes.cu",
+                "replaces": replaces, "launches": launches.get(name),
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": library_ms, "bound_share": b[0] / ms, **more}
+
+    rt_row = row("phase_restructure", "reshape+transpose x2")
+    sel_rows = {p: row("phase_restructure", f"selection products, {p}")
+                for p in ("HIGHEST", "DEFAULT")}
+    # a pass: 128 multiply-adds an output of the sweep's input
+    flop_sel = 2.0 * (sel_rows["HIGHEST"]["bytes"] // 8) * (P.GROUP // 8)
+    out = [
+        entry("copy_add1", "benchmarks/call_scaling_bench.py:46",
+              copy_row["ms"], copy_row["bytes"], plain["copy_add1"],
+              torch_row["ms"],
+              also_replaces=["benchmarks/dma_floor_bench.py:53",
+                             "benchmarks/phase_restructure_bench.py:62"]),
+        entry("copy_pm_add1", "benchmarks/dma_floor_bench.py:73",
+              row("dma_floor", f"copy contiguous N={PROBE_N}")["ms"],
+              copy_row["bytes"], plain["copy_pm_add1"],
+              library["copy_pm_add1"]),
+        entry("outputs_floor", "benchmarks/dma_floor_bench.py:93",
+              floor_row["ms"], floor_row["bytes"], plain["outputs_floor"],
+              None, floor_ratio=chain_ms / floor_row["ms"],
+              chain_ms=chain_ms,
+              bound_ms_int16_in=bound(0, bytes_int16)[0]),
+        entry("phase_major", "benchmarks/phase_restructure_bench.py:66",
+              relayout["ms"], relayout["bytes"], relayout["plain_ms"],
+              relayout["library_ms"], stage_ms=relayout["stage_ms"],
+              ifir_launches=relayout["launches"],
+              share_of_ifir=relayout["share_of_ifir"],
+              roundtrip={"ms": rt_row["ms"], "bytes": rt_row["bytes"],
+                         "bound_ms": bound(0, rt_row["bytes"])[0],
+                         "bound_by": "bytes",
+                         "max_abs_err": errs["phase_major"],
+                         "plain_ms": plain["pm_roundtrip_add1"],
+                         "library_ms": library["x + 1"],
+                         "launches": launches["pm_roundtrip_add1"]}),
+        entry("select_pm_add1", "benchmarks/phase_restructure_bench.py:74",
+              sel_rows["HIGHEST"]["ms"], sel_rows["HIGHEST"]["bytes"],
+              plain["select_pm_add1"], library["select_pm_add1"],
+              flop=2 * flop_sel, peak=PEAK_TF32,
+              precision={"DEFAULT": dict(select["default"],
+                                         ms=sel_rows["DEFAULT"]["ms"],
+                                         bound_ms=bound(
+                                             flop_sel,
+                                             sel_rows["DEFAULT"]["bytes"],
+                                             PEAK_TF32)[0])}),
+    ]
+    # phase_major's launches are the IFIR envelope's (phase 16)
+    out[3]["launches"] = sum(relayout["launches"].values())
+    for e in out + [dict(out[3]["roundtrip"], name="pm_roundtrip_add1")]:
+        lib_ms = e["library_ms"]
+        lib = "none" if lib_ms is None else (
+            f"{lib_ms:.4f} (the kernel {100 * (e['ms'] / lib_ms - 1):+.1f} %)")
+        print(f"  {e['name']}: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} "
+              f"ms ({e['bound_by']}, {100 * e['bound_ms'] / e['ms']:.1f} %), "
+              f"plain {e['plain_ms']:.4f}, library {lib}, launches "
+              f"{e['launches']}  [{card}]")
+    return out
+
+
 def main():
     # -- phase 0: the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -3474,6 +3798,12 @@ def main():
         if not any(name == k or name.startswith(k + "<")
                    for k in WGMMA_KERNELS):
             print(f"  {name}: SASS HGMMA {hg}  HMMA {hm}")
+    # the probes' copies and relayouts: no spill either
+    for name, h in wgmma_health(report, PROBE_KERNELS).items():
+        print(f"  {name}: {h['registers']} registers, {h['spill_bytes']} "
+              f"spill bytes")
+        require(h["registers"] is not None, f"ptxas reported {name}")
+        require(h["spill_bytes"] == 0, f"{name} spills no register")
 
     # -- phase 1b: the convolution core --------------------------------------
     print("phase 1b: the wgmma convolution core on known convolutions")
@@ -4172,12 +4502,15 @@ def main():
     del song
 
     # -- phase 16: the IFIR envelope and the exact IIR filters ---------------
-    ifir_launches, ifir_ms, ifir_err = ifir_phase(card, dev)
+    ifir_launches, ifir_ms, ifir_err, relayout = ifir_phase(card, dev)
     wm_err = max(wm_err, ifir_err)
     iir_phase(card, dev)
 
     # -- phase 17: the precision rungs ---------------------------------------
     rungs = precision_phase(card, dev, bio, wm_times, ed, qd)
+
+    # -- phase 18: the benchmark probes --------------------------------------
+    probe_kernels = probes_phase(card, dev, ch_ms, relayout)
 
     wm_bound = bound(wm_flop, wm_bytes)
     wm_bound_tc = bound_tc(wm_flop, wm_bytes)
@@ -4233,6 +4566,7 @@ def main():
          "viewer_launches": viewer_launches,
          "multidevice_launches": md_launches["envdet"],
          "precision": rungs["envdet"]},
+        *probe_kernels,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -116,7 +116,8 @@ def test_entry_twin_matches_graft_entry():
 def test_port_imports_no_jax():
     """Every module of the port imports without JAX (nor pandas,
     matplotlib, PyQt5, pyqtgraph), the native bindings, the FLAC codec,
-    the compress CLI, the frontends and the ``audian`` CLI among them, and
+    the compress CLI, the frontends, the ``audian`` CLI and the benchmark
+    probes among them, and
     no import starts a process (a compiler run) or loads a kernel or
     native library."""
     code = (
@@ -136,7 +137,9 @@ def test_port_imports_no_jax():
         " 'audian_torch.gui.songplot', 'audian_torch.cli.audian',"
         " 'audian_torch.parallel.pipeline', 'audian_torch.parallel.detect',"
         " 'audian_torch.parallel.batch', 'audian_torch.utils.trace',"
-        " 'audian_torch.ops.envelope'}"
+        " 'audian_torch.ops.envelope', 'audian_torch.ops.cuda.probes',"
+        " 'audian_torch.probes.dma_floor', 'audian_torch.probes.call_scaling',"
+        " 'audian_torch.probes.phase_restructure'}"
         " <= set(names), names\n"
         "from audian_torch import native\n"
         "from audian_torch.ops.cuda import _build\n"
