@@ -39,14 +39,37 @@
 // where the reference's grid has fewer blocks than eight an SM (the host
 // picks it: 512 blocks of 256 threads at N = 8192 would keep half the
 // threads an SM can hold, 64 at N = 65536 would leave half the SMs idle).
-// The relayouts go through shared memory, where a word is padded in after
-// every 32 (the natural order) or 32 / M after every phase row (the
-// phase-major order), so that both the stride-M reads and the contiguous
-// writes of a warp fall in 32 distinct banks (M a power of two up to 32:
-// the IFIR strides 4 and 8 among them); reads and writes of device memory
-// run along the sample axis, 16 bytes a thread where the strides allow, and
-// a row stride lets them read u[:, :n_u] and e_pm[:, :q_out] where they
-// lie.
+// The relayouts pm_forward and pm_inverse go through shared memory, where
+// a word is padded in after every 32 (the natural order) or 32 / M after
+// every phase row (the phase-major order), so that both the stride-M reads
+// and the contiguous writes of a warp fall in 32 distinct banks (M a power
+// of two up to 32: the IFIR strides 4 and 8 among them); reads and writes
+// of device memory run along the sample axis, 16 bytes a thread where the
+// strides allow, and a row stride lets them read u[:, :n_u] and
+// e_pm[:, :q_out] where they lie.
+//
+// pm_roundtrip.  A persistent grid, two blocks an SM, whose blocks claim
+// the (row, block) items one at a time from a counter, so that the grid
+// sweeps device memory together (a grid that walks fixed items drifts
+// apart and loses a few per cent to one that claims them: the reference
+// copies of tools/probe_ring_trials.py).  In each block one producer
+// thread keeps bulk copies (cp.async.bulk) of the claimed items' row
+// pieces in flight, in stages of up to 2048 samples, into a ring of two
+// stages under mbarriers, while eight consumer warps relay the stage that
+// has arrived into the item's phase-major rows pm[m][q] = x[q M + m] + 1
+// and hand the stage back.  Once the item's rows are whole they read them
+// back in natural order and store y with 16-byte stores; the next item's
+// stages are arriving meanwhile.  (Deeper rings of larger stages keep more
+// bytes in flight and run no faster on the card.)  A bulk copy lands
+// unpadded, so the banks are kept apart by the phase rows alone: a thread
+// reads a 16-byte word of the stage (four consecutive samples: phases
+// 4 f mod M .. + 3 of one column, the whole phase group at M = 4, half of
+// it at M = 8) and writes its four words to four phase rows, one column;
+// the phase rows are padded to a length of 4 mod 8 words, so that at
+// M = 8 the two halves of a warp (rows m and m + 4, sixteen consecutive
+// columns each) fall 16 banks apart, and at M = 4 a warp writes 32
+// consecutive columns of one row.  The reads back mirror the writes.  M
+// is a power of two: shifts, no division.
 //
 // select_pm.  The selection matrices S_{b,m}[i, k] = 1 iff 128 b + i =
 // m + 8 k (b the source block of 128 samples, m the phase) each hold their
@@ -56,16 +79,24 @@
 // X_b S_{b,m} is a concatenation: Z_b = X_b U (64 rows of one source block
 // each, m64n128k8 wgmmas over 16 steps), and Z_b[:, 16 m + j] lands at
 // y[128 m + 16 b + j].  The zero blocks are skipped, 128 multiply-adds an
-// output instead of 1024.  A block is one warpgroup; U lives in shared
-// memory (64 KB, K-major core matrices, built once a block: the grid is
-// persistent), with its rows permuted so that a thread's A fragments of
-// two steps are one 16-byte load (4 t .. 4 t + 3 of each 16 samples) and
-// its columns so that a thread's accumulators of one phase are one 16-byte
-// store.  The 0/1 operand is exact in TF32, so HIGHEST runs two passes
-// (x_lo U, x_hi U: the products with U's zero low part are left out) and
-// DEFAULT one (x rounded by cvt.rna).  A NaN or an infinity in a source
-// block makes the 128 outputs of its row in that block NaN (0 x inf and
-// 0 x NaN are NaN): a product spreads what a copy would not.
+// output instead of 1024.  A persistent block an SM: one producer warp
+// claims items (64 rows x one source block) from a counter, as the round
+// trip does, and bulk-copies each (a 512-byte copy a row) into a ring of
+// four stages, rows 144 words apart so that the two rows of a
+// quarter-warp's 16-byte fragment loads fall 16 banks apart; two consumer
+// warpgroups (registers moved to them by setmaxnreg) take alternate
+// stages, each against the one U in shared memory (64 KB,
+// K-major core matrices, built once a block), with its rows permuted so
+// that a thread's A fragments of two steps are one 16-byte load (4 t ..
+// 4 t + 3 of each 16 samples) and its columns so that a thread's
+// accumulators of one phase are one 16-byte store.  The copies of the
+// next items are in flight while a warpgroup multiplies and stores.  The
+// 0/1 operand is exact in TF32, so HIGHEST runs two passes (x_lo U, x_hi
+// U: the products with U's zero low part are left out) and DEFAULT one (x
+// rounded by cvt.rna).  A NaN or an infinity in a source block makes the
+// 128 outputs of its row in that block NaN (0 x inf and 0 x NaN are NaN;
+// at DEFAULT, where x has no lo part, an infinity's own output, inf x 1,
+// stays infinite): a product spreads what a copy would not.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,9 +109,27 @@ namespace {
 
 constexpr int NT = 256;        // threads of a copy or relayout block
 constexpr int TS = 4096;       // samples of a relayout tile
-constexpr int GROUP = 1024;    // samples of a select_pm group
-constexpr int SBLK = 128;      // samples of a source block
-constexpr int SNT = 128;       // threads of a select_pm block
+constexpr long long SMEM_LIMIT = 232448;   // shared memory of a block
+constexpr long long SM_SMEM = 233472;      // of an SM, 1 KB a block of it
+                                           // reserved
+// the round trip: consumer threads, and the producer warp beside them;
+// samples of a ring stage; stages; blocks an SM (its shared memory would
+// allow four)
+constexpr int RT_CONS = 256;
+constexpr int RT_NT = RT_CONS + 32;
+constexpr int RT_CHUNK = 2048;
+constexpr int RT_RING = 2;
+constexpr int RT_PER_SM = 2;
+// the selection products: samples of a group and of a source block; two
+// consumer warpgroups and the producer's; ring stages of 64 rows at a
+// pitch of 144 words (16 banks apart from one row to the next)
+constexpr int GROUP = 1024;
+constexpr int SBLK = 128;
+constexpr int SEL_CONS = 256;
+constexpr int SEL_NT = SEL_CONS + 128;
+constexpr int SEL_RING = 4;
+constexpr int SEL_PITCH = SBLK + 16;
+constexpr int SEL_STAGE = 64 * SEL_PITCH;
 constexpr int U_WORDS = 16 * 8 * SBLK;   // 16 steps of 8 x 128 TF32 words
 
 __device__ __forceinline__ int pad32(int s) { return s + (s >> 5); }
@@ -308,51 +357,111 @@ __global__ void __launch_bounds__(NT) pm_inverse_kernel(
   for (int s = s0 + threadIdx.x; s < ns; s += NT) dst[s] = tile[pad32(s)];
 }
 
-__host__ __device__ constexpr int rt_nat_words(int N) { return N + N / 32; }
+// -- the round trip on a bulk-copy ring ---------------------------------------
 
-__host__ __device__ constexpr int rt_row(int N, int M) {
-  return N / M + 32 / M;
+// samples of a ring stage: an item's row piece in pieces of RT_CHUNK
+__host__ __device__ constexpr int rt_stage_words(int N) {
+  return N < RT_CHUNK ? N : RT_CHUNK;
 }
 
-// block (i, c): the (C, N) block i's row c through both relayouts in shared
-// memory, + 1 in phase-major order: nat[pad32(s)] = x[s]; pm[m][q] =
-// nat[q M + m] + 1; y[s] = pm[s % M][s / M]
-__global__ void __launch_bounds__(NT) pm_roundtrip_kernel(
-    const float* __restrict__ x, float* __restrict__ y, long long T, int N,
-    int M) {
-  extern __shared__ __align__(16) float sm[];
-  float* nat = sm;
-  float* pm = sm + rt_nat_words(N);
-  const int row = rt_row(N, M), Q = N / M;
-  const long long base = (long long)blockIdx.y * T + (long long)blockIdx.x * N;
-  const float4* src = reinterpret_cast<const float4*>(x + base);
-  for (int f = threadIdx.x; f < N / 4; f += NT) {
-    const float4 v = src[f];
-    nat[pad32(4 * f)] = v.x;
-    nat[pad32(4 * f + 1)] = v.y;
-    nat[pad32(4 * f + 2)] = v.z;
-    nat[pad32(4 * f + 3)] = v.w;
-  }
-  __syncthreads();
-  for (int f = threadIdx.x; f < N; f += NT) {
-    const int m = f / Q, q = f % Q;
-    pm[m * row + q] = nat[pad32(q * M + m)] + 1.0f;
-  }
-  __syncthreads();
-  float4* dst = reinterpret_cast<float4*>(y + base);
-  for (int f = threadIdx.x; f < N / 4; f += NT) {
-    float v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int s = 4 * f + j;
-      v[j] = pm[(s % M) * row + s / M];
-    }
-    dst[f] = make_float4(v[0], v[1], v[2], v[3]);
-  }
+// words of a phase row: Q = N / M rounded up to 4 mod 8, so that rows four
+// apart lie 16 banks apart
+__host__ __device__ constexpr int rt_row(int N, int M) {
+  return N / M + ((4 - N / M) & 7);
 }
 
 long long roundtrip_smem(int N, int M) {
-  return 4LL * (rt_nat_words(N) + (long long)M * rt_row(N, M));
+  return 4LL * RT_RING * rt_stage_words(N) + 4LL * M * rt_row(N, M) +
+         24LL * RT_RING;
+}
+
+// a persistent block over the (row, block) items, item i = c T / N + j,
+// claimed one at a time from the counter *next (zero at launch), so that
+// the blocks sweep device memory together: one producer thread claims an
+// item and copies its row piece in stages of up to RT_CHUNK samples into
+// the ring, the item's index beside each stage (-1: no more items); the
+// consumers relay each stage to the phase-major rows pm[m][q] = x[q M + m]
+// + 1 (thread f's 16-byte word 4 f holds phases 4 f mod M .. + 3 of column
+// 4 f / M), hand the stage back, and once the item's pm is whole write
+// y[s] = pm[s mod M][s / M] out as 16-byte stores, four phase rows a
+// vector
+__global__ void __launch_bounds__(RT_NT, RT_PER_SM) pm_roundtrip_kernel(
+    const float* __restrict__ x, float* __restrict__ y, int C, long long T,
+    int N, int M, unsigned long long* next) {
+  extern __shared__ __align__(128) float sm[];
+  const int sw = rt_stage_words(N), row = rt_row(N, M);
+  float* pm = sm + RT_RING * sw;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(pm + M * row);
+  long long* slot = reinterpret_cast<long long*>(bar + 2 * RT_RING);
+  const int tid = threadIdx.x;
+  const long long nblk = T / N, items = (long long)C * nblk;
+  const int nch = (N + sw - 1) / sw;
+  if (tid == 0) {
+    for (int i = 0; i < RT_RING; ++i) {
+      hopper::mbar_init(&bar[i], 1);
+      hopper::mbar_init(&bar[RT_RING + i], RT_CONS / 32);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= RT_CONS) {
+    // -- the producer ---------------------------------------------------------
+    if (tid == RT_CONS) {
+      for (int s = 0;;) {
+        const long long it = (long long)atomicAdd(next, 1ULL);
+        const float* src = x + (it / nblk) * T + (it % nblk) * N;
+        for (int j = 0; j < nch; ++j, ++s) {
+          const int st = s % RT_RING;
+          hopper::mbar_wait(&bar[RT_RING + st], ((s / RT_RING) & 1) ^ 1);
+          if (it >= items) {
+            slot[st] = -1;
+            hopper::mbar_arrive(&bar[st]);
+            return;
+          }
+          const uint32_t bytes = 4u * min(sw, N - j * sw);
+          slot[st] = it;
+          hopper::mbar_expect(&bar[st], bytes);
+          hopper::bulk_load(sm + st * sw, src + (long long)j * sw, bytes,
+                            &bar[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // -- the consumers ----------------------------------------------------------
+  const int lgm = M == 8 ? 3 : 2, lane = tid & 31;
+  for (int s = 0;;) {
+    long long it = 0;
+    for (int j = 0; j < nch; ++j, ++s) {
+      const int st = s % RT_RING;
+      const int n4 = min(sw, N - j * sw) / 4, q0 = (j * sw) >> lgm;
+      hopper::mbar_wait(&bar[st], (s / RT_RING) & 1);
+      it = slot[st];
+      if (it < 0) return;
+      const float4* src = reinterpret_cast<const float4*>(sm + st * sw);
+      for (int f = tid; f < n4; f += RT_CONS) {
+        const float4 v = src[f];
+        float* p = pm + ((4 * f) & (M - 1)) * row + q0 + ((4 * f) >> lgm);
+        p[0] = v.x + 1.0f;
+        p[row] = v.y + 1.0f;
+        p[2 * row] = v.z + 1.0f;
+        p[3 * row] = v.w + 1.0f;
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&bar[RT_RING + st]);
+    }
+    hopper::bar_sync(1, RT_CONS);
+    float4* dst = reinterpret_cast<float4*>(y + (it / nblk) * T +
+                                            (it % nblk) * N);
+    for (int f = tid; f < N / 4; f += RT_CONS) {
+      const float* p = pm + ((4 * f) & (M - 1)) * row + ((4 * f) >> lgm);
+      dst[f] = make_float4(p[0], p[row], p[2 * row], p[3 * row]);
+    }
+    // pm is read: the next item may relay into it
+    hopper::bar_sync(1, RT_CONS);
+  }
 }
 
 // -- the selection products ---------------------------------------------------
@@ -364,9 +473,9 @@ long long roundtrip_smem(int N, int M) {
 // 16 m + jj (phase m, output jj of 16) is n = 16 m + 8 h + 2 t' + e with
 // jj = 4 t' + 2 h + e
 __device__ void build_u(uint32_t* u) {
-  for (int w = threadIdx.x; w < U_WORDS; w += SNT) u[w] = 0u;
+  for (int w = threadIdx.x; w < U_WORDS; w += SEL_NT) u[w] = 0u;
   __syncthreads();
-  for (int i = threadIdx.x; i < SBLK; i += SNT) {
+  for (int i = threadIdx.x; i < SBLK; i += SEL_NT) {
     const int p = i >> 4, t = (i >> 2) & 3, r4 = i & 3;
     const int step = 2 * p + (r4 >> 1), q = r4 & 1;
     const int m = i & 7, jj = i >> 3;
@@ -376,90 +485,169 @@ __device__ void build_u(uint32_t* u) {
   }
 }
 
-// 64 rows (c, g) of C G a tile, one warpgroup a block over the tiles: for
-// each source block b, Z_b = X_b U in two halves of eight steps (the
-// thread's four 16-byte loads of each of its rows, split, then one wgmma
-// group), then Z_b + 1 to y as four 16-byte stores a row
+long long select_smem() {
+  return 4LL * (U_WORDS + SEL_RING * SEL_STAGE) + 24LL * SEL_RING;
+}
+
+// item it = 8 tile + b: the source block b of the 64 rows (c, g) of a
+// tile, claimed one at a time from the counter *next (zero at launch).
+// The producer warp claims an item and copies it into the next ring stage,
+// a row of 128 samples a 512-byte bulk copy at a pitch of SEL_PITCH words,
+// the item's index beside the stage (-1: no more items, one such stage for
+// each warpgroup); the consumer warpgroups take alternate stages: Z_b =
+// X_b U in two halves of eight steps (the thread's four 16-byte loads of
+// each of its two rows from the stage, split, then one wgmma group; the
+// second half's loads are issued, and the stage handed back, while the
+// first half's group runs), then Z_b + 1 to y as four 16-byte stores a row
 template <bool ONE>
-__global__ void __launch_bounds__(SNT, 2) select_pm_kernel(
-    const float* __restrict__ x, float* __restrict__ y, int C,
-    long long T) {
+__global__ void __launch_bounds__(SEL_NT, 1) select_pm_kernel(
+    const float* __restrict__ x, float* __restrict__ y, int C, long long T,
+    unsigned long long* next) {
   extern __shared__ __align__(128) uint32_t ush[];
+  float* ring = reinterpret_cast<float*>(ush + U_WORDS);
+  uint64_t* bar =
+      reinterpret_cast<uint64_t*>(ring + SEL_RING * SEL_STAGE);
+  long long* slot = reinterpret_cast<long long*>(bar + 2 * SEL_RING);
+  const int tid = threadIdx.x;
   build_u(ush);
+  if (tid == 0) {
+    for (int i = 0; i < SEL_RING; ++i) {
+      hopper::mbar_init(&bar[i], 1);
+      hopper::mbar_init(&bar[SEL_RING + i], 4);
+    }
+    hopper::fence_mbar_init();
+  }
   hopper::fence_async();
   __syncthreads();
-  const uint32_t ubase = hopper::smem_u32(ush);
-  const int tid = threadIdx.x;
-  const int w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
   const long long G = T / GROUP, R = (long long)C * G;
-  const long long ntiles = (R + 63) / 64;
-  float d[64];
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    long long off[2];
-    bool ok[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long r = 64 * tile + 16 * w + g + 8 * h;
-      ok[h] = r < R;
-      off[h] = ok[h] ? (r / G) * T + (r % G) * GROUP : 0;
+  const long long nitems = (R + 63) / 64 * 8;
+
+  if (tid >= SEL_CONS) {
+    // -- the producer warp (its warpgroup's registers go to the consumers) --
+    hopper::regs_dec<56>();
+    if (tid < SEL_CONS + 32) {
+      const int lane = tid & 31;
+      for (int s = 0;; ++s) {
+        long long it = 0;
+        if (lane == 0) it = (long long)atomicAdd(next, 1ULL);
+        it = __shfl_sync(0xffffffffu, it, 0);
+        const int st = s % SEL_RING;
+        hopper::mbar_wait(&bar[SEL_RING + st], ((s / SEL_RING) & 1) ^ 1);
+        if (it >= nitems) {
+          // this stage stops one warpgroup, the next the other
+          if (lane == 0) {
+            slot[st] = -1;
+            hopper::mbar_arrive(&bar[st]);
+          }
+          const int s2 = s + 1, st2 = s2 % SEL_RING;
+          hopper::mbar_wait(&bar[SEL_RING + st2], ((s2 / SEL_RING) & 1) ^ 1);
+          if (lane == 0) {
+            slot[st2] = -1;
+            hopper::mbar_arrive(&bar[st2]);
+          }
+          break;
+        }
+        const long long r0 = 64 * (it >> 3);
+        const int b = (int)(it & 7);
+        const int rows = (int)min(64LL, R - r0);
+        if (lane == 0) {
+          slot[st] = it;
+          hopper::mbar_expect(&bar[st], rows * SBLK * 4);
+        }
+        __syncwarp();
+        for (int i = lane; i < rows; i += 32) {
+          const long long r = r0 + i;
+          hopper::bulk_load(ring + st * SEL_STAGE + i * SEL_PITCH,
+                            x + (r / G) * T + (r % G) * GROUP + SBLK * b,
+                            SBLK * 4, &bar[st]);
+        }
+      }
     }
-    for (int b = 0; b < GROUP / SBLK; ++b) {
+    return;
+  }
+
+  // -- the consumers ----------------------------------------------------------
+  hopper::regs_inc<224>();
+  const int wg = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31;
+  const int g = (tid >> 2) & 7, t = tid & 3;
+  const uint32_t ubase = hopper::smem_u32(ush);
+  float d[64];
+  for (int s = wg;; s += 2) {
+    const int st = s % SEL_RING;
+    hopper::mbar_wait(&bar[st], (s / SEL_RING) & 1);
+    const long long it = slot[st];
+    if (it < 0) break;
+    const long long r0 = 64 * (it >> 3) + 16 * w + g;
+    const int b = (int)(it & 7);
+    // rows r0 and r0 + 8 of the stage, the thread's 16-byte word 4 t of
+    // each 16 samples
+    const float* a = ring + st * SEL_STAGE + (16 * w + g) * SEL_PITCH + 4 * t;
+    float4 v[2][4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float4 v[2][4];
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        v[h][p] = *reinterpret_cast<const float4*>(a + 8 * h * SEL_PITCH +
+                                                   16 * p);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // step 2 p + s: a0 = row 0's sample 4 t + 2 s, a1 row 1's, a2 and
+      // a3 the next sample of each
+      uint32_t ah[8][4], al[8][4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float q[4] = {e ? v[0][p].z : v[0][p].x,
+                              e ? v[1][p].z : v[1][p].x,
+                              e ? v[0][p].w : v[0][p].y,
+                              e ? v[1][p].w : v[1][p].y};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (ONE)
+              ah[2 * p + e][j] = hopper::to_tf32(q[j]);
+            else
+              hopper::split_tf32(q[j], ah[2 * p + e][j], al[2 * p + e][j]);
+          }
+        }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int step = 8 * half + k;
+        const uint64_t desc =
+            hopper::desc(ubase + step * 8 * SBLK * 4, 16 * SBLK, 128);
+        const int acc = half > 0 || k > 0;
+        if (!ONE) hopper::mma_n128(d, al[k], desc, acc);
+        hopper::mma_n128(d, ah[k], desc, ONE ? acc : 1);
+      }
+      hopper::wgmma_commit();
+      if (half == 0) {
+        // the second half's loads while the first half's group runs; then
+        // the stage is read and goes back to the producer
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int p = 0; p < 4; ++p)
-            v[h][p] = ok[h] ? *reinterpret_cast<const float4*>(
-                                  x + off[h] + SBLK * b +
-                                  16 * (4 * half + p) + 4 * t)
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
-        // step 2 p + s: a0 = row 0's sample 4 t + 2 s, a1 row 1's, a2 and
-        // a3 the next sample of each
-        uint32_t ah[8][4], al[8][4];
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-#pragma unroll
-          for (int s = 0; s < 2; ++s) {
-            const float a[4] = {s ? v[0][p].z : v[0][p].x,
-                                s ? v[1][p].z : v[1][p].x,
-                                s ? v[0][p].w : v[0][p].y,
-                                s ? v[1][p].w : v[1][p].y};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              if (ONE)
-                ah[2 * p + s][j] = hopper::to_tf32(a[j]);
-              else
-                hopper::split_tf32(a[j], ah[2 * p + s][j], al[2 * p + s][j]);
-            }
-          }
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int step = 8 * half + k;
-          const uint64_t desc =
-              hopper::desc(ubase + step * 8 * SBLK * 4, 16 * SBLK, 128);
-          const int acc = half > 0 || k > 0;
-          if (!ONE) hopper::mma_n128(d, al[k], desc, acc);
-          hopper::mma_n128(d, ah[k], desc, ONE ? acc : 1);
-        }
-        hopper::wgmma_commit();
-        hopper::wgmma_wait<0>();
-        hopper::fence_regs(d);
+            v[h][p] = *reinterpret_cast<const float4*>(
+                a + 8 * h * SEL_PITCH + 16 * (4 + p));
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&bar[SEL_RING + st]);
       }
-      // row h's phase m: accumulators 8 m + 2 h + {0, 1, 4, 5}, outputs
-      // 128 m + 16 b + 4 t .. + 3
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(d);
+    }
+    // row h's phase m: accumulators 8 m + 2 h + {0, 1, 4, 5}, outputs
+    // 128 m + 16 b + 4 t .. + 3
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (!ok[h]) continue;
-        float* dst = y + off[h] + 16 * b + 4 * t;
+    for (int h = 0; h < 2; ++h) {
+      const long long r = r0 + 8 * h;
+      if (r >= R) continue;
+      float* dst = y + (r / G) * T + (r % G) * GROUP + 16 * b + 4 * t;
 #pragma unroll
-        for (int m = 0; m < 8; ++m)
-          *reinterpret_cast<float4*>(dst + 128 * m) = make_float4(
-              d[8 * m + 2 * h] + 1.0f, d[8 * m + 2 * h + 1] + 1.0f,
-              d[8 * m + 2 * h + 4] + 1.0f, d[8 * m + 2 * h + 5] + 1.0f);
-      }
+      for (int m = 0; m < 8; ++m)
+        *reinterpret_cast<float4*>(dst + 128 * m) = make_float4(
+            d[8 * m + 2 * h] + 1.0f, d[8 * m + 2 * h + 1] + 1.0f,
+            d[8 * m + 2 * h + 4] + 1.0f, d[8 * m + 2 * h + 5] + 1.0f);
     }
   }
 }
@@ -567,43 +755,69 @@ long long probe_pm_roundtrip_smem_bytes(int N, int M) {
   return roundtrip_smem(N, M);
 }
 
+// blocks of the round trip's persistent grid on `sms` SMs: RT_PER_SM an SM
+// where their shared memory fits, no more than the items
+long long probe_pm_roundtrip_grid(int C, long long T, int N, int M, int sms) {
+  const long long per_sm = std::max(
+      1LL, std::min((long long)RT_PER_SM,
+                    SM_SMEM / (roundtrip_smem(N, M) + 1024)));
+  return std::min((long long)C * (T / N), per_sm * sms);
+}
+
 // x and y (C, T) float32, contiguous, 16-byte aligned; T a multiple of N,
-// N of 32, M 4 or 8
+// N of 32, M 4 or 8; next: 8 bytes of device scratch, the item counter
+// (zeroed here, on the stream, before the kernel)
 int probe_pm_roundtrip_add1_launch(const float* x, float* y, int C,
-                                   long long T, int N, int M, void* stream) {
-  if ((M != 4 && M != 8) || C < 1 || C > 65535 || N < 32 || N % 32 ||
-      T % N || !aligned16(x) || !aligned16(y))
+                                   long long T, int N, int M, void* next,
+                                   void* stream) {
+  if ((M != 4 && M != 8) || C < 1 || N < 32 || N % 32 || T % N ||
+      !aligned16(x) || !aligned16(y) || next == nullptr)
     return (int)cudaErrorInvalidValue;
   const long long smem = roundtrip_smem(N, M);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       pm_roundtrip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(T / N), C);
-  pm_roundtrip_kernel<<<grid, NT, (size_t)smem, (cudaStream_t)stream>>>(
-      x, y, T, N, M);
+  err = cudaMemsetAsync(next, 0, sizeof(unsigned long long),
+                        (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = probe_pm_roundtrip_grid(C, T, N, M, sm_count());
+  pm_roundtrip_kernel<<<(unsigned)grid, RT_NT, (size_t)smem,
+                        (cudaStream_t)stream>>>(
+      x, y, C, T, N, M, static_cast<unsigned long long*>(next));
   return (int)cudaGetLastError();
 }
 
+long long probe_select_pm_smem_bytes() { return select_smem(); }
+
+// blocks of the selection's persistent grid on `sms` SMs: one an SM, no
+// more than the items (8 a tile of 64 rows)
+long long probe_select_pm_grid(int C, long long T, int sms) {
+  const long long items = ((long long)C * (T / GROUP) + 63) / 64 * 8;
+  return std::min(items, (long long)sms);
+}
+
 // x and y (C, T) float32, contiguous, 16-byte aligned, T a multiple of
-// 1024; one: a single TF32 pass (DEFAULT), else two (HIGHEST, HIGH)
+// 1024; one: a single TF32 pass (DEFAULT), else two (HIGHEST, HIGH);
+// next: 8 bytes of device scratch, the item counter (zeroed here)
 int probe_select_pm_add1_launch(const float* x, float* y, int C,
-                                long long T, int one, void* stream) {
-  if (C < 1 || T < GROUP || T % GROUP || !aligned16(x) || !aligned16(y))
+                                long long T, int one, void* next,
+                                void* stream) {
+  if (C < 1 || T < GROUP || T % GROUP || !aligned16(x) || !aligned16(y) ||
+      next == nullptr)
     return (int)cudaErrorInvalidValue;
-  const int smem = U_WORDS * 4;
+  const int smem = (int)select_smem();
   auto kernel = one ? select_pm_kernel<true> : select_pm_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, SNT,
-                                                      smem);
+  err = cudaMemsetAsync(next, 0, sizeof(unsigned long long),
+                        (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  const long long ntiles = ((long long)C * (T / GROUP) + 63) / 64;
-  const long long grid =
-      std::min(ntiles, (long long)std::max(per_sm, 1) * sm_count());
-  kernel<<<(unsigned)grid, SNT, smem, (cudaStream_t)stream>>>(x, y, C, T);
+  const long long grid = probe_select_pm_grid(C, T, sm_count());
+  kernel<<<(unsigned)grid, SEL_NT, smem, (cudaStream_t)stream>>>(
+      x, y, C, T, static_cast<unsigned long long*>(next));
   return (int)cudaGetLastError();
 }
 

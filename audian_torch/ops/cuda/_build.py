@@ -67,8 +67,12 @@ _SIGNATURES = {
     "probe_pm_forward_launch": ([_P, _LL, _I, _I, _I, _P, _P], _I),
     "probe_pm_inverse_launch": ([_P, _LL, _I, _I, _I, _P, _P], _I),
     "probe_pm_roundtrip_smem_bytes": ([_I, _I], _LL),
-    "probe_pm_roundtrip_add1_launch": ([_P, _P, _I, _LL, _I, _I, _P], _I),
-    "probe_select_pm_add1_launch": ([_P, _P, _I, _LL, _I, _P], _I),
+    "probe_pm_roundtrip_grid": ([_I, _LL, _I, _I, _I], _LL),
+    "probe_pm_roundtrip_add1_launch": ([_P, _P, _I, _LL, _I, _I, _P, _P],
+                                       _I),
+    "probe_select_pm_smem_bytes": ([], _LL),
+    "probe_select_pm_grid": ([_I, _LL, _I], _LL),
+    "probe_select_pm_add1_launch": ([_P, _P, _I, _LL, _I, _P, _P], _I),
 }
 
 _lock = threading.Lock()

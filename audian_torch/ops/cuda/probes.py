@@ -38,8 +38,9 @@ __all__ = ["GROUP", "MAX_STRIDE", "PHASES", "copy_add1", "copy_add1_plain",
            "copy_pm_add1", "copy_pm_add1_plain", "outputs_floor",
            "outputs_floor_plain", "pm_forward", "pm_forward_plain",
            "pm_inverse", "pm_inverse_plain", "pm_roundtrip_add1",
-           "pm_roundtrip_add1_plain", "roundtrip_smem_bytes",
-           "select_pm_add1", "select_pm_add1_plain", "selection_mats"]
+           "pm_roundtrip_add1_plain", "roundtrip_grid", "roundtrip_row",
+           "roundtrip_smem_bytes", "select_grid", "select_pm_add1",
+           "select_pm_add1_plain", "select_smem_bytes", "selection_mats"]
 
 #: the phase counts the round trip takes (the IFIR strides 4 and 8);
 #: pm_forward and pm_inverse take any stride up to :data:`MAX_STRIDE`
@@ -49,6 +50,18 @@ MAX_STRIDE = 4096
 #: samples of a selection group: 128 lanes of each of its 8 phases
 GROUP = 1024
 _PHASES = 8
+#: shared memory of an SM (228 KB; 1 KB a block of it reserved)
+SM_SMEM = 233472
+#: the round trip's ring (``RT_*`` in csrc/probes.cu): samples of a stage,
+#: stages, blocks an SM the grid aims at
+RT_CHUNK = 2048
+RT_RING = 2
+RT_PER_SM = 2
+#: the selection products' ring (``SEL_*``): stages of 64 rows, each row's
+#: 128 samples at a pitch of 144 words; U's 16 steps of 8 x 128 words
+SELECT_RING = 4
+SELECT_PITCH = 144
+_U_WORDS = 16 * 8 * 128
 
 
 def _device_of(x, name):
@@ -304,11 +317,31 @@ def pm_inverse(e, M):
 pm_inverse.launches = 0
 
 
+def roundtrip_row(block, M):
+    """Words of one of the round trip's phase rows (``rt_row``): ``block /
+    M`` rounded up to 4 mod 8, so that rows four apart lie 16 banks
+    apart."""
+    q = int(block) // int(M)
+    return q + ((4 - q) & 7)
+
+
 def roundtrip_smem_bytes(block, M):
     """Shared memory of one :func:`pm_roundtrip_add1` block
-    (``probe_pm_roundtrip_smem_bytes``): the natural row, a word padded in
-    after every 32, and the M phase rows, each ``32 / M`` words longer."""
-    return 4 * (block + block // 32 + M * (block // M + 32 // M))
+    (``probe_pm_roundtrip_smem_bytes``): the ring's stages of up to
+    :data:`RT_CHUNK` samples, the M phase rows, and two mbarriers and an
+    item index a stage."""
+    stage = min(int(block), RT_CHUNK)
+    return (4 * RT_RING * stage + 4 * int(M) * roundtrip_row(block, M)
+            + 24 * RT_RING)
+
+
+def roundtrip_grid(C, T, block, M, sms):
+    """Blocks of the round trip's persistent grid on ``sms`` SMs
+    (``probe_pm_roundtrip_grid``): :data:`RT_PER_SM` an SM where their
+    shared memory fits, no more than the ``C T / block`` items."""
+    per_sm = max(1, min(RT_PER_SM,
+                        SM_SMEM // (roundtrip_smem_bytes(block, M) + 1024)))
+    return min(int(C) * (int(T) // int(block)), per_sm * int(sms))
 
 
 def _check_roundtrip(x, block, M):
@@ -317,8 +350,8 @@ def _check_roundtrip(x, block, M):
     _check_block(x.shape[1], block, "pm_roundtrip_add1")
     if int(block) % 32 or roundtrip_smem_bytes(int(block), M) > SMEM_LIMIT:
         raise ValueError(f"pm_roundtrip_add1 takes blocks of whole 32-sample "
-                         f"groups whose two rows fit one block's shared "
-                         f"memory, got {block}")
+                         f"groups whose phase rows fit one block's shared "
+                         f"memory beside its ring, got {block}")
     return M
 
 
@@ -336,20 +369,23 @@ def pm_roundtrip_add1_plain(x, block=8192, M=8):
 def pm_roundtrip_add1(x, block=8192, M=8):
     """``y = x + 1`` by way of the relayout: each (C, ``block``) block of
     ``x`` (C, T) float32 to phase-major, + 1, and back, one row of a block
-    in shared memory at a time."""
+    in shared memory at a time (a persistent grid, :func:`roundtrip_grid`,
+    each block's rows bulk-copied into a ring of stages while the last
+    one is relaid)."""
     if _device_of(x, "pm_roundtrip_add1") == "cpu":
         return pm_roundtrip_add1_plain(x, block, M)
     M = _check_roundtrip(x, block, M)
     _contiguous_on_card(x, "pm_roundtrip_add1")
     C, T = x.shape
-    if C > 65535:
-        raise ValueError(f"pm_roundtrip_add1 takes at most 65535 channels, "
-                         f"got {C}")
     y = torch.empty_like(x)
     if C and T:
         with _on_device(x.device):
+            # the kernel's item counter, zeroed by the launcher; freed on
+            # return, its memory goes only to later work on this stream
+            nxt = torch.empty(1, dtype=torch.int64, device=x.device)
             code = load_library().probe_pm_roundtrip_add1_launch(
-                x.data_ptr(), y.data_ptr(), C, T, int(block), M, _stream(x))
+                x.data_ptr(), y.data_ptr(), C, T, int(block), M,
+                nxt.data_ptr(), _stream(x))
         check(code, "pm_roundtrip_add1")
         count_launch(pm_roundtrip_add1)
     return y
@@ -369,6 +405,21 @@ def selection_mats():
     L = GROUP // _PHASES
     b, m, i, k = np.ix_(*(np.arange(n) for n in (_PHASES, _PHASES, L, L)))
     return (L * b + i == m + _PHASES * k).astype(np.float32)
+
+
+def select_smem_bytes():
+    """Shared memory of one :func:`select_pm_add1` block
+    (``probe_select_pm_smem_bytes``): U, the ring's stages of 64 rows at
+    :data:`SELECT_PITCH`, and two mbarriers and an item index a stage."""
+    return 4 * (_U_WORDS + SELECT_RING * 64 * SELECT_PITCH) + 24 * SELECT_RING
+
+
+def select_grid(C, T, sms):
+    """Blocks of the selection's persistent grid on ``sms`` SMs
+    (``probe_select_pm_grid``): one an SM, no more than the items (the 8
+    source blocks of each tile of 64 rows of 1024 samples)."""
+    items = -(-int(C) * (int(T) // GROUP) // 64) * 8
+    return min(items, int(sms))
 
 
 def _check_select(x):
@@ -396,7 +447,11 @@ def select_pm_add1(x, *, precision=HIGHEST):
     ``precision``: HIGHEST or HIGH, two TF32 passes (x's hi and lo parts;
     the 0/1 operand is exact), within 2^-22 |x|; DEFAULT one, x rounded to
     TF32, within 2^-11 |x| (:mod:`.precision`).  A NaN or an infinity makes
-    the 128 outputs its row and 128-sample source block feed NaN."""
+    the 128 outputs its row and 128-sample source block feed NaN (at
+    DEFAULT, where x has no lo part, an infinity's own output, inf x 1 +
+    1, stays infinite).  On the
+    card a persistent grid (:func:`select_grid`) bulk-copies each tile's
+    source blocks into a ring of stages while two warpgroups multiply."""
     one = check_precision(precision, MATMUL_RUNGS) == DEFAULT
     if _device_of(x, "select_pm_add1") == "cpu":
         return select_pm_add1_plain(x, precision=precision)
@@ -406,8 +461,11 @@ def select_pm_add1(x, *, precision=HIGHEST):
     C, T = x.shape
     if C and T:
         with _on_device(x.device):
+            # the item counter, as the round trip's
+            nxt = torch.empty(1, dtype=torch.int64, device=x.device)
             code = load_library().probe_select_pm_add1_launch(
-                x.data_ptr(), y.data_ptr(), C, T, int(one), _stream(x))
+                x.data_ptr(), y.data_ptr(), C, T, int(one), nxt.data_ptr(),
+                _stream(x))
         check(code, "select_pm_add1")
         count_launch(select_pm_add1)
     return y

@@ -15,7 +15,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    rungs), which must neither spill nor serialize, and from ``cuobjdump
    -sass`` of the built library each kernel's ``HGMMA`` and ``HMMA`` count
    (every instance must show ``HGMMA`` and none ``HMMA``); the probes' six
-   copy and relayout kernels (``csrc/probes.cu``) must not spill either;
+   copy and relayout kernels (``csrc/probes.cu``) must not spill either,
+   and the two on bulk-copy rings (``pm_roundtrip_kernel``,
+   ``select_pm_kernel``) must show bulk copies (``UBLKCP``) in their SASS;
 1b. the bare convolution core (``csrc/wgmma_conv.cuh`` through
    ``csrc/conv_probe.cu``: one warpgroup at N = 64 and 8) on four short
    known convolutions (the headline filter, the headline envelope's delay
@@ -233,9 +235,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     ``copy_pm_add1`` at N = 8192, 32768, ``outputs_floor`` at N = 8192 and
     129, 128, 256 bins, ``pm_forward`` / ``pm_inverse`` at the IFIR
     shapes (strided slices of wider streams) at M = 8, 4, 16 and their
-    round trip, ``pm_roundtrip_add1`` at M = 8, 4; ``select_pm_add1`` on a
-    unit-normal input from seed 0 within 2^-20 max|x| at HIGHEST and
-    2^-10 at DEFAULT.  The plain versions and the torch calls timed; then
+    round trip, ``pm_roundtrip_add1`` at M = 8, 4 and at its ring's edges
+    (C = 3 with blocks of 6176 samples, 519 items; C = 5 with blocks of 96);
+    ``select_pm_add1`` on a unit-normal input from seed 0 within 2^-20
+    max|x| at HIGHEST and 2^-10 at DEFAULT, and at C = 3 over 9003 rows
+    (the last tile 43 rows) with a NaN and an infinity planted, each of
+    which must turn exactly its row's 128 outputs of its source block
+    non-finite (the NaN's NaN; the infinity's NaN, at DEFAULT but its own
+    output, which stays infinite);
+    the two ring kernels' shared-memory and grid formulas against the
+    library's own, and each ring kernel in turns with its torch call, lone
+    and 10 calls back to back.  The plain versions and the torch calls
+    timed; then
     the three sweeps (``python -m audian_torch.probes.dma_floor``,
     ``call_scaling``, ``phase_restructure``) with the probes' launch
     counters zeroed just before and read just after, each kernel launched;
@@ -283,7 +294,9 @@ sweeps' times (the IFIR envelope's two relayouts for ``phase_major``,
 phase 16), their launches on the sweeps (on the IFIR envelope for
 ``phase_major``, with the round trip's in ``roundtrip``, its library call
 torch's ``x + 1``), the bytes bound (``select_pm_add1``: the larger of it
-and its two TF32 passes at 495 TFLOP/s) and ``bound_share``;
+and its two TF32 passes at 495 TFLOP/s) and ``bound_share``; the round
+trip and the selection (and its DEFAULT rung) carry ``turns``: their
+times in turns with their torch call, lone and back to back;
 ``outputs_floor`` the ``floor_ratio`` and ``bound_ms_int16_in``, the bytes
 bound of the output set with the chain's int16 input.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -383,6 +396,9 @@ WGMMA_KERNELS = ("chain_kernel", "envdet_kernel", "window_matmul_kernel",
 PROBE_KERNELS = ("copy_add1_kernel", "copy_pm_add1_kernel",
                  "outputs_floor_kernel", "pm_forward_kernel",
                  "pm_inverse_kernel", "pm_roundtrip_kernel")
+#: the probes' kernels fed by bulk copies into a ring of stages, which
+#: must show them in their SASS
+RING_KERNELS = ("pm_roundtrip_kernel", "select_pm_kernel")
 
 
 def wgmma_health(report, kernels=WGMMA_KERNELS):
@@ -432,9 +448,10 @@ def template_args(mangled):
 
 
 def sass_mma_counts(library):
-    """``{kernel: (HGMMA, HMMA)}``: the warpgroup and the warp-level MMA
-    instructions in each kernel's SASS (``cuobjdump -sass`` of the built
-    library)."""
+    """``{kernel: (HGMMA, HMMA, bulk copies)}``: the warpgroup and the
+    warp-level MMA instructions and the bulk copies (``UBLKCP``, or a
+    tensor map's ``UTMALDG`` / ``UTMASTG``) in each kernel's SASS
+    (``cuobjdump -sass`` of the built library)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
@@ -450,11 +467,13 @@ def sass_mma_counts(library):
                                      *WGMMA_KERNELS[3:], *PROBE_KERNELS)
                           if k in mangled), mangled[:40])
             name += template_args(mangled)
-            counts.setdefault(name, [0, 0])
+            counts.setdefault(name, [0, 0, 0])
         elif name and "HGMMA" in line:
             counts[name][0] += 1
         elif name and re.search(r"\bHMMA", line):
             counts[name][1] += 1
+        elif name and re.search(r"\b(UBLKCP|UTMALDG|UTMASTG)", line):
+            counts[name][2] += 1
     return {k: tuple(v) for k, v in counts.items()}
 
 
@@ -3465,6 +3484,14 @@ PROBE_NBINS = 129        # the headline PSD's bins
 # HIGHEST keeps x_hi + x_lo (within 2^-22 |x|), DEFAULT x rounded to TF32
 # (2^-11 |x|)
 TOL_SELECT = {"highest": 2.0 ** -20, "default": 2.0 ** -10}
+# the round trip's ring edges, (C, N, blocks): a stage short of two whole
+# chunks over 519 items; items a fraction of a stage
+RING_EDGES = ((3, 6176, 173), (5, 96, 1001))
+# samples a channel of the selection's edge (C = 3): 9003 rows, the last
+# tile 43 rows, 1128 items
+SELECT_EDGE = 1024 * 3001
+# runs of each time of the ring kernels' turns with their library calls
+RING_REPS = 20
 
 
 def bits_equal(a, b):
@@ -3558,13 +3585,45 @@ def probes_phase(card, dev, chain_ms, relayout):
         hold("phase_major", f"pm_inverse(pm_forward(u)) == u, M={M}",
              P.pm_inverse(u_pm, M), u.contiguous(), bits_equal)
         del wide, u, u_pm, e_wide, e_pm
+    lib = _build.load_library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for M in (8, 4):
-        require(_build.load_library().probe_pm_roundtrip_smem_bytes(
-            PROBE_N, M) == P.roundtrip_smem_bytes(PROBE_N, M),
-            "the round trip's shared-memory formula agrees")
         hold("phase_major", f"pm_roundtrip_add1 N={PROBE_N} M={M}",
              P.pm_roundtrip_add1(x, PROBE_N, M),
              P.pm_roundtrip_add1_plain(x, PROBE_N, M))
+    # the round trip's ring at its edges (NaN and infinities planted): C = 3
+    # with blocks of 6176 samples (a stage short of two whole chunks), 519
+    # items; C = 5 with blocks of 96, each item a fraction of a stage
+    for c_, n_, nprog in RING_EDGES:
+        xe = x[:c_, : n_ * nprog].contiguous()
+        xe[c_ - 1, n_ * nprog - 1] = float("inf")
+        for M in (8, 4):
+            grid = P.roundtrip_grid(c_, n_ * nprog, n_, M, sms)
+            hold("phase_major", f"pm_roundtrip_add1 C={c_} N={n_} M={M}, "
+                 f"{c_ * nprog} items on a grid of {grid}",
+                 P.pm_roundtrip_add1(xe, n_, M),
+                 P.pm_roundtrip_add1_plain(xe, n_, M))
+    # the plan formulas against the library's own
+    for c_, t_, n_ in ((C, CHUNK, PROBE_N), *((c_, n_ * k, n_)
+                                              for c_, n_, k in RING_EDGES),
+                       (1, 4 * 41696, 41696)):
+        for M in (8, 4):
+            require(lib.probe_pm_roundtrip_smem_bytes(n_, M)
+                    == P.roundtrip_smem_bytes(n_, M)
+                    and lib.probe_pm_roundtrip_grid(c_, t_, n_, M, sms)
+                    == P.roundtrip_grid(c_, t_, n_, M, sms),
+                    f"the round trip's shared memory and grid at C={c_} "
+                    f"N={n_} M={M} agree with the library's")
+    require(lib.probe_select_pm_smem_bytes() == P.select_smem_bytes(),
+            "the selection's shared-memory formula agrees")
+    for c_, t_ in ((C, CHUNK), (3, SELECT_EDGE), (1, P.GROUP)):
+        require(lib.probe_select_pm_grid(c_, t_, sms)
+                == P.select_grid(c_, t_, sms),
+                f"the selection's grid at C={c_} T={t_} agrees")
+    print(f"  plans: round trip {P.roundtrip_smem_bytes(PROBE_N, 8)} bytes "
+          f"a block, grid {P.roundtrip_grid(C, CHUNK, PROBE_N, 8, sms)}; "
+          f"selection {P.select_smem_bytes()} bytes, grid "
+          f"{P.select_grid(C, CHUNK, sms)} ({sms} SMs)")
     # the selection products: within TOL_SELECT of max|x| on a unit-normal
     # input from seed 0 (a NaN or an infinity would spread over its row's
     # 128 outputs of that source block, so none is planted here)
@@ -3583,7 +3642,46 @@ def probes_phase(card, dev, chain_ms, relayout):
         print(f"  select_pm_add1 {prec}: max_abs_err {err:.3e} (budget "
               f"{tol * scale:.3e}, {tol:.3e} of max|x| {scale:.4f})")
     errs["select_pm_add1"] = select["highest"]["max_abs_err"]
-    del x3, xpm, got, want
+    # the ring's edges: C = 3, R = 9003 rows (the last tile 43 rows), 1128
+    # items; one NaN and one infinity, each turning exactly its row's 128
+    # outputs of its source block non-finite (the NaN's all NaN; the
+    # infinity's NaN but, at DEFAULT, where x has no lo part, its own
+    # output, inf x 1 + 1), the rest within TOL_SELECT
+    xe = xs[:3, :SELECT_EDGE].contiguous()
+    plain_e = P.select_pm_add1_plain(xe)
+    spread = {}
+    for c_, g_, b_, i_, v in ((1, 5, 3, 77, "nan"),
+                              (2, SELECT_EDGE // P.GROUP - 1, 7, 0, "inf")):
+        xe[c_, P.GROUP * g_ + 128 * b_ + i_] = float(v)
+        mask = torch.zeros(xe.shape, dtype=torch.bool, device=dev)
+        for m in range(8):
+            o = P.GROUP * g_ + 128 * m + 16 * b_
+            mask[c_, o:o + 16] = True
+        own = (c_, P.GROUP * g_ + 128 * (i_ % 8) + 16 * b_ + i_ // 8)
+        spread[v] = (mask, own)
+    both = spread["nan"][0] | spread["inf"][0]
+    scale_e = float(xe[torch.isfinite(xe)].abs().max())
+    for prec, tol in TOL_SELECT.items():
+        got = P.select_pm_add1(xe, precision=prec)
+        torch.cuda.synchronize()
+        err = max_abs(torch.where(both, 0.0, got),
+                      torch.where(both, 0.0, plain_e))
+        nan_ok = bool(got[spread["nan"][0]].isnan().all())
+        inf_own = float(got[spread["inf"][1]])
+        inf_ok = int(got[spread["inf"][0]].isnan().sum()) == (
+            127 if prec == "default" else 128) and (
+            prec != "default" or inf_own == float("inf"))
+        require(torch.equal(~torch.isfinite(got), both) and nan_ok
+                and inf_ok and err <= tol * scale_e,
+                f"select_pm_add1 at {prec}, C=3 T={SELECT_EDGE}: non-finite "
+                f"exactly over the planted rows' source blocks, elsewhere "
+                f"{err}")
+        print(f"  select_pm_add1 {prec} C=3 x {SELECT_EDGE} "
+              f"({P.select_grid(3, SELECT_EDGE, sms)} blocks): a NaN made "
+              f"exactly its row's 128 outputs of its source block NaN, an "
+              f"infinity its 128 non-finite (its own {inf_own}); elsewhere "
+              f"max_abs_err {err:.3e}")
+    del x3, xpm, got, want, xe, plain_e, spread, both
 
     # the plain versions' and the library calls' times at the headline
     # shapes (the kernels' own come from the sweeps below)
@@ -3605,6 +3703,31 @@ def probes_phase(card, dev, chain_ms, relayout):
         "select_pm_add1": median_ms(
             lambda: torch.add(view, 1.0, out=sel_out)),
     }
+    # the two ring kernels beside their library calls, in turns (call,
+    # kernel, kernel, call), each the median of RING_REPS runs of a lone
+    # call and of 10 calls back to back (the card's time: the host's
+    # enqueue of a call overlaps the work of the one before)
+    ring = {}
+    nbound = bound(0, 8 * xs.numel())[0]
+    for name, kernel, call in (
+            ("pm_roundtrip_add1",
+             lambda: P.pm_roundtrip_add1(xs, PROBE_N, 8), lambda: xs + 1.0),
+            ("select_pm_add1 HIGHEST", lambda: P.select_pm_add1(xs),
+             lambda: torch.add(view, 1.0, out=sel_out)),
+            ("select_pm_add1 DEFAULT",
+             lambda: P.select_pm_add1(xs, precision="default"),
+             lambda: torch.add(view, 1.0, out=sel_out))):
+        t = {k: [median_ms(f, reps=RING_REPS, calls=n)
+                 for f in (call, kernel, kernel, call)]
+             for k, n in (("lone", 1), ("back_to_back", 10))}
+        ring[name] = {k: {"ms": min(v[1:3]), "library_ms": min(v[0], v[3]),
+                          "turns": v} for k, v in t.items()}
+        for k, v in ring[name].items():
+            print(f"  {name} {k.replace('_', ' ')}, in turns with its torch "
+                  f"call: {' '.join(f'{u:.4f}' for u in v['turns'])} ms; "
+                  f"the kernel {v['ms']:.4f} ms ({100 * nbound / v['ms']:.1f}"
+                  f" % of the bytes bound {nbound:.4f}), the call "
+                  f"{v['library_ms']:.4f} ms  [{card}]")
     print("  plain versions (ms): " + "  ".join(
         f"{k} {v:.4f}" for k, v in plain.items()) + "; torch calls: "
         f"x + 1 {library['x + 1']:.4f}, program-major "
@@ -3688,13 +3811,16 @@ def probes_phase(card, dev, chain_ms, relayout):
                          "max_abs_err": errs["phase_major"],
                          "plain_ms": plain["pm_roundtrip_add1"],
                          "library_ms": library["x + 1"],
-                         "launches": launches["pm_roundtrip_add1"]}),
+                         "launches": launches["pm_roundtrip_add1"],
+                         "turns": ring["pm_roundtrip_add1"]}),
         entry("select_pm_add1", "benchmarks/phase_restructure_bench.py:74",
               sel_rows["HIGHEST"]["ms"], sel_rows["HIGHEST"]["bytes"],
               plain["select_pm_add1"], library["select_pm_add1"],
               flop=2 * flop_sel, peak=PEAK_TF32,
+              turns=ring["select_pm_add1 HIGHEST"],
               precision={"DEFAULT": dict(select["default"],
                                          ms=sel_rows["DEFAULT"]["ms"],
+                                         turns=ring["select_pm_add1 DEFAULT"],
                                          bound_ms=bound(
                                              flop_sel,
                                              sel_rows["DEFAULT"]["bytes"],
@@ -3794,7 +3920,7 @@ def main():
         require(inst and all(v[0] > 0 for v in inst),
                 f"every instance of {name} runs HGMMA")
         require(hm == 0, f"{name} runs no warp-level HMMA")
-    for name, (hg, hm) in sorted(sass.items()):
+    for name, (hg, hm, _) in sorted(sass.items()):
         if not any(name == k or name.startswith(k + "<")
                    for k in WGMMA_KERNELS):
             print(f"  {name}: SASS HGMMA {hg}  HMMA {hm}")
@@ -3804,6 +3930,15 @@ def main():
               f"spill bytes")
         require(h["registers"] is not None, f"ptxas reported {name}")
         require(h["spill_bytes"] == 0, f"{name} spills no register")
+    # the round trip and the selection products on their bulk-copy rings:
+    # every instance copies in bulk
+    for name in RING_KERNELS:
+        inst = [v for k, v in sass.items()
+                if k == name or k.startswith(name + "<")]
+        print(f"  {name}: SASS bulk copies "
+              f"{[v[2] for v in inst]} over {len(inst)} instance(s)")
+        require(inst and all(v[2] > 0 for v in inst),
+                f"every instance of {name} issues bulk copies")
 
     # -- phase 1b: the convolution core --------------------------------------
     print("phase 1b: the wgmma convolution core on known convolutions")
