@@ -2,12 +2,13 @@
 // output floors of the chain and the phase-major relayout of the IFIR
 // envelope, each a hand-written counterpart of a Pallas probe.
 //
-//   copy_add1       y = x + 1 over (C, T) in (C, N) column blocks
-//                   (benchmarks/call_scaling_bench.py:copy_kernel,
+//   copy_add1       y = x + 1 over (C, T), the reference's (C, N) column
+//                   blocks (benchmarks/call_scaling_bench.py:copy_kernel,
 //                   benchmarks/dma_floor_bench.py:copy_kernel,
 //                   benchmarks/phase_restructure_bench.py:k_base)
 //   copy_pm_add1    the same over program-major (nprog, C, N) blocks
-//                   (benchmarks/dma_floor_bench.py:copy_pm_kernel)
+//                   (benchmarks/dma_floor_bench.py:copy_pm_kernel); both
+//                   run copy_flat_kernel over the tensor's words
 //   outputs_floor   the chain's six output blocks with no compute
 //                   (benchmarks/dma_floor_bench.py:outputs_kernel)
 //   pm_forward      u (C, M Q) -> u_pm (C M, Q), u_pm[c M + m, q] =
@@ -32,13 +33,22 @@
 // output a TF32 pass (2^26 outputs at the reference's size: 1.7e10 FLOP a
 // pass, 0.035 ms at 495 TFLOP/s against 0.16 ms of bytes).
 //
-// Design.  The copies read and write 16-byte vectors, neighbouring threads
-// on neighbouring addresses: a thread takes one column of a block's rows,
-// four rows' vectors in flight.  The grid is the reference's, one block a
+// Design.  Both copies compute y = x + 1 over a contiguous tensor: their
+// (C, N) and program-major blocks only choose the addresses the TPU's DMA
+// walks, and a BlockSpec has no counterpart on this card.  So one kernel
+// runs both over the tensor's words as one flat range, on a one-shot grid
+// of tiles, as torch launches x + 1 (on the H100 a one-shot 16-byte copy
+// ran 2-8 % faster than a persistent grid walking the same tiles,
+// tools/probe_ring_trials.py): a thread issues all its COPY_U 16-byte loads
+// before its stores, neighbouring threads on neighbouring addresses, with
+// 64-bit indices.  The last n % 4 words take scalar loads and stores, and
+// a tensor not 16-byte aligned (a view at an odd offset) the same tiles
+// word by word.  The output floor keeps the reference's grid, one block a
 // (C, N) block, each cut into `shares` blocks interleaved along its rows
 // where the reference's grid has fewer blocks than eight an SM (the host
 // picks it: 512 blocks of 256 threads at N = 8192 would keep half the
-// threads an SM can hold, 64 at N = 65536 would leave half the SMs idle).
+// threads an SM can hold, 64 at N = 65536 would leave half the SMs idle);
+// a thread takes one column of a block's rows, two rows' vectors at a time.
 // The relayouts pm_forward and pm_inverse go through shared memory, where
 // a word is padded in after every 32 (the natural order) or 32 / M after
 // every phase row (the phase-major order), so that both the stride-M reads
@@ -107,7 +117,11 @@
 
 namespace {
 
-constexpr int NT = 256;        // threads of a copy or relayout block
+constexpr int NT = 256;        // threads of an output-floor or relayout block
+// the copies: threads of a block, 16-byte vectors a thread, words a block
+constexpr int COPY_NT = 256;
+constexpr int COPY_U = 4;
+constexpr long long COPY_TILE = 4LL * COPY_NT * COPY_U;
 constexpr int TS = 4096;       // samples of a relayout tile
 constexpr long long SMEM_LIMIT = 232448;   // shared memory of a block
 constexpr long long SM_SMEM = 233472;      // of an SM, 1 KB a block of it
@@ -138,38 +152,6 @@ __device__ __forceinline__ float4 add4(float4 v, float a) {
   return make_float4(v.x + a, v.y + a, v.z + a, v.w + a);
 }
 
-// y = x + a over a rows x cols block (row stride ld for both), this block's
-// share of the columns: 16-byte vectors where vec (cols and ld multiples
-// of 4, both aligned), else single words; a thread's column of four rows
-// at a time, four loads in flight.  Not inlined: inlined into
-// copy_pm_add1_kernel, ptxas gave it 32 registers and spilled one
-__device__ __noinline__ void add_block(const float* __restrict__ x,
-                                          float* __restrict__ y, long long ld,
-                                          int rows, int cols, float a,
-                                          int share, int shares, bool vec) {
-  const int per = shares * NT, first = share * NT + threadIdx.x;
-  if (!vec) {
-    for (int r = 0; r < rows; ++r)
-      for (int k = first; k < cols; k += per)
-        y[r * ld + k] = x[r * ld + k] + a;
-    return;
-  }
-  const long long ld4 = ld / 4;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* y4 = reinterpret_cast<float4*>(y);
-  for (int k = first; k < cols / 4; k += per) {
-    int r = 0;
-    for (; r + 4 <= rows; r += 4) {
-      float4 v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = x4[(r + j) * ld4 + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) y4[(r + j) * ld4 + k] = add4(v[j], a);
-    }
-    for (; r < rows; ++r) y4[r * ld4 + k] = add4(x4[r * ld4 + k], a);
-  }
-}
-
 // n words at p (16-byte aligned where vec) set to v, this block's share
 __device__ __forceinline__ void fill(float* __restrict__ p, long long n,
                                      float v, int share, int shares,
@@ -190,24 +172,54 @@ __host__ __device__ __forceinline__ bool aligned16(const void* p) {
 
 // -- the copies ---------------------------------------------------------------
 
-// (C, T) rows: block (i, s) takes share s of columns [i N, i N + N)
-__global__ void __launch_bounds__(NT) copy_add1_kernel(
-    const float* __restrict__ x, float* __restrict__ y, int C, long long T,
-    int N, bool vec) {
-  const long long c0 = (long long)blockIdx.x * N;
-  const int cols = (int)min((long long)N, T - c0);
-  add_block(x + c0, y + c0, T, C, cols, 1.0f, blockIdx.y, gridDim.y,
-            vec && cols % 4 == 0);
+// y = x + 1 over n contiguous words, one-shot: block b takes tile b of
+// COPY_TILE words.  vec (x and y 16-byte aligned): the tile is COPY_U x
+// COPY_NT 16-byte vectors, thread t's vectors t, t + COPY_NT, ..., all its
+// loads issued before any store; the last n % 4 words (in the last block's
+// tile) one a thread.  Else the same tile as single words, 4 COPY_U a
+// thread, loads first again.  Every word is read and written once, so the
+// vectors go with the streaming hints (evict first; 1 % faster than plain
+// loads and stores on the H100, tools/probe_copy_trials.py)
+__device__ __forceinline__ float4 copy_load(const float4* p) {
+  return __ldcs(p);
 }
 
-// (nprog, C, N) program-major: block (i, s) takes share s of program i's
-// contiguous (C, N) block
-__global__ void __launch_bounds__(NT) copy_pm_add1_kernel(
-    const float* __restrict__ x, float* __restrict__ y, int C, int N,
+__device__ __forceinline__ void copy_store(float4* p, float4 v) {
+  __stcs(p, v);
+}
+
+__global__ void __launch_bounds__(COPY_NT) copy_flat_kernel(
+    const float* __restrict__ x, float* __restrict__ y, long long n,
     bool vec) {
-  // program i's block is (C, N) at row stride N
-  const long long o = (long long)blockIdx.x * C * N;
-  add_block(x + o, y + o, N, C, N, 1.0f, blockIdx.y, gridDim.y, vec);
+  const long long w0 = (long long)blockIdx.x * COPY_TILE;
+  const int t = threadIdx.x;
+  if (!vec) {
+    float v[4 * COPY_U];
+#pragma unroll
+    for (int u = 0; u < 4 * COPY_U; ++u) {
+      const long long w = w0 + u * COPY_NT + t;
+      if (w < n) v[u] = x[w];
+    }
+#pragma unroll
+    for (int u = 0; u < 4 * COPY_U; ++u) {
+      const long long w = w0 + u * COPY_NT + t;
+      if (w < n) y[w] = v[u] + 1.0f;
+    }
+    return;
+  }
+  const long long n4 = n >> 2, i0 = w0 / 4 + t;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* y4 = reinterpret_cast<float4*>(y);
+  float4 v[COPY_U];
+#pragma unroll
+  for (int u = 0; u < COPY_U; ++u)
+    if (i0 + u * COPY_NT < n4) v[u] = copy_load(x4 + i0 + u * COPY_NT);
+#pragma unroll
+  for (int u = 0; u < COPY_U; ++u)
+    if (i0 + u * COPY_NT < n4)
+      copy_store(y4 + i0 + u * COPY_NT, add4(v[u], 1.0f));
+  if (blockIdx.x == gridDim.x - 1 && t < (int)(n & 3))
+    y[4 * n4 + t] = x[4 * n4 + t] + 1.0f;
 }
 
 // the chain's output set of program i with no compute: y = x + 1 and
@@ -661,6 +673,20 @@ int sm_count() {
   return n;
 }
 
+// blocks of the copies' one-shot grid over n words: a tile each
+long long copy_grid(long long n) {
+  return n < 1 ? 0 : (n + COPY_TILE - 1) / COPY_TILE;
+}
+
+// y = x + 1 over n contiguous words (x and y may lie anywhere)
+int copy_launch(const float* x, float* y, long long n, void* stream) {
+  const long long grid = copy_grid(n);
+  if (grid < 1 || grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  copy_flat_kernel<<<(unsigned)grid, COPY_NT, 0, (cudaStream_t)stream>>>(
+      x, y, n, aligned16(x) && aligned16(y));
+  return (int)cudaGetLastError();
+}
+
 // blocks a (C, N) block is cut into: enough that the grid holds eight
 // blocks an SM (2048 threads, the most an SM keeps), no fewer than NT
 // columns of `vectors` a block
@@ -674,27 +700,22 @@ int shares_for(long long nblocks, long long vectors) {
 
 extern "C" {
 
-// x and y (C, T) float32, contiguous; N > 0
+// blocks of the copies' one-shot grid over n words
+long long probe_copy_grid(long long n) { return copy_grid(n); }
+
+// x and y (C, T) float32, contiguous; N > 0 (the reference's column block:
+// the grid does not follow it)
 int probe_copy_add1_launch(const float* x, float* y, int C, long long T,
                            int N, void* stream) {
   if (C < 1 || T < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  const long long nb = (T + N - 1) / N;
-  const bool vec = T % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(y);
-  const dim3 grid((unsigned)nb, shares_for(nb, N / 4));
-  copy_add1_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(x, y, C, T, N,
-                                                          vec);
-  return (int)cudaGetLastError();
+  return copy_launch(x, y, (long long)C * T, stream);
 }
 
 // x and y (nprog, C, N) float32, contiguous
 int probe_copy_pm_add1_launch(const float* x, float* y, int nprog, int C,
                               int N, void* stream) {
   if (nprog < 1 || C < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  const bool vec = N % 4 == 0 && aligned16(x) && aligned16(y);
-  const dim3 grid((unsigned)nprog, shares_for(nprog, N / 4));
-  copy_pm_add1_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(x, y, C, N,
-                                                             vec);
-  return (int)cudaGetLastError();
+  return copy_launch(x, y, (long long)nprog * C * N, stream);
 }
 
 // x (C, T) with T = nprog N; y, e (C, T); so (nprog, N / 128, C, nbins);

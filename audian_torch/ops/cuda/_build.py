@@ -8,6 +8,12 @@ the package.  The hash covers the sources, the shared headers
 (``csrc/*.cuh``) and the flags, so an edit to any of them rebuilds and an
 unchanged tree reuses the library.  The library is loaded with
 ctypes; nothing here runs at import time.
+
+Every wrapper launches through :func:`launch`: the loaded library is
+handed out without a lock (:func:`load_library`), the stream is the raw
+handle of the device's current stream (:func:`stream`, no
+``torch.cuda.Stream`` object), the current device is switched only where
+the tensor lies on another, and the launch is counted on the wrapper.
 """
 
 from __future__ import annotations
@@ -20,8 +26,10 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SMEM_LIMIT", "build_dir", "check", "count_launch",
-           "library_path", "load_library", "ptxas_report"]
+import torch
+
+__all__ = ["SMEM_LIMIT", "build_dir", "check", "count_launch", "launch",
+           "library_path", "load_library", "ptxas_report", "stream"]
 
 #: shared memory one block may use on Hopper (232,448 bytes); above 48 KB
 #: the launchers opt in with cudaFuncSetAttribute
@@ -60,6 +68,7 @@ _SIGNATURES = {
     "envdet_smem_bytes": ([_I, _I, _I, _I], _LL),
     "envdet_launch": ([_P, _I, _LL, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I,
                        _I, _I, _I, _I, _P, _P], _I),
+    "probe_copy_grid": ([_LL], _LL),
     "probe_copy_add1_launch": ([_P, _P, _I, _LL, _I, _P], _I),
     "probe_copy_pm_add1_launch": ([_P, _P, _I, _I, _I, _P], _I),
     "probe_outputs_floor_launch": ([_P, _I, _LL, _I, _I, _P, _P, _P, _P, _P,
@@ -144,8 +153,11 @@ def _build(out):
 
 def load_library():
     """The kernel library, built first if needed (thread-safe, once per
-    process)."""
+    process; once it is loaded no lock is taken)."""
     global _lib
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is None:
             out = library_path()
@@ -172,6 +184,27 @@ def check(code, what):
     if code != 0:
         msg = load_library().audian_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream(device):
+    """The raw handle of the current CUDA stream of ``device`` (a tensor's
+    device, which carries its index), an int for a launcher."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def launch(wrapper, what, fn, device, *args):
+    """``fn(*args, stream)``, a launcher of the library, on the current
+    stream of ``device`` with ``device`` the current device (switched for
+    the call only where another one is current); raises on the launcher's
+    error code (:func:`check`, the message led by ``what``) and counts the
+    launch on ``wrapper`` (:func:`count_launch`)."""
+    if device.index == torch._C._cuda_getDevice():
+        code = fn(*args, stream(device))
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, stream(device))
+    check(code, what)
+    count_launch(wrapper)
 
 
 def count_launch(wrapper):

@@ -44,7 +44,7 @@ from ...utils import resolve_device, round_up
 from ..raw16 import dequant16
 from ..sos import _fir_valid_cf, full_fp32
 from ..stft import frame_signal
-from ._build import SMEM_LIMIT, check, count_launch, load_library
+from ._build import SMEM_LIMIT, launch, load_library
 from .precision import (BF16X3, BF16X4, HIGHEST, core_mode,
                         stage_precisions)
 
@@ -555,24 +555,20 @@ def chain(ck, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
     # the kernel writes the PSD's partials only where it runs the PSD
     qp = (empty(C, ntiles, WARPS, ck.nbins) if want_s else
           torch.zeros((C, ntiles, WARPS, ck.nbins), device=x_ext.device))
-    lib = load_library()
     # launched on the tensor's device: the current device may be another
-    with torch.cuda.device(x_ext.device):
-        code = lib.chain_launch(
-            x_ext.data_ptr(), int(x_ext.dtype == torch.int16), xlen, C, n,
-            ck.h_taps.data_ptr(), len(ck.h), ck.g_taps.data_ptr(),
-            len(ck.g), ck.delay, ck.lead, ck.tail, ck.hb,
-            ck.ws_operand.data_ptr(), ck.nfft, ck.tile, *ck.modes,
-            ck.phase_f, ck.phase_e,
-            flags_tensor(tuple(ck.light_f) + tuple(ck.light_e),
-                         x_ext.device).data_ptr(),
-            int(ck.env_clamp), int(want_f), int(want_e), int(want_s),
-            0 if y is None else y.data_ptr(),
-            0 if e is None else e.data_ptr(),
-            0 if s is None else s.data_ptr(), pp.data_ptr(), gp.data_ptr(),
-            qp.data_ptr(), torch.cuda.current_stream(x_ext.device).cuda_stream)
-    check(code, "chain")
-    count_launch(chain)
+    launch(chain, "chain", load_library().chain_launch, x_ext.device,
+           x_ext.data_ptr(), int(x_ext.dtype == torch.int16), xlen, C, n,
+           ck.h_taps.data_ptr(), len(ck.h), ck.g_taps.data_ptr(),
+           len(ck.g), ck.delay, ck.lead, ck.tail, ck.hb,
+           ck.ws_operand.data_ptr(), ck.nfft, ck.tile, *ck.modes,
+           ck.phase_f, ck.phase_e,
+           flags_tensor(tuple(ck.light_f) + tuple(ck.light_e),
+                        x_ext.device).data_ptr(),
+           int(ck.env_clamp), int(want_f), int(want_e), int(want_s),
+           0 if y is None else y.data_ptr(),
+           0 if e is None else e.data_ptr(),
+           0 if s is None else s.data_ptr(), pp.data_ptr(), gp.data_ptr(),
+           qp.data_ptr())
     return _result(y, e, s, stats, pp.sum(dim=(1, 2)), gp.sum(dim=(1, 2)),
                    qp.sum(dim=(1, 2)))
 

@@ -32,7 +32,7 @@ from ...utils import round_up
 from ..envdet import EnvDetDesign, _float_window
 from ..raw16 import dequant16
 from ..sos import _fir_valid_cf, full_fp32
-from ._build import SMEM_LIMIT, check, count_launch, load_library
+from ._build import SMEM_LIMIT, launch, load_library
 from .chain import _split_taps, flags_tensor, light_units, stream_rows
 from .precision import MATMUL_RUNGS, core_mode
 from .precision import check as check_precision
@@ -221,18 +221,13 @@ def envdet(ed, xw):
     env = torch.empty((C, ed.nout), dtype=torch.float32, device=xw.device)
     if C == 0:
         return env.T
-    lib = load_library()
     # launched on the tensor's device: the current device may be another
-    with torch.cuda.device(xw.device):
-        code = lib.envdet_launch(
-            x.data_ptr(), int(x.dtype == torch.int16), W, C,
-            ed.bp_split.data_ptr(), ed.lb, ed.d_bp, ed.mode, ed.phase,
-            flags_tensor(tuple(ed.light), xw.device).data_ptr(),
-            ed.lp_phase.data_ptr(),
-            ed.ll, ed.d_lp, ed.step, ed.nout, ed.hb, ed.tile, env.data_ptr(),
-            torch.cuda.current_stream(xw.device).cuda_stream)
-    check(code, "envdet")
-    count_launch(envdet)
+    launch(envdet, "envdet", load_library().envdet_launch, xw.device,
+           x.data_ptr(), int(x.dtype == torch.int16), W, C,
+           ed.bp_split.data_ptr(), ed.lb, ed.d_bp, ed.mode, ed.phase,
+           flags_tensor(tuple(ed.light), xw.device).data_ptr(),
+           ed.lp_phase.data_ptr(),
+           ed.ll, ed.d_lp, ed.step, ed.nout, ed.hb, ed.tile, env.data_ptr())
     return env.T
 
 

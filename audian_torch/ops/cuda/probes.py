@@ -29,13 +29,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._build import SMEM_LIMIT, check, count_launch, load_library
+from ._build import SMEM_LIMIT, launch, load_library
 from .precision import DEFAULT, HIGHEST, MATMUL_RUNGS
 from .precision import check as check_precision
-from .window_matmul import _on_device
 
-__all__ = ["GROUP", "MAX_STRIDE", "PHASES", "copy_add1", "copy_add1_plain",
-           "copy_pm_add1", "copy_pm_add1_plain", "outputs_floor",
+__all__ = ["COPY_TILE", "GROUP", "MAX_STRIDE", "PHASES", "copy_add1",
+           "copy_add1_plain", "copy_grid", "copy_pm_add1",
+           "copy_pm_add1_plain", "outputs_floor",
            "outputs_floor_plain", "pm_forward", "pm_forward_plain",
            "pm_inverse", "pm_inverse_plain", "pm_roundtrip_add1",
            "pm_roundtrip_add1_plain", "roundtrip_grid", "roundtrip_row",
@@ -50,6 +50,11 @@ MAX_STRIDE = 4096
 #: samples of a selection group: 128 lanes of each of its 8 phases
 GROUP = 1024
 _PHASES = 8
+#: the copies' tile (``COPY_*`` in csrc/probes.cu): threads of a block,
+#: 16-byte vectors a thread, words a block
+COPY_NT = 256
+COPY_U = 4
+COPY_TILE = 4 * COPY_NT * COPY_U
 #: shared memory of an SM (228 KB; 1 KB a block of it reserved)
 SM_SMEM = 233472
 #: the round trip's ring (``RT_*`` in csrc/probes.cu): samples of a stage,
@@ -77,10 +82,6 @@ def _check_f32(x, name, ndim):
                         f"{x.dtype} of shape {tuple(x.shape)}")
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _contiguous_on_card(x, name):
     if not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous tensor")
@@ -88,12 +89,35 @@ def _contiguous_on_card(x, name):
 
 # -- the copies ---------------------------------------------------------------
 
+def copy_grid(n):
+    """Blocks of the copies' one-shot grid over ``n`` words
+    (``probe_copy_grid``): a tile of :data:`COPY_TILE` words each."""
+    return -(-int(n) // COPY_TILE)
+
+
 def _check_block(T, block, name):
     if int(block) < 1:
         raise ValueError(f"{name}: block must be positive, got {block}")
     if T % int(block):
         raise ValueError(f"{name}: {T} samples are not whole blocks of "
                          f"{block}")
+
+
+def _copy_args(x, name, ndim, block=None):
+    """The copies' checks in one pass over ``x``'s attributes, in the order
+    and with the errors of :func:`_device_of`, :func:`_check_f32`,
+    :func:`_check_block` (where ``block`` is given) and, on the card,
+    :func:`_contiguous_on_card`.  Returns whether ``x`` lies on the CPU."""
+    on_cpu = x.is_cpu
+    if not (on_cpu or x.is_cuda):
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    if x.dtype != torch.float32 or x.ndim != ndim:
+        _check_f32(x, name, ndim)
+    if block is not None:
+        _check_block(x.shape[1], block, name)
+    if not (on_cpu or x.is_contiguous()):
+        _contiguous_on_card(x, name)
+    return on_cpu
 
 
 def copy_add1_plain(x, block=8192):
@@ -104,21 +128,18 @@ def copy_add1_plain(x, block=8192):
 
 
 def copy_add1(x, block=8192):
-    """``y = x + 1`` over ``x`` (C, T) float32 in (C, ``block``) column
-    blocks, one kernel block each (the probes' device-copy floor)."""
-    if _device_of(x, "copy_add1") == "cpu":
+    """``y = x + 1`` over ``x`` (C, T) float32, T whole (C, ``block``)
+    column blocks (the probes' device-copy floor).  ``block`` is the
+    reference's Pallas block and is checked, but the card's grid does not
+    follow it: the kernel runs over the tensor's words as one flat range
+    (:func:`copy_grid`), so every ``block`` runs the same kernel."""
+    if _copy_args(x, "copy_add1", 2, block):
         return copy_add1_plain(x, block)
-    _check_f32(x, "copy_add1", 2)
-    _check_block(x.shape[1], block, "copy_add1")
-    _contiguous_on_card(x, "copy_add1")
     y = torch.empty_like(x)
     C, T = x.shape
     if C and T:
-        with _on_device(x.device):
-            code = load_library().probe_copy_add1_launch(
-                x.data_ptr(), y.data_ptr(), C, T, int(block), _stream(x))
-        check(code, "copy_add1")
-        count_launch(copy_add1)
+        launch(copy_add1, "copy_add1", load_library().probe_copy_add1_launch,
+               x.device, x.data_ptr(), y.data_ptr(), C, T, int(block))
     return y
 
 
@@ -132,19 +153,16 @@ def copy_pm_add1_plain(x):
 
 
 def copy_pm_add1(x):
-    """``y = x + 1`` over program-major ``x`` (nprog, C, N) float32, one
-    kernel block a program's contiguous (C, N) block."""
-    if _device_of(x, "copy_pm_add1") == "cpu":
+    """``y = x + 1`` over program-major ``x`` (nprog, C, N) float32: the
+    kernel of :func:`copy_add1`, over the tensor's words as one flat range
+    (:func:`copy_grid`)."""
+    if _copy_args(x, "copy_pm_add1", 3):
         return copy_pm_add1_plain(x)
-    _check_f32(x, "copy_pm_add1", 3)
-    _contiguous_on_card(x, "copy_pm_add1")
     y = torch.empty_like(x)
     if x.numel():
-        with _on_device(x.device):
-            code = load_library().probe_copy_pm_add1_launch(
-                x.data_ptr(), y.data_ptr(), *x.shape, _stream(x))
-        check(code, "copy_pm_add1")
-        count_launch(copy_pm_add1)
+        launch(copy_pm_add1, "copy_pm_add1",
+               load_library().probe_copy_pm_add1_launch, x.device,
+               x.data_ptr(), y.data_ptr(), *x.shape)
     return y
 
 
@@ -196,12 +214,10 @@ def outputs_floor(x, block=8192, nbins=129):
     outs = [torch.empty(s, dtype=torch.float32, device=x.device)
             for s in _outputs_shapes(C, T, int(block), int(nbins))]
     if C and T:
-        with _on_device(x.device):
-            code = load_library().probe_outputs_floor_launch(
-                x.data_ptr(), C, T, int(block), int(nbins),
-                *(o.data_ptr() for o in outs), _stream(x))
-        check(code, "outputs_floor")
-        count_launch(outputs_floor)
+        launch(outputs_floor, "outputs_floor",
+               load_library().probe_outputs_floor_launch, x.device,
+               x.data_ptr(), C, T, int(block), int(nbins),
+               *(o.data_ptr() for o in outs))
     return tuple(outs)
 
 
@@ -262,12 +278,10 @@ def pm_forward(u, M):
         if C > 65535:
             raise ValueError(f"pm_forward takes at most 65535 channels, "
                              f"got {C}")
-        with _on_device(u.device):
-            code = load_library().probe_pm_forward_launch(
-                u.data_ptr(), u.stride(0) if C > 1 else n, C, Q, M,
-                out.data_ptr(), _stream(u))
-        check(code, "pm_forward")
-        count_launch(pm_forward)
+        launch(pm_forward, "pm_forward",
+               load_library().probe_pm_forward_launch, u.device,
+               u.data_ptr(), u.stride(0) if C > 1 else n, C, Q, M,
+               out.data_ptr())
     return out
 
 
@@ -305,12 +319,10 @@ def pm_inverse(e, M):
         if C > 65535:
             raise ValueError(f"pm_inverse takes at most 65535 channels, "
                              f"got {C}")
-        with _on_device(e.device):
-            code = load_library().probe_pm_inverse_launch(
-                e.data_ptr(), e.stride(0) if CM > 1 else Q, C, Q, M,
-                out.data_ptr(), _stream(e))
-        check(code, "pm_inverse")
-        count_launch(pm_inverse)
+        launch(pm_inverse, "pm_inverse",
+               load_library().probe_pm_inverse_launch, e.device,
+               e.data_ptr(), e.stride(0) if CM > 1 else Q, C, Q, M,
+               out.data_ptr())
     return out
 
 
@@ -379,15 +391,13 @@ def pm_roundtrip_add1(x, block=8192, M=8):
     C, T = x.shape
     y = torch.empty_like(x)
     if C and T:
-        with _on_device(x.device):
-            # the kernel's item counter, zeroed by the launcher; freed on
-            # return, its memory goes only to later work on this stream
-            nxt = torch.empty(1, dtype=torch.int64, device=x.device)
-            code = load_library().probe_pm_roundtrip_add1_launch(
-                x.data_ptr(), y.data_ptr(), C, T, int(block), M,
-                nxt.data_ptr(), _stream(x))
-        check(code, "pm_roundtrip_add1")
-        count_launch(pm_roundtrip_add1)
+        # the kernel's item counter, zeroed by the launcher; freed on
+        # return, its memory goes only to later work on this stream
+        nxt = torch.empty(1, dtype=torch.int64, device=x.device)
+        launch(pm_roundtrip_add1, "pm_roundtrip_add1",
+               load_library().probe_pm_roundtrip_add1_launch, x.device,
+               x.data_ptr(), y.data_ptr(), C, T, int(block), M,
+               nxt.data_ptr())
     return y
 
 
@@ -460,14 +470,11 @@ def select_pm_add1(x, *, precision=HIGHEST):
     y = torch.empty_like(x)
     C, T = x.shape
     if C and T:
-        with _on_device(x.device):
-            # the item counter, as the round trip's
-            nxt = torch.empty(1, dtype=torch.int64, device=x.device)
-            code = load_library().probe_select_pm_add1_launch(
-                x.data_ptr(), y.data_ptr(), C, T, int(one), nxt.data_ptr(),
-                _stream(x))
-        check(code, "select_pm_add1")
-        count_launch(select_pm_add1)
+        # the item counter, as the round trip's
+        nxt = torch.empty(1, dtype=torch.int64, device=x.device)
+        launch(select_pm_add1, "select_pm_add1",
+               load_library().probe_select_pm_add1_launch, x.device,
+               x.data_ptr(), y.data_ptr(), C, T, int(one), nxt.data_ptr())
     return y
 
 

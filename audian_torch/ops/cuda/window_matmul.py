@@ -23,7 +23,6 @@ and the two stages of the song-detection
 
 from __future__ import annotations
 
-import contextlib
 import math
 from collections import namedtuple
 from functools import lru_cache
@@ -33,7 +32,7 @@ import torch
 
 from ..raw16 import dequant16
 from ..sos import full_fp32
-from ._build import SMEM_LIMIT, check, count_launch, load_library
+from ._build import SMEM_LIMIT, launch, load_library
 from .precision import DEFAULT, HIGHEST, MATMUL_RUNGS
 from .precision import check as check_precision
 
@@ -206,14 +205,6 @@ def window_matmul_plain(x, w, stride, nframes, premap=None, out_layout="fco",
     return _reshape_out(frames @ w, out_layout)
 
 
-def _on_device(device):
-    """``torch.cuda.device(device)``, or nothing to do where it is already
-    the current device (the common case, and a cost on every call)."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def split_w(w):
     """``w`` (K, O) float32 on the card split into its TF32 hi and lo
     parts for the kernel's column blocks (:func:`column_blocks`), in its
@@ -227,12 +218,8 @@ def split_w(w):
     N = column_blocks(O)[0]
     wt = torch.empty(lib.window_matmul_split_words(K, O, N),
                      dtype=torch.int32, device=w.device)
-    with _on_device(w.device):
-        code = lib.window_matmul_split_launch(
-            w.data_ptr(), K, O, N, wt.data_ptr(),
-            torch.cuda.current_stream(w.device).cuda_stream)
-    check(code, "window_matmul split")
-    count_launch(split_w)
+    launch(split_w, "window_matmul split", lib.window_matmul_split_launch,
+           w.device, w.data_ptr(), K, O, N, wt.data_ptr())
     return wt
 
 
@@ -312,19 +299,13 @@ def window_matmul(x, w, stride, nframes, premap=None, out_layout="fco", *,
                          "offsets: (nframes + 64) * stride + K and n must "
                          "stay below 2^31")
     p = plan(K, O, S, x.element_size(), one)
-    lib = load_library()
+    wt = split_w(w) if split is None else split(w)
     # launched on the tensor's device: the current device may be another
-    with _on_device(x.device):
-        stream = torch.cuda.current_stream(x.device)
-        wt = split_w(w) if split is None else split(w)
-        code = lib.window_matmul_launch(
-            x.data_ptr(), int(x.dtype == torch.int16), n, C, wt.data_ptr(),
-            K, O, S, nframes, PREMAPS.index(premap),
-            _LAYOUTS.index(out_layout), y.data_ptr(), p.N,
-            MODES.index(p.mode), p.lsh, p.nbuf, p.ring, int(one),
-            stream.cuda_stream)
-    check(code, "window_matmul")
-    count_launch(window_matmul)
+    launch(window_matmul, "window_matmul", load_library().window_matmul_launch,
+           x.device, x.data_ptr(), int(x.dtype == torch.int16), n, C,
+           wt.data_ptr(), K, O, S, nframes, PREMAPS.index(premap),
+           _LAYOUTS.index(out_layout), y.data_ptr(), p.N,
+           MODES.index(p.mode), p.lsh, p.nbuf, p.ring, int(one))
     return y.reshape(C, nframes * O) if out_layout == "cf" else y
 
 

@@ -14,9 +14,11 @@ probes in ``benchmarks/``, each a sweep run in the reference's order.
   copies.
 
 Each runs as ``python -m audian_torch.probes.<name>`` on the CUDA card
-and prints one line a configuration: ms a call (CUDA events, the median
+and prints one line a configuration: ms a call over 8 calls back to
+back, as the references time them (CUDA events, the median of five runs
 after a warm-up), GB/s of reads plus writes, its share of 3.35 TB/s and
-seconds per recording hour at 96 kHz.  The sweeps take ``device=``:
+seconds per recording hour at 96 kHz, then the time of a lone call (the
+host's enqueue in it).  The sweeps take ``device=``:
 ``"cpu"`` runs each configuration once through the plain versions and
 times nothing (a host time is no card figure).
 """

@@ -1,11 +1,12 @@
 """What the probes share: one timed configuration, its printed line and
 each probe's ``main``; ``chip_smoke.py`` times and names the card with the
-same :func:`median_ms` and :func:`card_line`."""
+same :func:`median_ms`, :func:`host_us` and :func:`card_line`."""
 
 from __future__ import annotations
 
 import shutil
 import subprocess
+import time
 
 import torch
 
@@ -15,8 +16,12 @@ from ..utils import resolve_device
 PEAK_BYTES = 3.35e12
 #: the recordings' sample rate, for seconds per recording hour
 RATE = 96000.0
-#: timed calls a configuration, after one warm-up
+#: timed runs a configuration, after one warm-up
 REPS = 5
+#: calls back to back a timed run of a probe's configuration, as the
+#: reference's probes time them (``benchmarks/*_bench.py``: 8 calls, one
+#: fence)
+CALLS = 8
 #: the seed of every probe's input
 SEED = 0
 
@@ -45,11 +50,31 @@ def median_ms(fn, device=None, reps=REPS, calls=1):
     return float(sorted(times)[len(times) // 2])
 
 
+def host_us(fn, calls=200, rounds=3):
+    """The host's microseconds a call of ``fn`` on the CUDA card (its
+    enqueue): ``perf_counter`` over ``calls`` calls with no synchronize
+    inside, the median of ``rounds`` runs, each after a synchronize."""
+    fn()
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - a) / calls * 1e6)
+    torch.cuda.synchronize()
+    return sorted(out)[len(out) // 2]
+
+
 def measure(kernel, label, fn, nbytes, samples, device):
-    """One configuration: ``fn`` timed by :func:`median_ms`, with the rates
-    its ``nbytes`` of reads plus writes and ``samples`` a channel give."""
-    ms = median_ms(fn, device)
-    row = {"kernel": kernel, "label": label, "ms": ms, "bytes": int(nbytes),
+    """One configuration: ``fn`` timed by :func:`median_ms` over
+    :data:`CALLS` calls back to back (``ms``, the card's time, as the
+    reference times it) and as a lone call (``lone_ms``, the host's enqueue
+    in it), with the rates its ``nbytes`` of reads plus writes and
+    ``samples`` a channel give at ``ms``."""
+    ms = median_ms(fn, device, calls=CALLS)
+    row = {"kernel": kernel, "label": label, "ms": ms,
+           "lone_ms": median_ms(fn, device), "bytes": int(nbytes),
            "samples": int(samples), "gbps": None, "share": None,
            "s_per_hour": None}
     if ms is not None:
@@ -60,13 +85,14 @@ def measure(kernel, label, fn, nbytes, samples, device):
 
 
 def line(row):
-    """A row as the reference prints it, with its rates."""
+    """A row as the reference prints it, with its rates, and its lone
+    call's time after them."""
     if row["ms"] is None:
         return f"{row['label']:40s} not measured (no card)"
     return (f"{row['label']:40s} {row['ms']:9.4f} ms/call  "
             f"{row['gbps']:7.1f} GB/s r+w  {100 * row['share']:5.1f} % of "
             f"{PEAK_BYTES / 1e12:.2f} TB/s  {row['s_per_hour']:7.4f} "
-            f"s/h-equiv")
+            f"s/h-equiv  (lone call {row['lone_ms']:.4f} ms)")
 
 
 def card_line(device=None):

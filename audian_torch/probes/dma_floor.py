@@ -4,14 +4,17 @@
     python -m audian_torch.probes.dma_floor
 
 In the reference's order: a copy + 1 over 16 ch x 2^22 float32 in
-channel-major column blocks of N = 4096 .. 65536 samples (one kernel
-block a (16, N) block, :func:`~audian_torch.ops.cuda.probes.copy_add1`),
-the same copy over program-major contiguous blocks (N = 8192, 32768;
+channel-major column blocks of N = 4096 .. 65536 samples
+(:func:`~audian_torch.ops.cuda.probes.copy_add1`), the same copy over
+program-major contiguous blocks (N = 8192, 32768;
 :func:`~audian_torch.ops.cuda.probes.copy_pm_add1`), the chain's output
 set with no compute at N = 8192 for 129, 128 and 256 PSD bins
 (:func:`~audian_torch.ops.cuda.probes.outputs_floor`: its time at 129
 bins is the output floor of the headline chain, the denominator of its
-floor ratio) and the first copy again as a drift check.
+floor ratio) and the first copy again as a drift check.  On the card
+both copies run one kernel over the tensor's words, whatever N (a Pallas
+``BlockSpec`` has no counterpart there): the rows of the N sweep measure
+the same kernel, and so does the program-major copy.
 """
 
 from __future__ import annotations

@@ -14,10 +14,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    and of the probes' selection products (``select_pm_kernel``, both
    rungs), which must neither spill nor serialize, and from ``cuobjdump
    -sass`` of the built library each kernel's ``HGMMA`` and ``HMMA`` count
-   (every instance must show ``HGMMA`` and none ``HMMA``); the probes' six
+   (every instance must show ``HGMMA`` and none ``HMMA``); the probes' five
    copy and relayout kernels (``csrc/probes.cu``) must not spill either,
-   and the two on bulk-copy rings (``pm_roundtrip_kernel``,
-   ``select_pm_kernel``) must show bulk copies (``UBLKCP``) in their SASS;
+   the copies' one-shot ``copy_flat_kernel`` must load and store 16-byte
+   words (``LDG.E.128`` and ``STG.E.128`` in its SASS), and the two on
+   bulk-copy rings (``pm_roundtrip_kernel``, ``select_pm_kernel``) must
+   show bulk copies (``UBLKCP``) in their SASS;
 1b. the bare convolution core (``csrc/wgmma_conv.cuh`` through
    ``csrc/conv_probe.cu``: one warpgroup at N = 64 and 8) on four short
    known convolutions (the headline filter, the headline envelope's delay
@@ -55,7 +57,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    before this phase and read just after it;
 5. CUDA-event times (median of 5 after a warm-up) of the chain and
    window_matmul kernels and their plain versions, and of the chain's
-   1-hour loop (83 device-resident chunks); for each window_matmul case
+   1-hour loop (83 device-resident chunks); the headline chain also as 8
+   calls back to back (the floor ratio's numerator, phase 18); each
+   wrapper's host enqueue of a call (``perf_counter``, no synchronize
+   inside): the chain, window_matmul, the copies on a 16 x 4096 tensor
+   beside torch's ``x + 1`` on it and the copy's bare launcher (envdet's
+   in phase 9); for each window_matmul case
    of phase 2 (its bank's split held, as its owner holds it) its
    ``bound_tc`` share and the cuBLAS ``unfold @ w`` time, each as a lone
    call (the host's enqueue in it) and 10 calls back to back a run (the
@@ -83,7 +90,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    oracle; under ``torch.profiler`` each envdet launch must follow its
    window's upload directly (no copy kernel between them);
 9. CUDA-event times of the envdet kernel (at each tile it can take for
-   the design), its plain version and the two-stage ``EnvDet`` per
+   the design; its wrapper's host enqueue), its plain version and the
+   two-stage ``EnvDet`` per
    headline chunk, of the same kernel work over a time-contiguous
    (C = 1) window and of the transposing copy the kernel no longer needs,
    and the 1-hour detect loop (165 device-resident chunks, seconds per
@@ -203,7 +211,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     reshape-and-transpose copies give, against the dense one (3e-6) and an
     interior slice against scipy float64 (1e-5); CUDA-event times of the
     envelope, its two launches, its two relayouts beside the torch copies
-    (one ``copy_`` each, the library column) and the plain versions, and
+    (one ``copy_`` each, the library column; both also 8 calls back to
+    back) and the plain versions, and
     the dense envelope; then the exact IIR filters on 60 s x 16 ch float32:
     ``sosfilt`` (2-40 kHz) whole and in three chunks with the state
     carried, ``sosfiltfilt`` and ``envelope``, two channels against scipy
@@ -232,7 +241,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     NaNs and infinities planted where the copies, the output set's fills
     and columns and the relayouts carry them, bit for bit: ``copy_add1``
     at N = 4096, 8192, 65536 and a C = 3 stream of odd rows,
-    ``copy_pm_add1`` at N = 8192, 32768, ``outputs_floor`` at N = 8192 and
+    ``copy_pm_add1`` at N = 8192, 32768, both at the one-shot grid's edges
+    (``COPY_EDGES``: a last tile in part, tails of 1 and 3 words, a tensor
+    below one tile, program-major (5, 3, 96), views at offsets of 4 words
+    and of one word, the scalar path), ``outputs_floor`` at N = 8192 and
     129, 128, 256 bins, ``pm_forward`` / ``pm_inverse`` at the IFIR
     shapes (strided slices of wider streams) at M = 8, 4, 16 and their
     round trip, ``pm_roundtrip_add1`` at M = 8, 4 and at its ring's edges
@@ -243,15 +255,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     which must turn exactly its row's 128 outputs of its source block
     non-finite (the NaN's NaN; the infinity's NaN, at DEFAULT but its own
     output, which stays infinite);
-    the two ring kernels' shared-memory and grid formulas against the
-    library's own, and each ring kernel in turns with its torch call, lone
-    and 10 calls back to back.  The plain versions and the torch calls
-    timed; then
+    the copies' grid formula and the two ring kernels' shared-memory and
+    grid formulas against the library's own, and both copies (``copy_add1``
+    also at 16 ch x 2^20) and each ring kernel in turns with its torch
+    call, lone and 10 calls back to back.  The plain versions and the
+    torch calls timed (the calls also 8 back to back); then
     the three sweeps (``python -m audian_torch.probes.dma_floor``,
     ``call_scaling``, ``phase_restructure``) with the probes' launch
-    counters zeroed just before and read just after, each kernel launched;
-    and the floor ratio: phase 5's headline chain time over the output
-    floor (N = 8192, 129 bins) of this run, and over the copy floor.
+    counters zeroed just before and read just after, each kernel launched,
+    each row timed as 8 calls back to back, as the references time them,
+    with its lone call beside it; and the floor ratio: phase 5's headline
+    chain over the output floor (N = 8192, 129 bins) of this run, both 8
+    calls back to back (and as lone calls beside it), and over the copy
+    floor.
 
 Phase 4 starts with both TF32 flags on and checks that they are still on
 after it: the port scopes full float32 to its own calls.
@@ -288,17 +304,26 @@ envelope of one headline chunk and that envelope's time; its ``ms``,
 (the host's enqueue of a call), ``stage_ms`` and ``stage_ms_back_to_back``
 (phase 5's time of each case), ``split_ms`` (w's split) and
 ``slower_than_library`` (the cases slower than ``unfold @ w``).
+Chain and envdet carry ``host_us``, their wrappers' host enqueue of a
+call, and chain ``ms_back_to_back``.
 The probes' five entries (phase 18: ``copy_add1``, ``copy_pm_add1``,
 ``outputs_floor``, ``phase_major``, ``select_pm_add1``) carry their
-sweeps' times (the IFIR envelope's two relayouts for ``phase_major``,
+sweeps' times under window_matmul's key names: ``ms``, ``library_ms`` and
+``bound_share`` for a lone call, ``ms_back_to_back``,
+``library_ms_back_to_back`` and ``bound_share_back_to_back`` for 8 calls
+back to back (the IFIR envelope's two relayouts for ``phase_major``,
 phase 16), their launches on the sweeps (on the IFIR envelope for
 ``phase_major``, with the round trip's in ``roundtrip``, its library call
 torch's ``x + 1``), the bytes bound (``select_pm_add1``: the larger of it
-and its two TF32 passes at 495 TFLOP/s) and ``bound_share``; the round
-trip and the selection (and its DEFAULT rung) carry ``turns``: their
-times in turns with their torch call, lone and back to back;
-``outputs_floor`` the ``floor_ratio`` and ``bound_ms_int16_in``, the bytes
-bound of the output set with the chain's int16 input.
+and its two TF32 passes at 495 TFLOP/s); both copies, the round trip and
+the selection (and its DEFAULT rung) carry ``turns``: their times in
+turns with their torch call, lone and back to back (``copy_add1`` also
+``turns_2e20``), the copies ``host_us`` (``copy_add1`` also
+``host_us_torch``, ``x + 1``'s, and ``host_us_launcher``, the bare
+launcher's); ``outputs_floor`` the ``floor_ratio`` (back to back),
+``floor_ratio_lone``, ``chain_ms``, ``chain_ms_back_to_back`` and
+``bound_ms_int16_in``, the bytes bound of the output set with the chain's
+int16 input.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -323,7 +348,7 @@ import scipy.io.wavfile
 import scipy.signal as sps
 import torch
 
-from audian_torch.probes._common import card_line, median_ms
+from audian_torch.probes._common import CALLS, card_line, host_us, median_ms
 
 RATE = 96000.0
 C = 16
@@ -354,6 +379,7 @@ TOL_WINDOW = 1e-5        # times the output scale
 TOL_DEFAULT = 1e-2       # one TF32 pass: times each output's scale
                          # (tests/test_songdetector.py:602-621)
 WM_CALLS = 10            # window_matmul and cuBLAS timed 10 calls a run
+HOST_T = 4096            # samples a channel of the copies' enqueue tensor
 # chunked against whole: the same samples go through the same kernel
 # arithmetic, so the tolerance of tests/test_chunk_equivalence.py holds
 TOL_CHUNKED = 2e-6
@@ -393,9 +419,12 @@ WGMMA_KERNELS = ("chain_kernel", "envdet_kernel", "window_matmul_kernel",
                  "select_pm_kernel")
 #: the probes' copy and relayout kernels (csrc/probes.cu), which must not
 #: spill either
-PROBE_KERNELS = ("copy_add1_kernel", "copy_pm_add1_kernel",
-                 "outputs_floor_kernel", "pm_forward_kernel",
-                 "pm_inverse_kernel", "pm_roundtrip_kernel")
+PROBE_KERNELS = ("copy_flat_kernel", "outputs_floor_kernel",
+                 "pm_forward_kernel", "pm_inverse_kernel",
+                 "pm_roundtrip_kernel")
+#: the probes' one-shot streaming copy (both copy_add1 and copy_pm_add1),
+#: which must move device memory in 16-byte loads and stores
+COPY_KERNEL = "copy_flat_kernel"
 #: the probes' kernels fed by bulk copies into a ring of stages, which
 #: must show them in their SASS
 RING_KERNELS = ("pm_roundtrip_kernel", "select_pm_kernel")
@@ -448,10 +477,12 @@ def template_args(mangled):
 
 
 def sass_mma_counts(library):
-    """``{kernel: (HGMMA, HMMA, bulk copies)}``: the warpgroup and the
-    warp-level MMA instructions and the bulk copies (``UBLKCP``, or a
-    tensor map's ``UTMALDG`` / ``UTMASTG``) in each kernel's SASS
-    (``cuobjdump -sass`` of the built library)."""
+    """``{kernel: (HGMMA, HMMA, bulk copies, 128-bit global loads, 128-bit
+    global stores)}``: the warpgroup and the warp-level MMA instructions,
+    the bulk copies (``UBLKCP``, or a tensor map's ``UTMALDG`` /
+    ``UTMASTG``) and the 16-byte ``LDG.E.128`` / ``STG.E.128`` (any cache
+    qualifiers between) in each kernel's SASS (``cuobjdump -sass`` of the
+    built library)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
@@ -467,13 +498,17 @@ def sass_mma_counts(library):
                                      *WGMMA_KERNELS[3:], *PROBE_KERNELS)
                           if k in mangled), mangled[:40])
             name += template_args(mangled)
-            counts.setdefault(name, [0, 0, 0])
+            counts.setdefault(name, [0, 0, 0, 0, 0])
         elif name and "HGMMA" in line:
             counts[name][0] += 1
         elif name and re.search(r"\bHMMA", line):
             counts[name][1] += 1
         elif name and re.search(r"\b(UBLKCP|UTMALDG|UTMASTG)", line):
             counts[name][2] += 1
+        elif name and re.search(r"\bLDG\.E[.\w]*\.128\b", line):
+            counts[name][3] += 1
+        elif name and re.search(r"\bSTG\.E[.\w]*\.128\b", line):
+            counts[name][4] += 1
     return {k: tuple(v) for k, v in counts.items()}
 
 
@@ -914,6 +949,17 @@ def ifir_phase(card, dev):
         "relayout to phase-major": median_ms(lambda: to_pm_t(u)),
         "relayout back": median_ms(lambda: from_pm_t(e_pm).contiguous()),
     }
+    # the relayouts and their torch copies back to back, as the probes'
+    # sweeps time theirs (phase 18)
+    ms_b2b = {
+        "relayout to phase-major": median_ms(lambda: to_pm(u), calls=CALLS),
+        "relayout back": median_ms(lambda: from_pm(e_pm).contiguous(),
+                                   calls=CALLS)}
+    ms_torch_b2b = {
+        "relayout to phase-major": median_ms(lambda: u_out.copy_(u_view),
+                                             calls=CALLS),
+        "relayout back": median_ms(lambda: e_out.copy_(e_view),
+                                   calls=CALLS)}
     flop = 2 * C * CHUNK * macs_ifir
     nbytes = 2 * 4 * C * CHUNK
     b32 = bound(flop, nbytes)
@@ -923,6 +969,10 @@ def ifir_phase(card, dev):
     relayout_bytes = 2 * 4 * (u_pm.numel() + e.numel())
     print(f"  times (CUDA events, ms): " + "  ".join(
         f"{k} {v:.4f}" for k, v in ms.items()) + f"  [{card}]")
+    print(f"  back to back ({CALLS} calls): " + "  ".join(
+        f"{k} {v:.4f}" for k, v in ms_b2b.items()) + "; the torch copies " +
+        "  ".join(f"{k} {v:.4f}" for k, v in ms_torch_b2b.items()) +
+        f"  [{card}]")
     print(f"  torch copies (one copy_ each, the library column): " +
           "  ".join(f"{k} {v:.4f}" for k, v in ms_torch.items()) +
           "; plain: " + "  ".join(f"{k} {v:.4f}" for k, v in
@@ -935,7 +985,10 @@ def ifir_phase(card, dev):
           f"{b32[0]:.4f} ms ({b32[1]}, fp32 at 67 TFLOP/s), as 3xTF32 "
           f"{btc[0]:.4f} ms ({btc[1]})  [{card}]")
     relayout = {"launches": pm_launches, "ms": relayout_ms,
+                "ms_back_to_back": sum(ms_b2b.values()),
+                "library_ms_back_to_back": sum(ms_torch_b2b.values()),
                 "stage_ms": {k: ms[k] for k in ms_torch},
+                "stage_ms_back_to_back": ms_b2b,
                 "plain_ms": sum(ms_plain.values()),
                 "library_ms": relayout_torch_ms, "bytes": relayout_bytes,
                 "share_of_ifir": relayout_ms / ms["ifir"]}
@@ -3492,6 +3545,14 @@ RING_EDGES = ((3, 6176, 173), (5, 96, 1001))
 SELECT_EDGE = 1024 * 3001
 # runs of each time of the ring kernels' turns with their library calls
 RING_REPS = 20
+# the copies' one-shot grid at its edges, (shape, offset in words, block):
+# a last tile in part, a scalar tail of 1 and of 3 words, a tensor below
+# one tile, program-major blocks; views at a 16-byte aligned offset (the
+# vector path) and at an offset of one word (the scalar path)
+COPY_EDGES = (((3, 4100), 0, 4100), ((16, 4096), 0, 4096),
+              ((3, 4099), 0, 4099), ((1, 7), 0, 7), ((5, 3, 96), 0, None),
+              ((3, 4100), 4, 4100), ((3, 4100), 1, 4100),
+              ((5, 3, 96), 1, None))
 
 
 def bits_equal(a, b):
@@ -3508,13 +3569,15 @@ def values_equal(a, b):
             and bits_equal(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)))
 
 
-def probes_phase(card, dev, chain_ms, relayout):
+def probes_phase(card, dev, chain_ms, chain_ms_b2b, relayout, host):
     """Phase 18: each kernel of ``csrc/probes.cu`` against its plain version
     at the probes' shapes, with a NaN and infinities on the copies' and
     relayouts' inputs, then the three probe sweeps (launch counters zeroed
     just before, read just after) and the headline chain's floor ratio.
-    ``chain_ms`` is phase 5's headline chain time, ``relayout`` phase
-    16's relayout dict.  Returns the kernels line's five entries."""
+    ``chain_ms`` and ``chain_ms_b2b`` are phase 5's headline chain times
+    (a lone call, :data:`CALLS` back to back), ``relayout`` phase 16's
+    relayout dict, ``host`` phase 5's host enqueue (us a call).  Returns
+    the kernels line's five entries."""
     from audian_torch.ops.cuda import _build
     from audian_torch.ops.cuda import probes as P
     from audian_torch.probes import call_scaling, dma_floor, phase_restructure
@@ -3555,6 +3618,25 @@ def probes_phase(card, dev, chain_ms, relayout):
         xpm = dma_floor.to_program_major(x, N)
         hold("copy_pm_add1", f"N={N}", P.copy_pm_add1(xpm),
              P.copy_pm_add1_plain(xpm))
+    # the one-shot grid's edges (a NaN and an infinity planted in each): a
+    # last tile in part, a scalar tail, a tensor below one tile, and views
+    # at an offset of 4 words (16-byte aligned: the vector path) and of one
+    # word (the scalar path)
+    flat = torch.randn(1 << 17, generator=gen, device=dev)
+    for shape, off, block in COPY_EDGES:
+        n = math.prod(shape)
+        xe = flat[off:off + n].view(shape)
+        xe.reshape(-1)[n // 2] = float("nan")
+        xe.reshape(-1)[n - 1] = float("inf")
+        if len(shape) == 2:
+            got, want = P.copy_add1(xe, block), P.copy_add1_plain(xe, block)
+        else:
+            got, want = P.copy_pm_add1(xe), P.copy_pm_add1_plain(xe)
+        path = "vector" if xe.data_ptr() % 16 == 0 else "scalar"
+        hold("copy_add1" if len(shape) == 2 else "copy_pm_add1",
+             f"{tuple(shape)} at an offset of {off} words ({n % 4} tail "
+             f"words, {P.copy_grid(n)} blocks, the {path} path)", got, want)
+    del flat
     for nb in (PROBE_NBINS, 128, 256):
         hold("outputs_floor", f"N={PROBE_N} nbins={nb}",
              P.outputs_floor(x, PROBE_N, nb),
@@ -3616,11 +3698,17 @@ def probes_phase(card, dev, chain_ms, relayout):
                     f"N={n_} M={M} agree with the library's")
     require(lib.probe_select_pm_smem_bytes() == P.select_smem_bytes(),
             "the selection's shared-memory formula agrees")
+    for n_ in (0, 1, 7, 1440, P.COPY_TILE, P.COPY_TILE + 1, 3 * 4100,
+               C * CHUNK):
+        require(lib.probe_copy_grid(n_) == P.copy_grid(n_),
+                f"the copies' grid over {n_} words agrees")
     for c_, t_ in ((C, CHUNK), (3, SELECT_EDGE), (1, P.GROUP)):
         require(lib.probe_select_pm_grid(c_, t_, sms)
                 == P.select_grid(c_, t_, sms),
                 f"the selection's grid at C={c_} T={t_} agrees")
-    print(f"  plans: round trip {P.roundtrip_smem_bytes(PROBE_N, 8)} bytes "
+    print(f"  plans: the copies' grid {P.copy_grid(C * CHUNK)} blocks of "
+          f"{P.COPY_TILE} words; round trip "
+          f"{P.roundtrip_smem_bytes(PROBE_N, 8)} bytes "
           f"a block, grid {P.roundtrip_grid(C, CHUNK, PROBE_N, 8, sms)}; "
           f"selection {P.select_smem_bytes()} bytes, grid "
           f"{P.select_grid(C, CHUNK, sms)} ({sms} SMs)")
@@ -3697,19 +3785,28 @@ def probes_phase(card, dev, chain_ms, relayout):
             lambda: P.pm_roundtrip_add1_plain(xs, PROBE_N, 8)),
         "select_pm_add1": median_ms(lambda: P.select_pm_add1_plain(xs)),
     }
-    library = {
-        "x + 1": median_ms(lambda: xs + 1.0),
-        "copy_pm_add1": median_ms(lambda: xpm + 1.0),
-        "select_pm_add1": median_ms(
-            lambda: torch.add(view, 1.0, out=sel_out)),
-    }
-    # the two ring kernels beside their library calls, in turns (call,
-    # kernel, kernel, call), each the median of RING_REPS runs of a lone
-    # call and of 10 calls back to back (the card's time: the host's
-    # enqueue of a call overlaps the work of the one before)
+    # the library calls as a lone call and CALLS back to back, as the
+    # sweeps time the kernels
+    library = {}
+    for name, call in (("x + 1", lambda: xs + 1.0),
+                       ("copy_pm_add1", lambda: xpm + 1.0),
+                       ("select_pm_add1",
+                        lambda: torch.add(view, 1.0, out=sel_out))):
+        library[name] = median_ms(call)
+        library[name + " back to back"] = median_ms(call, calls=CALLS)
+    # the copies and the two ring kernels beside their library calls, in
+    # turns (call, kernel, kernel, call), each the median of RING_REPS runs
+    # of a lone call and of 10 calls back to back (the card's time: the
+    # host's enqueue of a call overlaps the work of the one before); the
+    # copy also at 16 ch x 2^20, the call-scaling sweep's smallest
     ring = {}
-    nbound = bound(0, 8 * xs.numel())[0]
+    x20 = xs[:, : 1 << 20].contiguous()
     for name, kernel, call in (
+            ("copy_add1", lambda: P.copy_add1(xs, PROBE_N),
+             lambda: xs + 1.0),
+            ("copy_pm_add1", lambda: P.copy_pm_add1(xpm), lambda: xpm + 1.0),
+            ("copy_add1 2^20", lambda: P.copy_add1(x20, PROBE_N),
+             lambda: x20 + 1.0),
             ("pm_roundtrip_add1",
              lambda: P.pm_roundtrip_add1(xs, PROBE_N, 8), lambda: xs + 1.0),
             ("select_pm_add1 HIGHEST", lambda: P.select_pm_add1(xs),
@@ -3722,6 +3819,7 @@ def probes_phase(card, dev, chain_ms, relayout):
              for k, n in (("lone", 1), ("back_to_back", 10))}
         ring[name] = {k: {"ms": min(v[1:3]), "library_ms": min(v[0], v[3]),
                           "turns": v} for k, v in t.items()}
+        nbound = bound(0, 8 * (x20 if "2^20" in name else xs).numel())[0]
         for k, v in ring[name].items():
             print(f"  {name} {k.replace('_', ' ')}, in turns with its torch "
                   f"call: {' '.join(f'{u:.4f}' for u in v['turns'])} ms; "
@@ -3729,12 +3827,14 @@ def probes_phase(card, dev, chain_ms, relayout):
                   f" % of the bytes bound {nbound:.4f}), the call "
                   f"{v['library_ms']:.4f} ms  [{card}]")
     print("  plain versions (ms): " + "  ".join(
-        f"{k} {v:.4f}" for k, v in plain.items()) + "; torch calls: "
-        f"x + 1 {library['x + 1']:.4f}, program-major "
-        f"{library['copy_pm_add1']:.4f}, the "
-        f"selection's relayout + 1 as one add {library['select_pm_add1']:.4f}"
-        f"  [{card}]")
-    del x, xs, xpm, view, sel_out
+        f"{k} {v:.4f}" for k, v in plain.items()) + "; torch calls (lone, "
+        f"{CALLS} back to back): x + 1 {library['x + 1']:.4f}, "
+        f"{library['x + 1 back to back']:.4f}; program-major "
+        f"{library['copy_pm_add1']:.4f}, "
+        f"{library['copy_pm_add1 back to back']:.4f}; the selection's "
+        f"relayout + 1 as one add {library['select_pm_add1']:.4f}, "
+        f"{library['select_pm_add1 back to back']:.4f}  [{card}]")
+    del x, xs, xpm, x20, view, sel_out
 
     # -- the sweeps: the probes' main path ------------------------------------
     kernels = (P.copy_add1, P.copy_pm_add1, P.outputs_floor,
@@ -3761,24 +3861,41 @@ def probes_phase(card, dev, chain_ms, relayout):
     # the output floor reads float32, as the reference's; the chain reads
     # int16, so its own output set moves the input's half fewer bytes
     bytes_int16 = floor_row["bytes"] - 2 * C * CHUNK
-    print(f"  floor ratio: the headline chain {chain_ms:.4f} ms (phase 5) "
-          f"over its output floor {floor_row['ms']:.4f} ms (N={PROBE_N}, "
-          f"{PROBE_NBINS} bins, float32 in) = "
-          f"{chain_ms / floor_row['ms']:.3f}; over the copy floor "
-          f"{copy_row['ms']:.4f} ms = {chain_ms / copy_row['ms']:.3f}; the "
-          f"output set's bytes bound with int16 in "
-          f"{bound(0, bytes_int16)[0]:.4f} ms ({bytes_int16 / 1e9:.3f} GB), "
-          f"float32 in {bound(0, floor_row['bytes'])[0]:.4f} ms  [{card}]")
+    # both terms back to back, as the reference times its probes; the lone
+    # calls' ratio beside it
+    floor_ratio = chain_ms_b2b / floor_row["ms"]
+    floor_ratio_lone = chain_ms / floor_row["lone_ms"]
+    print(f"  floor ratio: the headline chain {chain_ms_b2b:.4f} ms (phase 5, "
+          f"{CALLS} back to back) over its output floor {floor_row['ms']:.4f}"
+          f" ms (N={PROBE_N}, {PROBE_NBINS} bins, float32 in, {CALLS} back "
+          f"to back) = {floor_ratio:.3f}; as lone calls {chain_ms:.4f} over "
+          f"{floor_row['lone_ms']:.4f} = {floor_ratio_lone:.3f}; over the "
+          f"copy floor {copy_row['ms']:.4f} ms = "
+          f"{chain_ms_b2b / copy_row['ms']:.3f}; the output set's bytes bound "
+          f"with int16 in {bound(0, bytes_int16)[0]:.4f} ms "
+          f"({bytes_int16 / 1e9:.3f} GB), float32 in "
+          f"{bound(0, floor_row['bytes'])[0]:.4f} ms  [{card}]")
 
-    def entry(name, replaces, ms, nbytes, plain_ms, library_ms, flop=0.0,
+    def both(r):
+        """A sweep row's (lone, back-to-back) times."""
+        return r["lone_ms"], r["ms"]
+
+    def entry(name, replaces, timed, nbytes, plain_ms, library, flop=0.0,
               peak=PEAK_FLOPS, **more):
+        """The kernels line's entry of a probe: ``timed`` and ``library``
+        (its torch call's, or None) are (lone, back-to-back) ms, under
+        window_matmul's key names."""
         b = bound(flop, nbytes, peak)
+        lib_ms, lib_b2b = library or (None, None)
         return {"name": name, "route": "cuda",
                 "source": "audian_torch/csrc/probes.cu",
                 "replaces": replaces, "launches": launches.get(name),
-                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b[0], "bound_by": b[1],
-                "library_ms": library_ms, "bound_share": b[0] / ms, **more}
+                "max_abs_err": errs[name], "ms": timed[0],
+                "ms_back_to_back": timed[1], "plain_ms": plain_ms,
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms,
+                "library_ms_back_to_back": lib_b2b,
+                "bound_share": b[0] / timed[0],
+                "bound_share_back_to_back": b[0] / timed[1], **more}
 
     rt_row = row("phase_restructure", "reshape+transpose x2")
     sel_rows = {p: row("phase_restructure", f"selection products, {p}")
@@ -3787,39 +3904,56 @@ def probes_phase(card, dev, chain_ms, relayout):
     flop_sel = 2.0 * (sel_rows["HIGHEST"]["bytes"] // 8) * (P.GROUP // 8)
     out = [
         entry("copy_add1", "benchmarks/call_scaling_bench.py:46",
-              copy_row["ms"], copy_row["bytes"], plain["copy_add1"],
-              torch_row["ms"],
+              both(copy_row), copy_row["bytes"], plain["copy_add1"],
+              both(torch_row), turns=ring["copy_add1"],
+              turns_2e20=ring["copy_add1 2^20"], host_us=host["copy_add1"],
+              host_us_torch=host["x + 1"],
+              host_us_launcher=host["copy's bare launcher"],
               also_replaces=["benchmarks/dma_floor_bench.py:53",
                              "benchmarks/phase_restructure_bench.py:62"]),
         entry("copy_pm_add1", "benchmarks/dma_floor_bench.py:73",
-              row("dma_floor", f"copy contiguous N={PROBE_N}")["ms"],
+              both(row("dma_floor", f"copy contiguous N={PROBE_N}")),
               copy_row["bytes"], plain["copy_pm_add1"],
-              library["copy_pm_add1"]),
+              (library["copy_pm_add1"],
+               library["copy_pm_add1 back to back"]),
+              turns=ring["copy_pm_add1"], host_us=host["copy_pm_add1"]),
         entry("outputs_floor", "benchmarks/dma_floor_bench.py:93",
-              floor_row["ms"], floor_row["bytes"], plain["outputs_floor"],
-              None, floor_ratio=chain_ms / floor_row["ms"],
-              chain_ms=chain_ms,
+              both(floor_row), floor_row["bytes"], plain["outputs_floor"],
+              None, floor_ratio=floor_ratio,
+              floor_ratio_lone=floor_ratio_lone, chain_ms=chain_ms,
+              chain_ms_back_to_back=chain_ms_b2b,
               bound_ms_int16_in=bound(0, bytes_int16)[0]),
         entry("phase_major", "benchmarks/phase_restructure_bench.py:66",
-              relayout["ms"], relayout["bytes"], relayout["plain_ms"],
-              relayout["library_ms"], stage_ms=relayout["stage_ms"],
+              (relayout["ms"], relayout["ms_back_to_back"]),
+              relayout["bytes"], relayout["plain_ms"],
+              (relayout["library_ms"], relayout["library_ms_back_to_back"]),
+              stage_ms=relayout["stage_ms"],
+              stage_ms_back_to_back=relayout["stage_ms_back_to_back"],
               ifir_launches=relayout["launches"],
               share_of_ifir=relayout["share_of_ifir"],
-              roundtrip={"ms": rt_row["ms"], "bytes": rt_row["bytes"],
+              roundtrip={"ms": rt_row["lone_ms"],
+                         "ms_back_to_back": rt_row["ms"],
+                         "bytes": rt_row["bytes"],
                          "bound_ms": bound(0, rt_row["bytes"])[0],
                          "bound_by": "bytes",
                          "max_abs_err": errs["phase_major"],
                          "plain_ms": plain["pm_roundtrip_add1"],
                          "library_ms": library["x + 1"],
+                         "library_ms_back_to_back":
+                             library["x + 1 back to back"],
                          "launches": launches["pm_roundtrip_add1"],
                          "turns": ring["pm_roundtrip_add1"]}),
         entry("select_pm_add1", "benchmarks/phase_restructure_bench.py:74",
-              sel_rows["HIGHEST"]["ms"], sel_rows["HIGHEST"]["bytes"],
-              plain["select_pm_add1"], library["select_pm_add1"],
+              both(sel_rows["HIGHEST"]), sel_rows["HIGHEST"]["bytes"],
+              plain["select_pm_add1"],
+              (library["select_pm_add1"],
+               library["select_pm_add1 back to back"]),
               flop=2 * flop_sel, peak=PEAK_TF32,
               turns=ring["select_pm_add1 HIGHEST"],
               precision={"DEFAULT": dict(select["default"],
-                                         ms=sel_rows["DEFAULT"]["ms"],
+                                         ms=sel_rows["DEFAULT"]["lone_ms"],
+                                         ms_back_to_back=sel_rows[
+                                             "DEFAULT"]["ms"],
                                          turns=ring["select_pm_add1 DEFAULT"],
                                          bound_ms=bound(
                                              flop_sel,
@@ -3829,12 +3963,17 @@ def probes_phase(card, dev, chain_ms, relayout):
     # phase_major's launches are the IFIR envelope's (phase 16)
     out[3]["launches"] = sum(relayout["launches"].values())
     for e in out + [dict(out[3]["roundtrip"], name="pm_roundtrip_add1")]:
-        lib_ms = e["library_ms"]
-        lib = "none" if lib_ms is None else (
-            f"{lib_ms:.4f} (the kernel {100 * (e['ms'] / lib_ms - 1):+.1f} %)")
-        print(f"  {e['name']}: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} "
-              f"ms ({e['bound_by']}, {100 * e['bound_ms'] / e['ms']:.1f} %), "
-              f"plain {e['plain_ms']:.4f}, library {lib}, launches "
+        b, lone, b2b = e["bound_ms"], e["library_ms"], e[
+            "library_ms_back_to_back"]
+        lib = "none" if lone is None else (
+            f"{lone:.4f} lone, {b2b:.4f} back to back (the kernel "
+            f"{100 * (e['ms'] / lone - 1):+.1f} %, "
+            f"{100 * (e['ms_back_to_back'] / b2b - 1):+.1f} %)")
+        print(f"  {e['name']}: {e['ms']:.4f} ms lone, "
+              f"{e['ms_back_to_back']:.4f} back to back; bound {b:.4f} ms "
+              f"({e['bound_by']}, {100 * b / e['ms']:.1f} %, "
+              f"{100 * b / e['ms_back_to_back']:.1f} %), plain "
+              f"{e['plain_ms']:.4f}, library {lib}, launches "
               f"{e['launches']}  [{card}]")
     return out
 
@@ -3856,7 +3995,7 @@ def main():
     from audian_torch.cli import songdetector
     from audian_torch.data.wavio import read_frames_raw16, wav_info
     from audian_torch.models import get_preset
-    from audian_torch.ops.cuda import _build
+    from audian_torch.ops.cuda import _build, probes
     from audian_torch.ops.cuda.chain import TILES as CHAIN_TILES
     from audian_torch.ops.cuda.chain import WARPS as CHAIN_WARPS
     from audian_torch.ops.cuda.chain import (ALL_OUTPUTS, TAP_PAD, chain,
@@ -3920,7 +4059,7 @@ def main():
         require(inst and all(v[0] > 0 for v in inst),
                 f"every instance of {name} runs HGMMA")
         require(hm == 0, f"{name} runs no warp-level HMMA")
-    for name, (hg, hm, _) in sorted(sass.items()):
+    for name, (hg, hm, *_) in sorted(sass.items()):
         if not any(name == k or name.startswith(k + "<")
                    for k in WGMMA_KERNELS):
             print(f"  {name}: SASS HGMMA {hg}  HMMA {hm}")
@@ -3930,6 +4069,11 @@ def main():
               f"spill bytes")
         require(h["registers"] is not None, f"ptxas reported {name}")
         require(h["spill_bytes"] == 0, f"{name} spills no register")
+    # the copies' one kernel streams device memory in 16-byte words
+    ldg, stg = sass.get(COPY_KERNEL, (0,) * 5)[3:]
+    print(f"  {COPY_KERNEL}: SASS LDG.E.128 {ldg}  STG.E.128 {stg}")
+    require(ldg > 0 and stg > 0, f"{COPY_KERNEL} loads and stores 16-byte "
+            f"words (LDG.E.128 and STG.E.128 in its SASS)")
     # the round trip and the selection products on their bulk-copy rings:
     # every instance copies in bulk
     for name in RING_KERNELS:
@@ -4302,15 +4446,12 @@ def main():
     # the host's enqueue of a call (no synchronize inside), over the three
     # bioacoustics stages
     held = {label: BankSplit() for label in wm_times}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        for label in ("bioacoustics filter", "bioacoustics envelope",
-                      "bioacoustics psd"):
-            x, w, S, nfr, pm, lay = wm_times[label]
-            window_matmul(x, w, S, nfr, pm, lay, split=held[label])
-    wm_host_ms = (time.perf_counter() - t0) / 60 * 1e3
-    torch.cuda.synchronize()
+    stages = [(wm_times[label], held[label])
+              for label in ("bioacoustics filter", "bioacoustics envelope",
+                            "bioacoustics psd")]
+    wm_host_ms = host_us(lambda: [
+        window_matmul(*args, split=split) for args, split in stages],
+        calls=20) / 3e3
     print(f"  window_matmul host enqueue {wm_host_ms:.4f} ms a call")
     # w's TF32 split, once per bank (its owner holds it)
     wm_split_ms = {}
@@ -4321,12 +4462,38 @@ def main():
         print(f"  window_matmul split of the {label} bank {tuple(w.shape)}: "
               f"{wm_split_ms[label]:.4f} ms  [{card}]")
     ch_ms = median_ms(lambda: chain(ck, q, CHUNK, stats=True))
+    # back to back, as the probes' floors of phase 18 are timed (the
+    # floor ratio's numerator)
+    ch_ms_b2b = median_ms(lambda: chain(ck, q, CHUNK, stats=True),
+                          calls=CALLS)
     ch_plain_ms = median_ms(lambda: chain_plain(ck, q, CHUNK, stats=True))
     ch_bound = bound(*chain_work(ck, q, CHUNK))
     ch_bound_tc = bound_tc(*chain_work(ck, q, CHUNK))
-    print(f"  chain headline chunk 16 x 2^22 int16: kernel {ch_ms:.4f} ms  "
-          f"plain {ch_plain_ms:.4f} ms  bound {ch_bound[0]:.4f} ms "
+    print(f"  chain headline chunk 16 x 2^22 int16: kernel {ch_ms:.4f} ms "
+          f"a lone call, {ch_ms_b2b:.4f} ms {CALLS} back to back  plain "
+          f"{ch_plain_ms:.4f} ms  bound {ch_bound[0]:.4f} ms "
           f"({ch_bound[1]})  bound_tc {ch_bound_tc:.4f} ms  [{card}]")
+    # each wrapper's host enqueue of a call (perf_counter, no synchronize
+    # inside): the chain at the headline, the copies on a small tensor
+    # beside torch's x + 1 on it and the copy's bare launcher (window_matmul
+    # above, envdet in phase 9, where its kernel is made)
+    x_small = torch.randn((C, HOST_T), generator=gen).to(dev)
+    y_small = torch.empty_like(x_small)
+    xpm_small = x_small.reshape(1, C, HOST_T)
+    host = {
+        "chain": host_us(lambda: chain(ck, q, CHUNK, stats=True), calls=20),
+        "window_matmul": 1e3 * wm_host_ms,
+        "copy_add1": host_us(lambda: probes.copy_add1(x_small, HOST_T)),
+        "copy_pm_add1": host_us(lambda: probes.copy_pm_add1(xpm_small)),
+        "x + 1": host_us(lambda: x_small + 1.0),
+        "copy's bare launcher": host_us(
+            lambda: lib.probe_copy_add1_launch(
+                x_small.data_ptr(), y_small.data_ptr(), C, HOST_T, HOST_T,
+                _build.stream(dev))),
+    }
+    print("  host enqueue, us a call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in host.items()) + f"  [{card}]")
+    del x_small, y_small, xpm_small
     # one stage requested at a time (the filter always runs): splits the
     # kernel's time by phase
     ch_stage_ms = {}
@@ -4585,6 +4752,9 @@ def main():
           f"  bound {env_bound[0]:.4f} ms ({env_bound[1]})  bound_tc "
           f"{env_bound_tc:.4f} ms ({100 * env_bound_tc / env_ms:.1f} % "
           f"reached)  [{card}]")
+    # the wrapper's host enqueue of a call (phase 5's for the others)
+    host["envdet"] = host_us(lambda: envdet(ed, qd), calls=20)
+    print(f"  envdet host enqueue {host['envdet']:.2f} us a call  [{card}]")
     # other tiles the host could pick for this design
     for tile in (128, 256, 384, 512, 640):
         if tile == ed.tile or envdet_smem_bytes(
@@ -4645,7 +4815,7 @@ def main():
     rungs = precision_phase(card, dev, bio, wm_times, ed, qd)
 
     # -- phase 18: the benchmark probes --------------------------------------
-    probe_kernels = probes_phase(card, dev, ch_ms, relayout)
+    probe_kernels = probes_phase(card, dev, ch_ms, ch_ms_b2b, relayout, host)
 
     wm_bound = bound(wm_flop, wm_bytes)
     wm_bound_tc = bound_tc(wm_flop, wm_bytes)
@@ -4662,7 +4832,8 @@ def main():
          "source": "audian_torch/csrc/chain.cu",
          "replaces": "audian_tpu/ops/pallas/chain.py:151",
          "launches": launches["chain"], "max_abs_err": chain_err,
-         "ms": ch_ms, "plain_ms": ch_plain_ms, "bound_ms": ch_bound[0],
+         "ms": ch_ms, "ms_back_to_back": ch_ms_b2b, "host_us": host["chain"],
+         "plain_ms": ch_plain_ms, "bound_ms": ch_bound[0],
          "bound_by": ch_bound[1], "bound_tc_ms": ch_bound_tc,
          "bound_share": ch_bound_tc / ch_ms, "tile": ck.tile,
          "stage_ms": ch_stage_ms, "core_max_abs_err": core_err["TF32X3"],
@@ -4697,6 +4868,7 @@ def main():
          "ms": env_ms, "plain_ms": env_plain_ms, "bound_ms": env_bound[0],
          "bound_by": env_bound[1], "bound_tc_ms": env_bound_tc,
          "bound_share": env_bound_tc / env_ms, "tile": ed.tile,
+         "host_us": host["envdet"],
          "library_ms": None, "flac_launches": flac_launches["envdet"],
          "viewer_launches": viewer_launches,
          "multidevice_launches": md_launches["envdet"],

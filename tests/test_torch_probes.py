@@ -16,6 +16,8 @@ only on the card (``chip_smoke.py`` phase 18)."""
 
 import functools
 import importlib.util
+import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -31,9 +33,13 @@ from audian_tpu.ops import design_envelope_filter
 from audian_tpu.ops.fused import FusedChainCF as JaxChain
 
 from audian_torch.convert import ARRAY_KEYS, IFIR_KEYS, chain_from_arrays
+from audian_torch.ops.cuda import _build, chain as chain_mod
+from audian_torch.ops.cuda import envdet as envdet_mod
 from audian_torch.ops.cuda import probes as P
+from audian_torch.ops.cuda import window_matmul as wm_mod
 from audian_torch.ops.cuda.window_matmul import window_matmul
-from audian_torch.probes import call_scaling, dma_floor, phase_restructure
+from audian_torch.probes import (_common, call_scaling, dma_floor,
+                                  phase_restructure)
 
 REPO = Path(__file__).resolve().parents[1]
 C = 16
@@ -381,3 +387,111 @@ def test_probe_main_needs_the_card(monkeypatch):
     for mod in (dma_floor, call_scaling, phase_restructure):
         with pytest.raises(RuntimeError, match="CUDA"):
             mod.main()
+
+
+# -- how a probe row is timed -------------------------------------------------
+
+def test_measure_times_back_to_back_beside_a_lone_call(monkeypatch):
+    """A row's ``ms`` is CALLS calls back to back (as the reference times
+    its probes), its rates from it; the lone call is ``lone_ms``."""
+    asked = []
+
+    def fake(fn, device=None, reps=_common.REPS, calls=1):
+        asked.append(calls)
+        return 0.2 if calls > 1 else 0.25
+
+    monkeypatch.setattr(_common, "median_ms", fake)
+    row = _common.measure("copy_add1", "copy rows N=8192", lambda: None,
+                          2 * 4 * 16 << 22, 1 << 22, torch.device("cuda", 0))
+    assert _common.CALLS == 8 and sorted(asked) == [1, _common.CALLS]
+    assert row["ms"] == 0.2 and row["lone_ms"] == 0.25
+    assert row["gbps"] == pytest.approx((2 * 4 * 16 << 22) / 0.2 / 1e6)
+    text = _common.line(row)
+    assert "0.2000 ms/call" in text and "lone call 0.2500 ms" in text
+
+
+# -- the lean launch path -----------------------------------------------------
+
+def _wrappers():
+    return [P.copy_add1, P.copy_pm_add1, P.outputs_floor, P.pm_forward,
+            P.pm_inverse, P.pm_roundtrip_add1, P.select_pm_add1,
+            chain_mod.chain, envdet_mod.envdet, wm_mod.window_matmul,
+            wm_mod.split_w]
+
+
+def test_launches_count_exactly_from_threads():
+    """Every wrapper's ``launches`` can be set to 0 and then counts each
+    launch of several threads exactly."""
+    old = sys.getswitchinterval()
+    saved = {w: w.launches for w in _wrappers()}
+    sys.setswitchinterval(1e-6)
+    try:
+        for w in _wrappers():
+            w.launches = 0
+        workers = [threading.Thread(target=lambda: [
+            _build.count_launch(w) for _ in range(300)
+            for w in _wrappers()]) for _ in range(8)]
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in workers)
+        assert {w.__name__: w.launches for w in _wrappers()} == {
+            w.__name__: 8 * 300 for w in _wrappers()}
+    finally:
+        sys.setswitchinterval(old)
+        for w, n in saved.items():
+            w.launches = n
+
+
+def test_cpu_tensors_run_the_plain_versions():
+    """A CPU tensor takes the plain version and counts no launch; the
+    results are the plain versions' bit for bit."""
+    x = torch.from_numpy(_x(1 << 13, bad=False))
+    before = {w: w.launches for w in _wrappers()}
+    pairs = [(P.copy_add1(x, 4096), P.copy_add1_plain(x, 4096)),
+             (P.copy_pm_add1(x.reshape(2, C, -1)),
+              P.copy_pm_add1_plain(x.reshape(2, C, -1))),
+             (P.outputs_floor(x, 4096), P.outputs_floor_plain(x, 4096)),
+             (P.pm_forward(x, 8), P.pm_forward_plain(x, 8)),
+             (P.pm_inverse(x, 8), P.pm_inverse_plain(x, 8)),
+             (P.pm_roundtrip_add1(x, 4096), P.pm_roundtrip_add1_plain(x,
+                                                                     4096)),
+             (P.select_pm_add1(x), P.select_pm_add1_plain(x))]
+    for got, want in pairs:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert {w: w.launches for w in _wrappers()} == before
+
+
+@pytest.mark.parametrize("call", [
+    lambda m: P.copy_add1(m, 1024),
+    lambda m: P.copy_pm_add1(m.reshape(1, 4, 1024)),
+    lambda m: P.outputs_floor(m, 1024),
+    lambda m: P.pm_forward(m, 2),
+    lambda m: P.pm_inverse(m, 2),
+    lambda m: P.pm_roundtrip_add1(m, 1024, 4),
+    lambda m: P.select_pm_add1(m),
+    lambda m: wm_mod.window_matmul(m, torch.empty((2, 2), device="meta"), 1,
+                                   2),
+    lambda m: wm_mod.split_w(m),
+])
+def test_another_device_raises(call):
+    """Neither cuda nor cpu: ValueError, as before the launch path was
+    shared."""
+    with pytest.raises(ValueError, match="meta"):
+        call(torch.empty((4, 1024), device="meta"))
+
+
+def test_load_library_takes_no_lock_once_loaded(monkeypatch):
+    """Once loaded, the library is handed out while another thread holds
+    the build lock."""
+    lib = object()
+    monkeypatch.setattr(_build, "_lib", lib)
+    got = []
+    with _build._lock:
+        t = threading.Thread(target=lambda: got.append(_build.load_library()))
+        t.start()
+        t.join(timeout=10)
+    assert got == [lib]

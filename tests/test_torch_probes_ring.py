@@ -1,6 +1,6 @@
 """The ring kernels of the benchmark probes (``csrc/probes.cu``:
-``pm_roundtrip_kernel`` and ``select_pm_kernel``), their addressing
-emulated on the CPU.
+``pm_roundtrip_kernel`` and ``select_pm_kernel``) and the copies'
+one-shot ``copy_flat_kernel``, their addressing emulated on the CPU.
 
 Both kernels run a persistent grid whose blocks walk their items while a
 producer bulk-copies each item's rows into a ring of shared-memory stages.
@@ -24,6 +24,14 @@ that the items are not a multiple of the grid):
   summed as the tensor cores sum them (a 0/1 operand: each output is one
   product, hi and lo parts added in float32), and the accumulators stored
   by the epilogue's map.
+
+The copies' kernel runs ``copy_add1`` and ``copy_pm_add1`` over the
+tensor's words as one flat range: the blocks of the grid mirror
+(:func:`~audian_torch.ops.cuda.probes.copy_grid`) each take a tile of
+``COPY_U`` x ``COPY_NT`` 16-byte vectors, all a thread's loads before its
+stores, the last ``n % 4`` words one a thread of the last block; a tensor
+not 16-byte aligned takes the same tiles word by word.  Every word is
+written exactly once.
 
 Each result is held bit for bit against the plain version (the selection
 against the plain relayout of its own TF32 parts) and, for the selection,
@@ -426,3 +434,86 @@ def test_select_plan():
     assert P.select_grid(16, 1 << 22, 132) == 132
     assert P.select_grid(3, 37 * 1024, 132) == 16
     assert P.select_grid(1, 1024, 132) == 8
+
+
+# -- the copies' one-shot kernel ----------------------------------------------
+
+def emulate_copy(x):
+    """``copy_flat_kernel`` over ``x`` (a contiguous CPU tensor): its path
+    from the alignment of ``x`` and of a fresh ``y`` (16 bytes, as the
+    launcher's ``aligned16``), each block's tile over the grid mirror.
+    Returns y (NaN where no thread wrote) and each word's count of
+    writes."""
+    xs = x.reshape(-1).numpy()
+    n = xs.size
+    y = np.full(n, np.nan, np.float32)
+    writes = np.zeros(n, np.int64)
+    grid = P.copy_grid(n)
+    vec = x.data_ptr() % 16 == 0 and torch.empty_like(x).data_ptr() % 16 == 0
+    t = np.arange(P.COPY_NT)
+    one = np.float32(1.0)
+
+    def put(words):
+        words = words[words < n]
+        y[words] = xs[words] + one
+        np.add.at(writes, words, 1)
+
+    for b in range(grid):
+        w0 = b * P.COPY_TILE
+        if not vec:
+            for u in range(4 * P.COPY_U):
+                put(w0 + u * P.COPY_NT + t)
+            continue
+        n4, i0 = n // 4, w0 // 4 + t
+        for u in range(P.COPY_U):
+            i = i0 + u * P.COPY_NT
+            i = i[i < n4]
+            put((4 * i[:, None] + np.arange(4)).reshape(-1))
+        if b == grid - 1:
+            put(4 * n4 + t[t < n % 4])
+    return y.reshape(x.shape), writes, vec
+
+
+def _copy_input(shape, offset=0, seed=7):
+    """A contiguous float32 tensor of ``shape`` at ``offset`` words into a
+    fresh buffer (a NaN and an infinity planted), as a view."""
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(_x(1, n + offset + 8, seed)[0]).clone()
+    x = buf[offset:offset + n].view(shape)
+    x.reshape(-1)[n // 2] = float("nan")
+    x.reshape(-1)[n - 1] = float("inf")
+    return x
+
+
+@pytest.mark.parametrize("shape, offset, vec", [
+    ((3, 4100), 0, True),       # the last tile in part
+    ((3, 4099), 0, True),       # a scalar tail of one word
+    ((16, 1 << 12), 0, True),   # whole tiles
+    ((1, 7), 0, True),          # below one tile: one vector, three words
+    ((5, 3, 96), 0, True),      # program-major (nprog, C, N)
+    ((3, 4100), 4, True),       # a view at a 16-byte aligned offset
+    ((3, 4100), 1, False),      # a view at an odd offset: the scalar path
+    ((5, 3, 96), 3, False),
+])
+def test_copy_emulation_writes_each_word_once(shape, offset, vec):
+    x = _copy_input(shape, offset)
+    assert x.is_contiguous() and (x.storage_offset() == offset)
+    y, writes, took_vec = emulate_copy(x)
+    assert took_vec == vec
+    assert (writes == 1).all()
+    want = (P.copy_add1_plain(x, shape[1]) if len(shape) == 2
+            else P.copy_pm_add1_plain(x))
+    np.testing.assert_array_equal(y.view(np.int32), want.numpy().view(
+        np.int32))
+    # the wrappers' CPU path is the plain version
+    got = P.copy_add1(x, shape[1]) if len(shape) == 2 else P.copy_pm_add1(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_copy_grid():
+    """One block a tile of COPY_TILE words, none for an empty tensor; the
+    headline 16 ch x 2^22 is 16384 one-shot blocks."""
+    assert P.COPY_TILE == 4 * P.COPY_NT * P.COPY_U == 4096
+    assert [P.copy_grid(n) for n in (0, 1, 7, 4096, 4097, 12300)] == [
+        0, 1, 1, 1, 2, 4]
+    assert P.copy_grid(16 << 22) == 16384
