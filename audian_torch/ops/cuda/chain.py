@@ -520,8 +520,15 @@ def chain(ck, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
     ``chain.launches``); a CPU
     tensor runs :func:`chain_plain`.  ``outputs`` is the static mask: a
     stage not requested is neither computed nor written, returns ``None``
-    and reports zero stats.
+    and reports zero stats.  A host array (numpy, as the JAX chain takes)
+    goes to the design's device first: int16 as it is, anything else as
+    float32.
     """
+    if not isinstance(x_ext, torch.Tensor):
+        a = np.asarray(x_ext)
+        if a.dtype != np.int16:
+            a = a.astype(np.float32, copy=False)
+        x_ext = torch.from_numpy(np.ascontiguousarray(a)).to(ck.h.device)
     if x_ext.device.type == "cpu":
         return chain_plain(ck, x_ext, n, stats, outputs)
     if x_ext.device.type != "cuda":

@@ -267,7 +267,23 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     with its lone call beside it; and the floor ratio: phase 5's headline
     chain over the output floor (N = 8192, 129 bins) of this run, both 8
     calls back to back (and as lone calls beside it), and over the copy
-    floor.
+    floor;
+19. the examples (``examples_torch/``): the batch twin's three modes
+    (``fused_single_chip``, ``sharded_whole_recording`` and
+    ``detect_directory`` on two 90 s x 2 ch WAVs at 48 kHz, one interior
+    detect chunk each) on the card, with the launch counters zeroed just
+    before and read just after (chain and envdet must launch), each held
+    against the same mode with ``device="cpu"``: filtered, envelope and
+    min/max within 1e-5, the PSD within 0.013 dB inside 60 dB of the
+    peak, the onsets within 0.1 s; then each plugin twin copied into a
+    launch directory of its own (both add a trace named ``envelope``)
+    and loaded by ``Plugins`` into a ``DataBrowser`` on the card over a
+    written 440 Hz tone: the ``envelope`` and ``difference`` traces are
+    there, ``difference`` equals ``torch.diff`` of the filtered region
+    pulled to the host and was computed on the card, ``zerocrossings``
+    gives 440 Hz within 10 %, ``peaks`` stores the region's largest
+    sample.  The phase's wall time and each mode's seconds on the card
+    and on the CPU (host clock).
 
 Phase 4 starts with both TF32 flags on and checks that they are still on
 after it: the port scopes full float32 to its own calls.
@@ -295,7 +311,8 @@ runs of phase 13, and envdet ``viewer_launches``, its launches on the song
 viewer's envelope keys of phase 14.  Every kernel carries
 ``multidevice_launches``, its launches on phase 15's paths: chain on the
 seq=4 bioacoustics pipeline, window_matmul on the seq=4 ultrasound one,
-envdet on the two sharded detect calls.  window_matmul also carries
+envdet on the two sharded detect calls.  Chain, window_matmul and envdet
+carry ``examples_launches``, their launches on phase 19's batch twin.  window_matmul also carries
 ``ifir_launches`` and ``ifir_ms``, its launches on phase 16's IFIR
 envelope of one headline chunk and that envelope's time; its ``ms``,
 ``library_ms`` and ``bound_share`` are lone calls, and
@@ -3978,6 +3995,200 @@ def probes_phase(card, dev, chain_ms, chain_ms_b2b, relayout, host):
     return out
 
 
+# -- phase 19: the examples ---------------------------------------------------
+
+EX_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "examples_torch")
+EX_DETECT_SECONDS = 90.0     # each detect WAV: one interior chunk at 48 kHz
+EX_PLUGINS = ("audianplugins", "audianexample")
+EX_TONE = 440.0              # Hz, channel 0 of the plugins' recording
+EX_SECONDS = 10.0            # the plugins' recording
+EX_REGION = (1.0, 3.0)       # s, the analyzed region
+TOL_EX_ZC = 0.1              # the zero-crossing rate, relative to the tone
+
+
+def load_example(name):
+    """``examples_torch/<name>.py`` as a module (not run as a script)."""
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(EX_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def batch_modes(bp, x, paths, device):
+    """The batch twin's three modes on ``device``.  Returns their outputs
+    and each mode's seconds (host clock, ended by a synchronize)."""
+    out, secs = {}, {}
+    for mode, arg in (("fused_single_chip", x),
+                      ("sharded_whole_recording", x),
+                      ("detect_directory", paths)):
+        a = time.perf_counter()
+        out[mode] = getattr(bp, mode)(arg, device)
+        torch.cuda.synchronize()
+        secs[mode] = time.perf_counter() - a
+    return out, secs
+
+
+def examples_phase(card, dev):
+    """Phase 19: the example twins of ``examples_torch/`` on the card.
+    The batch twin's three modes on ``dev`` against the same modes with
+    ``device="cpu"`` (the plain versions), the launch counters zeroed just
+    before and read just after the card's run; the two plugin twins, each
+    from a launch directory of its own (both add a trace named
+    ``envelope``), in a browser on ``dev``.  Returns each kernel's
+    launches on the batch modes."""
+    from audian_torch.analysis import Plugins
+    from audian_torch.app import DataBrowser
+    from audian_torch.data import wavio
+    from audian_torch.ops.cuda.chain import chain
+    from audian_torch.ops.cuda.envdet import envdet
+    from audian_torch.ops.cuda.window_matmul import window_matmul
+
+    t_phase = time.perf_counter()
+    bp = load_example("batch_pipeline")
+    x = bp.make_recording()
+    print(f"phase 19: the examples ({EX_DIR}); the batch twin on "
+          f"{x.shape[0] / bp.RATE:g} s x {x.shape[1]} ch at {bp.RATE:g} Hz "
+          f"and two {EX_DETECT_SECONDS:g} s WAVs, on {dev} and on the CPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i in range(2):
+            p = os.path.join(tmp, f"detect{i}.wav")
+            wavio.write_audio(p, bp.make_recording(EX_DETECT_SECONDS,
+                                                   seed=i + 1),
+                              bp.RATE, encoding="PCM_16")
+            paths.append(p)
+        counters = {"chain": chain, "window_matmul": window_matmul,
+                    "envdet": envdet}
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        got, secs = batch_modes(bp, x, paths, dev)
+        launches = {k: c.launches for k, c in counters.items()}
+        want, secs_cpu = batch_modes(bp, x, paths, "cpu")
+        print(f"  launches on the card's run: {launches}")
+        require(launches["chain"] > 0, "the batch twin launched chain")
+        require(launches["envdet"] > 0, "the batch twin launched envdet")
+
+        # fused_single_chip: (filtered, envelope, psd, stats)
+        y, e, s, _ = got["fused_single_chip"]
+        yc, ec, sc, _ = want["fused_single_chip"]
+        require(y.device == dev, f"fused outputs on {y.device}")
+        ey, ee = max_abs(y.cpu(), yc), max_abs(e.cpu(), ec)
+        es = psd_db_err(s.cpu(), sc)
+        require(ey <= TOL_FILTERED, f"fused filtered vs CPU {ey}")
+        require(ee <= TOL_ENVELOPE, f"fused envelope vs CPU {ee}")
+        require(es <= TOL_PSD_DB, f"fused PSD vs CPU {es} dB")
+        print(f"  fused_single_chip vs CPU: filtered {ey:.3e}, envelope "
+              f"{ee:.3e}, PSD {es:.5f} dB")
+        # sharded_whole_recording: filtered, envelope, minmax, spectrogram
+        so, sc_ = got["sharded_whole_recording"], want[
+            "sharded_whole_recording"]
+        require(set(so) == set(sc_) == {"filtered", "envelope",
+                                        "spectrogram", "minmax"},
+                f"sharded keys {set(so)}")
+        errs = {}
+        for key in so:
+            g = so[key].cpu()
+            require(g.shape == sc_[key].shape and bool(torch.isfinite(
+                g).all()), f"sharded {key} shape {tuple(g.shape)}")
+            if key == "spectrogram":
+                errs[key] = psd_db_err(g, sc_[key])
+                require(errs[key] <= TOL_PSD_DB, f"sharded PSD {errs[key]}")
+            else:
+                errs[key] = max_abs(g, sc_[key])
+                require(errs[key] <= TOL_FILTERED,
+                        f"sharded {key} {errs[key]}")
+        print("  sharded_whole_recording vs CPU: " + ", ".join(
+            f"{k} {v:.3e}{' dB' if k == 'spectrogram' else ''}"
+            for k, v in errs.items()))
+        # detect_directory: (path, onsets per channel)
+        worst = 0.0
+        for (pg, og), (pc, oc) in zip(got["detect_directory"],
+                                      want["detect_directory"]):
+            require(pg == pc and len(og) == len(oc) == 2, f"detect {pg}")
+            for a, b in zip(og, oc):
+                require(len(a) == len(b) > 0, f"{pg}: onsets {a} vs {b}")
+                worst = max([worst] + [abs(u - v) for u, v in zip(a, b)])
+        require(worst <= TOL_ONSET_S, f"detect onsets off by {worst} s")
+        print(f"  detect_directory vs CPU: the same songs, onsets within "
+              f"{worst:.4f} s")
+        print("  seconds (host clock, first call in this process): " +
+              "  ".join(f"{k} {secs[k]:.4f} (CPU {secs_cpu[k]:.4f})"
+                        for k in secs) + f"  [{card}]")
+        del got, want
+
+        # -- the plugin twins, each in a launch directory of its own
+        rate = bp.RATE
+        t = np.arange(int(EX_SECONDS * rate)) / rate
+        tone = np.stack([0.3 * np.sin(2 * np.pi * EX_TONE * t),
+                         0.1 * np.sin(2 * np.pi * 3000.0 * t)], axis=1)
+        tone += 0.001 * np.random.default_rng(SEED).standard_normal(
+            tone.shape)
+        wav = os.path.join(tmp, "tone.wav")
+        wavio.write_audio(wav, tone, rate, encoding="PCM_16")
+        for name in EX_PLUGINS:
+            launch = os.path.join(tmp, name)
+            os.mkdir(launch)
+            shutil.copy(os.path.join(EX_DIR, f"{name}.py"), launch)
+            pl = Plugins()
+            pl.load_plugins(launch, verbose=False)
+            require(name in pl.plugins, f"the plugin twin {name} loads")
+            handed = []
+            module = pl.plugins[name]
+            if hasattr(module, "DifferenceNode"):
+                compute = module.DifferenceNode.compute
+
+                def on_device(node, source, *a, compute=compute):
+                    out = compute(node, source, *a)
+                    handed.append((source.device, out.device))
+                    return out
+                module.DifferenceNode.compute = on_device
+            b = DataBrowser(wav, plugins=pl, device=dev).open()
+            try:
+                keys = list(b.data.keys())
+                names = [a.name for a in b.analyzers]
+                traces = b.analyze(*EX_REGION, 0)
+                _tf, yf = traces["filtered"]
+                require("envelope" in keys, f"{name}: traces {keys}")
+                _te, env = traces["envelope"]
+                require(np.isfinite(env).all() and env.max() > 0,
+                        f"{name}: the envelope trace")
+                line = f"  {name}: traces {keys}, analyzers {names}"
+                if name == "audianplugins":
+                    rows = next(a for a in b.analyzers
+                                if a.name == "zerocrossings").data.rows
+                    zc = rows[-1][-1]
+                    require(abs(zc - EX_TONE) <= TOL_EX_ZC * EX_TONE,
+                            f"zero crossings {zc} Hz")
+                    line += f"; zerocrossings {zc:.1f} Hz on {EX_TONE:g} Hz"
+                else:
+                    require("difference" in keys, f"{name}: traces {keys}")
+                    _td, d = traces["difference"]
+                    want_d = torch.diff(torch.from_numpy(yf)).numpy()
+                    require(np.array_equal(d[1:], want_d),
+                            "difference == torch.diff of filtered")
+                    require(handed and all(
+                        s == dev and o == dev for s, o in handed),
+                        f"DifferenceNode computes on {dev}: {handed}")
+                    rows = next(a for a in b.analyzers
+                                if a.name == "peaks").data.rows
+                    i = int(np.argmax(np.abs(yf)))
+                    require(rows[-1][-1] == float(yf[i])
+                            and rows[-1][-2] == float(_tf[i]),
+                            f"peaks {rows[-1]} vs {(_tf[i], yf[i])}")
+                    line += (f"; difference == torch.diff(filtered) on "
+                             f"{len(d)} samples, computed on "
+                             f"{handed[0][1]}; peak {rows[-1][-1]:.4f} at "
+                             f"{rows[-1][-2]:.4f} s")
+                print(line)
+            finally:
+                b.close()
+    print(f"  phase wall {time.perf_counter() - t_phase:.2f} s  [{card}]")
+    return launches
+
+
 def main():
     # -- phase 0: the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -4817,6 +5028,9 @@ def main():
     # -- phase 18: the benchmark probes --------------------------------------
     probe_kernels = probes_phase(card, dev, ch_ms, ch_ms_b2b, relayout, host)
 
+    # -- phase 19: the examples ----------------------------------------------
+    ex_launches = examples_phase(card, dev)
+
     wm_bound = bound(wm_flop, wm_bytes)
     wm_bound_tc = bound_tc(wm_flop, wm_bytes)
     print(f"  window_matmul, three bioacoustics stages: kernel {wm['ms']:.4f} "
@@ -4841,6 +5055,7 @@ def main():
          "core_tflops": core_rates,
          "library_ms": None, "flac_launches": flac_launches["chain"],
          "multidevice_launches": md_launches["chain"],
+         "examples_launches": ex_launches["chain"],
          "precision": rungs["chain"]},
         {"name": "window_matmul", "route": "cuda",
          "source": "audian_torch/csrc/window_matmul.cu",
@@ -4857,6 +5072,7 @@ def main():
          "stage_ms_back_to_back": wm_stage_b2b, "split_ms": wm_split_ms,
          "slower_than_library": wm_slower,
          "multidevice_launches": md_launches["window_matmul"],
+         "examples_launches": ex_launches["window_matmul"],
          "ifir_launches": ifir_launches, "ifir_ms": ifir_ms,
          "precision": dict(rungs["window_matmul"], HIGHEST={
              "ms": wm["ms"], "ms_back_to_back": wm["ms_back_to_back"],
@@ -4872,6 +5088,7 @@ def main():
          "library_ms": None, "flac_launches": flac_launches["envdet"],
          "viewer_launches": viewer_launches,
          "multidevice_launches": md_launches["envdet"],
+         "examples_launches": ex_launches["envdet"],
          "precision": rungs["envdet"]},
         *probe_kernels,
     ]
