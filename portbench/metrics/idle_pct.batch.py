@@ -1,0 +1,6 @@
+"""``idle_pct.batch``: the share of the traced window of a batch cell in
+which no operation ran on the device."""
+
+
+def read(r, trace):
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)
