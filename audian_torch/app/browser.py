@@ -1258,10 +1258,10 @@ class DataBrowser:
         if cached is None or cached[0] != key \
                 or cached[3]() is not trace or (
                 epoch is None and cached[1]() is not buf):
-            stats = pull_groups(buf, lambda t, *_: noise_level_stats(t, nf),
-                                axis=0)
-            _trace.trace_event("render.pull", op="noise_levels",
-                               bytes=stats.nbytes)
+            with _trace.timed("render.pull", op="noise_levels") as span:
+                stats = pull_groups(
+                    buf, lambda t, *_: noise_level_stats(t, nf), axis=0)
+                span["bytes"] = stats.nbytes
             # weak refs: a strong one would pin the superseded
             # spectrogram window (~200 MB) on the device; the trace
             # ref guards the recycled-id case (id(trace) in the key)

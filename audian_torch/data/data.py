@@ -43,6 +43,7 @@ from ..ops.raw16 import dequant16
 from ..parallel.shard import ChannelShards
 from ..utils import pow2_at_least as _pow2ceil
 from ..utils import resolve_device
+from ..utils import trace as _trace
 from . import wavio
 from .loader import AudioLoader
 
@@ -256,13 +257,15 @@ class Trace:
     def update(self, **kwargs):
         """Host-side parameter update (filter cutoffs, NFFT, ...);
         triggers a downstream recompute of the current window."""
-        old_spec = self._node.spec
-        changed = self._node.update(**kwargs)
-        # geometry = the OUTPUT SPEC changed (NFFT/overlap respec): only
-        # then do downstream nodes need a re-open; node.update()'s return
-        # means "recompute needed" and fires on every cutoff scrub
-        self._data._after_update(
-            self.name, geometry_changed=self._node.spec != old_spec)
+        with _trace.timed("data.update", trace=self.name):
+            old_spec = self._node.spec
+            changed = self._node.update(**kwargs)
+            # geometry = the OUTPUT SPEC changed (NFFT/overlap respec):
+            # only then do downstream nodes need a re-open;
+            # node.update()'s return means "recompute needed" and fires on
+            # every cutoff scrub
+            self._data._after_update(
+                self.name, geometry_changed=self._node.spec != old_spec)
         return changed
 
 

@@ -26,7 +26,7 @@ from ..ops.raw16 import dequant16
 from ..utils import resolve_device
 from ..utils import trace as _trace
 from .graph import RAW, TraceGraph
-from .nodes import device_params
+from .nodes import device_nbytes, device_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +107,9 @@ class GraphExecutor:
         p = node.params()
         cached = self._dev_params.get(name)
         if cached is None or cached[0] is not p:
-            cached = (p, device_params(p, self.device))
+            with _trace.timed("graph.params", node=name) as span:
+                cached = (p, device_params(p, self.device))
+                span["bytes"] = device_nbytes(cached[1])
             self._dev_params[name] = cached
         return cached[1]
 
@@ -159,17 +161,20 @@ class GraphExecutor:
         params = {node.name.lower(): self._params(node) for node in nodes}
         # the structured replacement for the reference's per-chunk print
         # (`src/audian/buffereddata.py:92`); it times the launches
-        with _trace.timed("graph.run", offset=int(raw_offset),
-                          frames=raw_frames, nodes=len(plan)):
+        with _trace.timed("graph.run", device=self.device,
+                          offset=int(raw_offset), frames=raw_frames,
+                          nodes=len(plan)):
             raw = dequant16(raw) if raw.dtype == torch.int16 else raw.to(
                 torch.float32)
             bufs = {RAW: (int(raw_offset), raw)}
             for node in nodes:
-                g = plan[node.name.lower()]
+                name = node.name.lower()
+                g = plan[name]
                 src = bufs[node.source_name.lower()][1][g.rel_s0 : g.rel_s1]
-                bufs[node.name.lower()] = (
-                    g.o0, node.compute(src, g.lead, g.n_out,
-                                       params[node.name.lower()]))
+                with _trace.timed("graph.node", device=self.device,
+                                  node=name):
+                    bufs[name] = (g.o0, node.compute(src, g.lead, g.n_out,
+                                                     params[name]))
         if pull:
             return {k: (off, arr.cpu().numpy()) for k, (off, arr)
                     in bufs.items()}

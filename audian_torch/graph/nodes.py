@@ -50,6 +50,16 @@ def device_params(params, device):
     return put(params)
 
 
+def device_nbytes(dev_params):
+    """The bytes :func:`device_params` copied to the device."""
+    if dev_params is None:
+        return 0
+    if isinstance(dev_params, FilterDesign):
+        return (dev_params.zi0.nbytes + dev_params.fir.h.nbytes
+                + dev_params.fir.state_out.nbytes)
+    return dev_params.nbytes
+
+
 class Node:
     """Base class for derived-trace nodes.
 

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ...utils import round_up
+from ...utils import trace as _trace
 from ..envdet import EnvDetDesign, _float_window
 from ..raw16 import dequant16
 from ..sos import _fir_valid_cf, full_fp32
@@ -159,7 +160,8 @@ class EnvDetKernel(EnvDetDesign):
                 f"single-pass envelope kernel requires the first output "
                 f"at exactly hb={self.hb} (got {off0}); use the "
                 f"two-stage EnvDet for unaligned windows")
-        return envdet(self, xw)
+        with _trace.timed("envdet.call", frames=len(xw)):
+            return envdet(self, xw)
 
 
 def _check_window(xw):

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import resolve_device
+from ..utils import trace as _trace
 from .cuda.precision import HIGHEST, MATMUL_RUNGS, check
 from .cuda.window_matmul import BankSplit, window_matmul
 from .design import filtfilt_sym_kernel
@@ -148,7 +149,10 @@ class EnvDet(EnvDetDesign):
     def __call__(self, xw, off0):
         """Envelope of one window ``xw (W, C)`` (float32 or raw int16) with
         the first output at window sample ``off0``: ``(nout, C)``."""
-        off0 = int(off0)
+        with _trace.timed("envdet.call", frames=len(xw)):
+            return self._envelope(xw, int(off0))
+
+    def _envelope(self, xw, off0):
         x_cf = _float_window(xw).T
         C, W = x_cf.shape
         base = self.hb + self.d_bp - self.lead2   # stage-1 output crop

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils import resolve_device
+from ..utils import trace as _trace
 from . import design
 from .cuda.chain import ALL_OUTPUTS, ChainKernel, fits
 from .cuda.probes import pm_forward, pm_inverse
@@ -286,7 +287,9 @@ class FusedChainCF(nn.Module):
             raise ValueError(
                 "the single-pass chain kernel needs filter + envelope "
                 "designs and hop == 128; use the per-stage methods")
-        return self._chain(x_ext, n, stats=stats, outputs=outputs)
+        with _trace.timed("chain.call", device=self.spec_w.device,
+                          frames=int(n)):
+            return self._chain(x_ext, n, stats=stats, outputs=outputs)
 
     def forward(self, x_cf, nspec_frames=None, outputs=ALL_OUTPUTS):
         """Per-stage chain, called as ``chain(x_cf, nspec_frames,

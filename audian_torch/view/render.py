@@ -196,9 +196,9 @@ class TraceTiler:
 
         def fetch(gs, wc):
             args = (gs - boff, step, wc) if minmax else (gs - boff, wc)
-            raw = pull_groups(buf, lambda t, *_: kernel(t, *args))
-            _trace.trace_event("render.pull", op=kernel.__name__,
-                               bytes=raw.nbytes)
+            with _trace.timed("render.pull", op=kernel.__name__) as span:
+                raw = pull_groups(buf, lambda t, *_: kernel(t, *args))
+                span["bytes"] = raw.nbytes
             return _unpack_scaled_i16(raw) if self.quantize else raw
 
         key = (kernel.__name__, id(trace), step, g0 % step)
@@ -310,10 +310,10 @@ def window_extrema(trace, t0, t1, channel):
     key = (id(buf), i0, i1)
     hit = _extrema_cache.get(key)
     if hit is None or hit[0]() is not buf:
-        stats = pull_groups(buf, lambda t, *_: torch.stack(
-            [torch.amin(t[i0:i1], dim=0), torch.amax(t[i0:i1], dim=0)]))
-        _trace.trace_event("render.pull", op="window_extrema",
-                           bytes=stats.nbytes)
+        with _trace.timed("render.pull", op="window_extrema") as span:
+            stats = pull_groups(buf, lambda t, *_: torch.stack(
+                [torch.amin(t[i0:i1], dim=0), torch.amax(t[i0:i1], dim=0)]))
+            span["bytes"] = stats.nbytes
         for k in [k for k, v in _extrema_cache.items() if v[0]() is None]:
             _extrema_cache.pop(k, None)
         if len(_extrema_cache) > 64:
@@ -342,9 +342,9 @@ def power_value(trace, i, channel, j):
     key = (id(buf), start, channel, wb)
     hit = _power_block_cache.get(key)
     if hit is None or hit[0]() is not buf:
-        block = _pull(buf[start : start + wb, channel])
-        _trace.trace_event("render.pull", op="power_block",
-                           bytes=block.nbytes)
+        with _trace.timed("render.pull", op="power_block") as span:
+            block = _pull(buf[start : start + wb, channel])
+            span["bytes"] = block.nbytes
         for k in [k for k, v in _power_block_cache.items()
                   if v[0]() is None]:
             _power_block_cache.pop(k, None)
@@ -467,13 +467,14 @@ class SpecTiler:
             boff = trace.offset
 
             def fetch(gs, wc):
-                stack = pull_groups(buf, lambda t, c0, c1: _db_tile_slice_all(
-                    t, gs - boff,
-                    torch.as_tensor(levels[c0:c1, 0], device=t.device),
-                    torch.as_tensor(levels[c0:c1, 1], device=t.device),
-                    wc * pool, bool(quantize), pool))
-                _trace.trace_event("render.pull", op="db_tile_all",
-                                   bytes=stack.nbytes)
+                with _trace.timed("render.pull", op="db_tile_all") as span:
+                    stack = pull_groups(
+                        buf, lambda t, c0, c1: _db_tile_slice_all(
+                            t, gs - boff,
+                            torch.as_tensor(levels[c0:c1, 0], device=t.device),
+                            torch.as_tensor(levels[c0:c1, 1], device=t.device),
+                            wc * pool, bool(quantize), pool))
+                    span["bytes"] = stack.nbytes
                 return stack
 
             # delta reuse across scrolls (one column = ``pool`` frames):
@@ -485,11 +486,11 @@ class SpecTiler:
                 pool, 1, fetch, boff + len(buf), max_entries=8)
             img = stack[:, channel, :]
         else:
-            img = _pull(_db_tile_slice(buf, s2, channel, float(zmin),
-                                       float(zmax), wb, bool(quantize),
-                                       pool))
-            _trace.trace_event("render.pull", op="db_tile",
-                               bytes=img.nbytes)
+            with _trace.timed("render.pull", op="db_tile") as span:
+                img = _pull(_db_tile_slice(buf, s2, channel, float(zmin),
+                                           float(zmax), wb, bool(quantize),
+                                           pool))
+                span["bytes"] = img.nbytes
         img = img[(i0 - s2) // pool : -(-(i1 - s2) // pool)]
         i0 = s2 + ((i0 - s2) // pool) * pool
         i1 = min(i0 + img.shape[0] * pool, s2 + wb)
