@@ -25,6 +25,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops.cuda.fir import upload_taps
 from ..ops.design import FilterDesign, design_envelope_filter, design_filter
 from ..ops.sos import sosfilt_fir, sosfiltfilt_fir
 from ..ops.stft import hann_window, spectrogram, spectrogram_frequencies
@@ -44,7 +45,9 @@ def device_params(params, device):
                             device=device)
 
     if isinstance(params, FilterDesign):
-        fir = dataclasses.replace(params.fir, h=put(params.fir.h),
+        # the taps with the FIR kernel's operand of them (ops/cuda/fir.py)
+        fir = dataclasses.replace(params.fir,
+                                  h=upload_taps(params.fir.h, device),
                                   state_out=put(params.fir.state_out))
         return dataclasses.replace(params, zi0=put(params.zi0), fir=fir)
     return put(params)

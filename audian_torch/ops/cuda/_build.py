@@ -63,6 +63,7 @@ _SIGNATURES = {
                           _I),
     "conv_rate_launch": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
                          _I),
+    "fir_launch": ([_P, _LL, _LL, _I, _P, _I, _LL, _I, _I, _P, _P], _I),
     "envdet_tile_max": ([], _I),
     "envdet_tile_min": ([], _I),
     "envdet_smem_bytes": ([_I, _I, _I, _I], _LL),

@@ -25,13 +25,23 @@ correction on the first ``T`` samples, and the final state is recovered
 from the last ``T`` inputs, so block-chaining stays exact up to ``eps``.
 ``zi`` conventions and ``sosfiltfilt`` padding follow scipy.
 
-The FIR functions are the building blocks of the fused chain's plain
-version; the convolutions run through ``torch.nn.functional.conv1d`` and
-the state corrections through ``matmul``, all products in full float32
-(:func:`full_fp32`) unless a FIR function is given ``precision=DEFAULT``
-(:mod:`.cuda.precision`): then cuBLAS and cuDNN may take TF32 for that
-call (:func:`matmul_precision`), as the JAX package's DEFAULT runs one
-pass.  HIGHEST, the default, and HIGH keep full float32.
+Which route :func:`sosfilt_fir`'s convolution takes is decided by what
+the input shows, with no option: a float32 stream on a CUDA device runs
+the hand-written kernel :func:`audian_torch.ops.cuda.fir.fir`
+(``csrc/fir.cu``, Toeplitz products on the tensor cores: three TF32
+passes at HIGHEST and HIGH, one at DEFAULT; a long design as slices of
+its taps, one launch each), whatever the design; every other input (the
+CPU, another dtype) runs the plain twin, ``torch.nn.functional.conv1d``
+(:func:`_fir_valid_cf`).  Each call adds its route (``kernel`` or
+``plain``) to the ``fir`` field of the enclosing trace span
+(:func:`audian_torch.utils.trace.tag`; a graph node's ``graph.node``).
+The plain twins of the fused chain and of envdet call
+:func:`_fir_valid_cf` directly and stay on ``conv1d``.  The plain route
+and the state corrections (``matmul``) run all products in full float32
+(:func:`full_fp32`) unless a FIR function is given
+``precision=DEFAULT`` (:mod:`.cuda.precision`): then cuBLAS and cuDNN may
+take TF32 for that call (:func:`matmul_precision`), as the JAX package's
+DEFAULT runs one pass.  HIGHEST, the default, and HIGH keep full float32.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import on_device
+from ..utils import trace as _trace
 from .cuda.precision import DEFAULT, HIGHEST, MATMUL_RUNGS, check
 from .design import filtfilt_padlen
 
@@ -122,6 +133,20 @@ def _conv1d_same_causal(x, h, precision=HIGHEST):
     return _fir_valid_cf(xp, h, precision).T
 
 
+def _causal_fir(x, h, precision=HIGHEST):
+    """:func:`_conv1d_same_causal` by the route ``x`` takes (the module
+    docstring): the kernel for a CUDA float32 stream, else the plain
+    twin; the route is traced."""
+    if x.is_cuda and x.dtype == torch.float32:
+        # imported here: the kernel's module imports the chain's, which
+        # imports this one
+        from .cuda.fir import fir
+        _trace.tag("fir", "kernel")
+        return fir(x, h, precision)
+    _trace.tag("fir", "plain")
+    return _conv1d_same_causal(x, h, precision)
+
+
 def _time_first(x, axis):
     """``(x moved to time-first and flattened to (n, cols), restore)``."""
     if not torch.is_floating_point(x):
@@ -146,7 +171,8 @@ def sosfilt_fir(kernels, x, zi=None, axis=0, return_zf=None,
     conditions come from the last ``T`` samples, plus ``A**n`` times the
     initial state when the block is shorter than the kernel.  Its
     products run at ``precision`` (HIGHEST, HIGH or DEFAULT; see
-    :func:`matmul_precision`).
+    :func:`matmul_precision`); the convolution runs on the tensor-core
+    kernel for a CUDA float32 stream (the module docstring).
     """
     with matmul_precision(precision):
         if return_zf is None:
@@ -156,7 +182,7 @@ def sosfilt_fir(kernels, x, zi=None, axis=0, return_zf=None,
         flat, restore = _time_first(x, axis)
         dtype, dev = flat.dtype, flat.device
         n = flat.shape[0]
-        y = _conv1d_same_causal(flat, kernels.h, precision)
+        y = _causal_fir(flat, kernels.h, precision)
         nstate = kernels.state_out.shape[1]
         s0 = None
         if zi is not None:

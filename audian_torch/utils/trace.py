@@ -18,7 +18,8 @@ it sits in the exported Chrome trace on the device trace's clock, with the
 launches made inside it nested under it.  A span times the host work of
 its block and waits for nothing: where the block ends in a pull
 (``.cpu()``) its host time includes the device work before it, otherwise
-it times the launches.
+it times the launches.  :func:`tag` adds a field to the innermost open
+span from code that runs inside it (the FIR path a node took).
 
 The log keeps per-kind aggregates that never drop (:func:`summary`) and a
 ring of the last :data:`RING` records (:func:`events`) that counts what it
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 __all__ = ["trace_event", "events", "clear", "enable", "disable",
-           "summary", "timed", "device_profile", "idle_by_span"]
+           "summary", "tag", "timed", "device_profile", "idle_by_span"]
 
 logger = logging.getLogger("audian_torch")
 
@@ -82,6 +83,7 @@ def disable():
 
 
 def _stack():
+    """This thread's open spans' records, innermost last."""
     stack = getattr(_local, "stack", None)
     if stack is None:
         stack = _local.stack = []
@@ -115,7 +117,7 @@ def trace_event(kind, **fields):
     if not (_enabled or _profiling()):
         return
     stack = _stack()
-    rec = dict(kind=kind, parent=stack[-1] if stack else None,
+    rec = dict(kind=kind, parent=stack[-1]["id"] if stack else None,
                t_ns=time.perf_counter_ns(), **fields)
     with _lock:
         _add(rec)
@@ -185,8 +187,8 @@ class _Span:
         rec = self.rec
         stack = _stack()
         if stack:
-            rec["parent"] = stack[-1]
-        stack.append(rec["id"])
+            rec["parent"] = stack[-1]["id"]
+        stack.append(rec)
         if _profiling():
             self.rf = torch.profiler.record_function("audian." + rec["kind"])
             self.rf.__enter__()
@@ -209,7 +211,7 @@ class _Span:
         if self.rf is not None:
             self.rf.__exit__(*exc)
         stack = _stack()
-        if stack and stack[-1] == rec["id"]:
+        if stack and stack[-1] is rec:
             stack.pop()
         rec["t1_ns"] = t1
         rec["ms"] = (t1 - rec["t0_ns"]) * 1e-6
@@ -224,6 +226,19 @@ class _Span:
                 _resolve(wait=False)
         _log(rec, ("kind", "id", "parent", "t0_ns", "t1_ns"))
         return False
+
+
+def tag(key, value):
+    """Add ``value`` to the field ``key`` of the innermost span open on
+    this thread, after a comma where the field holds one already (so that
+    a span records each of several calls inside it); a no-op while
+    tracing is off or no span is open."""
+    if not (_enabled or _profiling()):
+        return
+    stack = _stack()
+    if stack:
+        rec = stack[-1]
+        rec[key] = f"{rec[key]},{value}" if key in rec else value
 
 
 def timed(kind, device=None, **fields):

@@ -283,7 +283,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     pulled to the host and was computed on the card, ``zerocrossings``
     gives 440 Hz within 10 %, ``peaks`` stores the region's largest
     sample.  The phase's wall time and each mode's seconds on the card
-    and on the CPU (host clock).
+    and on the CPU (host clock);
+20. the graph's causal FIR kernel (``csrc/fir.cu``, on the convolution
+    core; ``phase 1`` also holds ``fir_kernel`` to no spill, no serialized
+    ``wgmma`` and HGMMA) at the scrub's two designs (the 2-40 kHz
+    band-pass, 1024 taps; the 500 Hz envelope, 4096 taps, on the rectified
+    stream) and a 50 Hz high-pass of 32768 taps (eight launches) on 16 ch
+    x 5.77 M frames: against the plain twin (cuDNN's fp32 ``conv1d``) and
+    float64 slices at the start, middle and ragged end (1e-5 of scale),
+    DEFAULT within 1e-2; short, ragged and column-sliced streams; 8 calls
+    back to back and a lone call beside the 3xTF32 bound of every tap and
+    the plain twin's time; then ``entry()``, the detector's exact envelope
+    and the heterodyne playback with the kernel under them against scipy
+    float64, each FIR call launched (3, 4 and 2).  Phases 10 and 11 hold
+    the graph's main path to the kernel: 3 launches a step of the cutoff
+    scrub and 3 in a full-window recompute.
 
 Phase 4 starts with both TF32 flags on and checks that they are still on
 after it: the port scopes full float32 to its own calls.
@@ -341,6 +355,12 @@ launcher's); ``outputs_floor`` the ``floor_ratio`` (back to back),
 ``floor_ratio_lone``, ``chain_ms``, ``chain_ms_back_to_back`` and
 ``bound_ms_int16_in``, the bytes bound of the output set with the chain's
 int16 input.
+The FIR kernel's entry (phase 20) carries, for each design, its ``taps``,
+``launches`` a call, errors, ``ms`` (lone) and ``ms_back_to_back``,
+``bound_tc_ms`` (every tap in three TF32 passes, or the bytes) with both
+shares, and the plain twin's ``plain_ms``; its ``launches`` on the main
+path (the cutoff scrub and the recompute of phases 10-11, also split as
+``interactive_launches``) and ``phase20_launches``.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -408,6 +428,13 @@ TOL_DETECT_ORACLE = 2e-5
 TOL_ONSET_S = 0.1        # tests/test_songdetector.py identical songs
 
 
+def device_work(e):
+    """Whether a profiler event is work on the card: a CUDA event that is
+    not the device-side copy of a program span's range (``audian.*``)."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("audian."))
+
+
 def require(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -431,9 +458,9 @@ def bound_tc(flop, nbytes):
 
 
 #: the kernels that run on warpgroup MMAs (and must show HGMMA in SASS):
-#: the three program kernels and the probes' selection products
+#: the four program kernels and the probes' selection products
 WGMMA_KERNELS = ("chain_kernel", "envdet_kernel", "window_matmul_kernel",
-                 "select_pm_kernel")
+                 "fir_kernel", "select_pm_kernel")
 #: the probes' copy and relayout kernels (csrc/probes.cu), which must not
 #: spill either
 PROBE_KERNELS = ("copy_flat_kernel", "outputs_floor_kernel",
@@ -1684,8 +1711,10 @@ def interactive_checks(d, path, refresh, dev, view):
     """Phase 10's checks on the window left by the page session at
     ``view``: delta == full, scipy float64 on a 2 s slice of channel 0,
     exact min/max tiles, the raw window against the file, and the plan
-    cache under a cutoff scrub.  Returns the scrub's host seconds."""
+    cache and the FIR kernel's launches under a cutoff scrub.  Returns the
+    scrub's host seconds and its FIR launches."""
     from audian_torch.data.wavio import read_frames_raw16, wav_info
+    from audian_torch.ops.cuda.fir import fir
     from audian_torch.ops.minmax import reduceat_like
     from audian_torch.view.render import TraceTiler
 
@@ -1727,9 +1756,11 @@ def interactive_checks(d, path, refresh, dev, view):
         require(err <= TOL_DELTA, f"{name} delta vs full {err}")
         print(f"  {name}: delta-stitched window == full recompute within "
               f"{err:.3e} ({tuple(b_s.shape)})")
-    # the cutoff scrub adds no plan
+    # the cutoff scrub adds no plan, and each of its steps runs the graph's
+    # three FIR calls (the filter, the envelope's two passes) on the kernel
     size = d.executor.cache_size
     scrub = []
+    fir.launches = 0
     for cutoff in IA_CUTOFFS:
         torch.cuda.synchronize()
         a = time.perf_counter()
@@ -1739,8 +1770,12 @@ def interactive_checks(d, path, refresh, dev, view):
         scrub.append(time.perf_counter() - a)
     require(d.executor.cache_size == size,
             f"cutoff scrub: {size} -> {d.executor.cache_size} plans")
-    print(f"  cutoff scrub {IA_CUTOFFS}: executor.cache_size stays {size}")
-    return scrub
+    require(fir.launches == 3 * len(IA_CUTOFFS),
+            f"cutoff scrub: fir launched {fir.launches} times, not "
+            f"{3 * len(IA_CUTOFFS)}")
+    print(f"  cutoff scrub {IA_CUTOFFS}: executor.cache_size stays {size}; "
+          f"fir launched {fir.launches} times (3 a step)")
+    return scrub, fir.launches
 
 
 def node_split(d, reps=3):
@@ -1792,8 +1827,7 @@ def node_split(d, reps=3):
         dt = getattr(e, "device_time_total", 0.0)
         if e.key.startswith("node:"):
             by_node[e.key[5:]] = dt / 1e3
-        elif (e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0):
+        elif device_work(e) and e.self_device_time_total > 0:
             kernels.append((e.self_device_time_total / 1e3, e.key))
     return ms, by_node, sorted(kernels, reverse=True)
 
@@ -1812,7 +1846,7 @@ def busy_share(d, refresh, starts):
         torch.cuda.synchronize()
         wall = time.perf_counter() - a
     busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+               if device_work(e)) / 1e6
     return wall, busy
 
 
@@ -1858,7 +1892,9 @@ def pcts(lat):
 def interactive_phases(card, dev, tmp):
     """Phases 10 and 11: the interactive data path on the card.  The
     recording and its 8-channel copy are written to ``tmp``; returns their
-    paths (phase 12 opens them again)."""
+    paths (phase 12 opens them again) and the FIR kernel's launches in the
+    cutoff scrub and a full-window recompute."""
+    from audian_torch.ops.cuda.fir import fir
     from audian_torch.view.render import window_extrema
 
     print(f"phase 10: the interactive path, a {IA_SECONDS} s x {C} ch x "
@@ -1885,8 +1921,8 @@ def interactive_phases(card, dev, tmp):
     require(deltas >= 1, "a page took the delta path")
     print(f"  {len(lat)} pages, {deltas} with a moved raw window on "
           f"the delta path; executor plans {d.executor.cache_size}")
-    scrub = interactive_checks(d, path, refresh, dev,
-                               (last, last + IA_VIEW))
+    scrub, scrub_fir = interactive_checks(d, path, refresh, dev,
+                                          (last, last + IA_VIEW))
     jumps = [timed_move(d, refresh, t0) for t0 in IA_JUMPS]
     for name in IA_NAMES:
         buf = d[name].buffer
@@ -1916,6 +1952,12 @@ def interactive_phases(card, dev, tmp):
     d.update_times(100.0, 100.0 + IA_VIEW)
     flop, plan = recompute_flop(d)
     dev_raw, off = d._dev_raw, d._dev_raw_off
+    fir.launches = 0
+    d.executor.run(dev_raw, off, targets=IA_NAMES)
+    torch.cuda.synchronize()
+    require(fir.launches == 3, f"the full-window recompute launched fir "
+            f"{fir.launches} times, not 3")
+    recompute_fir = fir.launches
     full_ms = median_ms(lambda: d.executor.run(dev_raw, off,
                                                targets=IA_NAMES))
     split_ms, prof_ms, kernels = node_split(d)
@@ -1975,7 +2017,7 @@ def interactive_phases(card, dev, tmp):
     p50_8, p95_8 = pcts(lat8)
     print(f"  scroll at 8 ch ({len(lat8)} pages): p50 {p50_8:.3f} ms  "
           f"p95 {p95_8:.3f} ms  max {1e3 * max(lat8):.3f} ms  [{card}]")
-    return path, path8
+    return path, path8, {"scrub": scrub_fir, "recompute": recompute_fir}
 
 # -- phase 12: the headless browser -----------------------------------------
 
@@ -3330,8 +3372,7 @@ def multidevice_phase(card, dev, tmp, path, song):
         prof_wall = time.perf_counter() - a
     by_kernel = sorted(
         ((e.self_device_time_total, e.key) for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.self_device_time_total > 0), reverse=True)
+         if device_work(e) and e.self_device_time_total > 0), reverse=True)
     busy_s = sum(t for t, _ in by_kernel) / 1e6
     del codes
     require(l4["chain"] > 0 and l1["chain"] > 0,
@@ -4189,6 +4230,193 @@ def examples_phase(card, dev):
     return launches
 
 
+# -- phase 20: the graph's causal FIR kernel ---------------------------------
+
+FIR_FRAMES = 5_770_000   # the scrub's recomputed window: 60 s, its halos
+FIR_HELD = ((0, 0), (9, 2_900_000), (15, FIR_FRAMES - (1 << 16)))
+FIR_HELD_LEN = 1 << 16   # samples of each (channel, start) held slice
+FIR_EDGES = ((1000, 3), (16384, 2), (16385, 2), (50_000, 1))
+
+
+def fir_f64(src, h, c, start, length):
+    """The causal FIR in float64 (scipy) of channel ``c`` of the stream
+    ``src`` (n, C) over ``[start, start + length)``, zero history."""
+    T = len(h)
+    lo = max(start - T + 1, 0)
+    seg = src[lo:start + length, c].double().cpu().numpy()
+    y = sps.oaconvolve(seg, np.asarray(h, np.float64))
+    return y[start - lo:start - lo + length]
+
+
+def fir_phase(card, dev, ia_fir):
+    """Phase 20: ``csrc/fir.cu`` (``audian_torch.ops.cuda.fir``) at the
+    scrub's two designs, the 2-40 kHz band-pass (1024 taps) and the 500 Hz
+    envelope (4096 taps, on the rectified stream), and at a 50 Hz
+    high-pass of 32768 taps (eight launches of 4096), on 16 ch x 5.77 M
+    frames: against the plain twin (cuDNN's fp32 ``conv1d``,
+    ``_fir_valid_cf``) and float64 slices at the stream's start, middle and
+    ragged end; DEFAULT (one pass) within 1e-2 of scale; short and ragged
+    streams, a column slice (rows 16 words apart); 8 calls back to back and
+    a lone call (the probes' ``measure``) beside the 3xTF32 bound of every
+    tap and the plain twin's time.  Then ``entry()``, the detector's
+    exact envelope (``events._band_env_device``) and the heterodyne
+    playback (``prepare_playback``) with the kernel under them, against
+    scipy float64, each FIR call launched.  Returns the kernels line's
+    entry, whose ``launches`` are the main path's, ``ia_fir`` (phases 10
+    and 11: the cutoff scrub and a full-window recompute)."""
+    from audian_torch.analysis import events
+    from audian_torch.entry import entry
+    from audian_torch.graph.nodes import _sticky_design
+    from audian_torch.ops import sos as sosmod
+    from audian_torch.ops.cuda import fir as firmod
+    from audian_torch.ops.design import (FilterDesign,
+                                         design_envelope_filter,
+                                         design_filter)
+    from audian_torch.ops.mix import prepare_playback
+    from audian_torch.probes._common import measure
+
+    print(f"phase 20: the graph's FIR kernel at {C} ch x {FIR_FRAMES} frames")
+    fir = firmod.fir
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = 0.3 * torch.randn((FIR_FRAMES, C), generator=gen, device=dev)
+    designs = (
+        ("filter", _sticky_design(design_filter(RATE, 2000.0, 40000.0, 2),
+                                  0)[0].fir.h, x),
+        ("envelope", _sticky_design(design_envelope_filter(RATE, 500.0),
+                                    0)[0].fir.h, (math.pi / 2) * x.abs()),
+        ("long", _sticky_design(design_filter(RATE, 50.0, None, 2),
+                                0)[0].fir.h, x))
+    entry_out = {"name": "fir", "route": "cuda",
+                 "source": "audian_torch/csrc/fir.cu",
+                 "replaces": "none (cuDNN's conv1d under sosfilt_fir)",
+                 "launch_taps": firmod.LAUNCH_TAPS, "designs": {}}
+    launches0 = fir.launches
+    for name, h, src in designs:
+        T = len(h)
+        nl = len(firmod.slices(T))
+        l0 = fir.launches
+        got = fir(src, h)
+        require(fir.launches - l0 == nl,
+                f"fir {name}: {fir.launches - l0} launches, not {nl}")
+        plain = sosmod._fir_valid_cf(
+            torch.nn.functional.pad(src.T, (T - 1, 0)), h).T
+        torch.cuda.synchronize()
+        scale = float(plain.abs().max())
+        err_plain = max_abs(got, plain)
+        one = fir(src, h, "default")
+        err64 = err_dc = 0.0
+        for c, start in FIR_HELD:
+            want = torch.from_numpy(fir_f64(src, h, c, start, FIR_HELD_LEN))
+            rows = slice(start, start + FIR_HELD_LEN)
+            err64 = max(err64, max_abs(got[rows, c].cpu(), want))
+            err_dc = max(err_dc, max_abs(one[rows, c].cpu(), want))
+        require(err_dc <= TOL_DEFAULT * scale,
+                f"fir {name} DEFAULT {err_dc} (scale {scale})")
+        require(err64 <= TOL_FILTERED * scale,
+                f"fir {name} vs float64 {err64} (scale {scale})")
+        require(err_plain <= TOL_FILTERED * scale,
+                f"fir {name} vs plain {err_plain} (scale {scale})")
+        print(f"  {name} ({T} taps, {nl} launches): max_abs_err vs float64 "
+              f"{err64:.3e}, vs the plain twin {err_plain:.3e}, DEFAULT "
+              f"{err_dc:.3e} (scale {scale:.3e})")
+        del plain, one
+        flop = 2.0 * T * FIR_FRAMES * C
+        nbytes = 2 * 4 * FIR_FRAMES * C
+        row = measure("fir", f"fir {name}", lambda: fir(src, h), nbytes,
+                      FIR_FRAMES, dev)
+        bound_tc_ms = 1e3 * max(3 * flop / PEAK_TF32, nbytes / PEAK_BYTES)
+        plain_ms = median_ms(lambda: sosmod._fir_valid_cf(
+            torch.nn.functional.pad(src.T, (T - 1, 0)), h), dev, reps=3)
+        print(f"  {name}: kernel {row['ms']:.4f} ms back to back ({CALLS} "
+              f"calls), lone {row['lone_ms']:.4f} ms; 3xTF32 bound of every "
+              f"tap {bound_tc_ms:.4f} ms ({100 * bound_tc_ms / row['ms']:.1f}"
+              f" % reached back to back, {flop * 3 / row['ms'] / 1e9:.1f} "
+              f"TFLOP/s); plain twin (cuDNN) {plain_ms:.4f} ms  [{card}]")
+        entry_out["designs"][name] = {
+            "taps": T, "launches": nl, "max_abs_err": err64, "max_abs_err_plain": err_plain,
+            "max_abs_err_default": err_dc, "ms": row["lone_ms"],
+            "ms_back_to_back": row["ms"], "bound_tc_ms": bound_tc_ms,
+            "bound_share": bound_tc_ms / row["lone_ms"],
+            "bound_share_back_to_back": bound_tc_ms / row["ms"],
+            "plain_ms": plain_ms}
+    # short and ragged streams, a column slice whose rows lie 16 words apart,
+    # with one launch and with eight
+    for name, h, _ in designs[1:]:
+        T = len(h)
+        for n, c in FIR_EDGES:
+            for label, src in (("contiguous", x[:n, :c].contiguous()),
+                               ("column slice", x[:n, 4:4 + c])):
+                got = fir(src, h)
+                want = sosmod._fir_valid_cf(
+                    torch.nn.functional.pad(src.T, (T - 1, 0)), h).T
+                torch.cuda.synchronize()
+                err = max_abs(got, want)
+                require(got.shape == (n, c) and err <= TOL_FILTERED * max(
+                    float(want.abs().max()), 1e-30),
+                    f"fir {name} {n} x {c} {label}: {err}")
+        print(f"  {name}: {', '.join(f'{n} x {c}' for n, c in FIR_EDGES)} "
+              f"(frames x ch, contiguous and column slice) within "
+              f"{TOL_FILTERED:g} of the plain twin")
+    del x, designs
+    # entry(): the filter and the envelope's two passes
+    step, (xe, filt, env) = entry(dev)
+    l0 = fir.launches
+    out = step(xe, filt, env)
+    torch.cuda.synchronize()
+    require(fir.launches - l0 == 3, f"entry() launched fir "
+            f"{fir.launches - l0} times, not 3")
+    x64 = xe.double().cpu().numpy()
+    y64 = sps.sosfilt(filt.sos, x64, axis=0)
+    e64 = np.maximum(sps.sosfiltfilt(env.sos, (np.pi / 2) * np.abs(y64),
+                                     axis=0, padlen=env.padlen), 0.0)
+    for key, want in (("filtered", y64), ("envelope", e64)):
+        err = float(np.abs(out[key].double().cpu().numpy() - want).max())
+        scale = float(np.abs(want).max())
+        require(err <= TOL_FILTERED * scale, f"entry() {key} {err}")
+        print(f"  entry() {key}: max_abs_err vs scipy {err:.3e} (scale "
+              f"{scale:.3e})")
+    # the detector's exact envelope on 20 s x 4 ch of planted songs
+    pcm = np.ascontiguousarray(song_recording(np.random.default_rng(1),
+                                              DETECT_SECONDS)[:20 * 96000, :4])
+    fdes = FilterDesign.from_sos(sps.butter(1, DETECT_BAND, "bandpass",
+                                            fs=RATE, output="sos"))
+    edes = FilterDesign.from_sos(sps.butter(1, DETECT_ENV, "lowpass",
+                                            fs=RATE, output="sos"))
+    l0 = fir.launches
+    y, e = events._band_env_device(fdes, edes, torch.from_numpy(pcm).to(dev))
+    torch.cuda.synchronize()
+    require(fir.launches - l0 == 4, f"the detector's envelope launched fir "
+            f"{fir.launches - l0} times, not 4")
+    y64, e64 = events.detect_env_oracle(pcm / 32768.0, 1, fdes, edes)
+    for key, got, want in (("filtered", y, y64), ("envelope", e, e64)):
+        err = float(np.abs(got.double().cpu().numpy() - want).max())
+        scale = float(np.abs(want).max())
+        require(err <= TOL_DETECT * scale, f"detector {key} {err}")
+        print(f"  detector exact {key}: max_abs_err vs scipy {err:.3e} "
+              f"(scale {scale:.3e})")
+    # the heterodyne playback of the same window
+    xp = torch.from_numpy(pcm / 32768.0).to(dev, torch.float32)
+    l0 = fir.launches
+    play, prate = prepare_playback(xp, RATE, use_heterodyne=True,
+                                   heterodyne_freq=BR_HETERODYNE, device=dev)
+    torch.cuda.synchronize()
+    require(fir.launches - l0 == 2, f"playback launched fir "
+            f"{fir.launches - l0} times, not 2")
+    want, wrate = playback_f64(xp.cpu().numpy(), RATE, BR_HETERODYNE)
+    err = float(np.abs(play.double().cpu().numpy() - want).max())
+    scale = float(np.abs(want).max())
+    require(prate == wrate and err <= TOL_PLAY * scale, f"playback {err}")
+    print(f"  heterodyne playback: max_abs_err vs numpy float64 {err:.3e} "
+          f"(scale {scale:.3e})")
+    entry_out["launches"] = ia_fir["scrub"] + ia_fir["recompute"]
+    entry_out["interactive_launches"] = ia_fir
+    entry_out["phase20_launches"] = fir.launches - launches0
+    print(f"  fir launches on the main path (phases 10-11) "
+          f"{entry_out['launches']} {ia_fir}, in phase 20 "
+          f"{entry_out['phase20_launches']}")
+    return entry_out
+
+
 def main():
     # -- phase 0: the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -4886,15 +5114,13 @@ def main():
         # of the kernels and copies it launched
         by_kernel = sorted(
             ((e.self_device_time_total, e.key) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and e.self_device_time_total > 0), reverse=True)
+             if device_work(e) and e.self_device_time_total > 0),
+            reverse=True)
         busy_s = sum(t for t, _ in by_kernel) / 1e6
         # what the device ran just before each envdet launch: the window's
         # upload, and no copy kernel (the transposing copy is gone)
-        timeline = sorted(
-            (e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA),
-            key=lambda e: e.time_range.start)
+        timeline = sorted((e for e in prof.events() if device_work(e)),
+                          key=lambda e: e.time_range.start)
         before_envdet = [timeline[i - 1].name
                          for i, e in enumerate(timeline)
                          if i > 0 and "envdet_kernel" in e.name]
@@ -5009,7 +5235,7 @@ def main():
 
     # -- phases 10-14: the interactive path, the browser, FLAC, frontends --
     with tempfile.TemporaryDirectory() as tmp:
-        path, path8 = interactive_phases(card, dev, tmp)
+        path, path8, ia_fir = interactive_phases(card, dev, tmp)
         browser_phase(card, dev, tmp, path, path8)
         flac_launches = flac_phase(card, dev, tmp, path8, det_codes, bio)
         del det_codes
@@ -5030,6 +5256,9 @@ def main():
 
     # -- phase 19: the examples ----------------------------------------------
     ex_launches = examples_phase(card, dev)
+
+    # -- phase 20: the graph's FIR kernel ------------------------------------
+    fir_entry = fir_phase(card, dev, ia_fir)
 
     wm_bound = bound(wm_flop, wm_bytes)
     wm_bound_tc = bound_tc(wm_flop, wm_bytes)
@@ -5090,6 +5319,7 @@ def main():
          "multidevice_launches": md_launches["envdet"],
          "examples_launches": ex_launches["envdet"],
          "precision": rungs["envdet"]},
+        fir_entry,
         *probe_kernels,
     ]
     print(json.dumps({"kernels": kernels}))

@@ -350,9 +350,14 @@ def test_detect_on_a_mesh_equals_jax(fresh_budgets):
 def test_map_files_keeps_the_order_and_spreads_the_work():
     files = [f"f{i}" for i in range(13)]
     threads = set()
+    # the first two files wait for each other, so that two workers must
+    # hold them at once: an idle worker would otherwise take every file
+    meet = threading.Barrier(2, timeout=60)
 
     def fn(path):
         threads.add(threading.get_ident())
+        if path in ("f0", "f1"):
+            meet.wait()
         return float(torch.full((256,), int(path[1:])).sum() * 2.0)
 
     assert map_files(fn, files, devices=["cpu"] * 4) == [
