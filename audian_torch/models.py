@@ -9,6 +9,7 @@ from __future__ import annotations
 import dataclasses
 
 from .graph import EnvelopeNode, FilterNode, SpectrogramNode
+from .ops.cuda.precision import HIGHEST
 from .ops.design import FilterDesign, design_envelope_filter, design_filter
 from .ops.fused import FusedChainCF
 from .parallel import ShardedPipeline
@@ -48,16 +49,18 @@ class ChainPreset:
                                     lowpass_cutoff=self.lowpass_cutoff)
         return data
 
-    def fused(self, rate, eps=1e-7, device=None):
+    def fused(self, rate, eps=1e-7, device=None, precision=HIGHEST):
         """The matching channels-first batch chain on ``device`` (the CUDA
-        card by default; "cpu" runs the plain versions)."""
+        card by default; "cpu" runs the plain versions), its products at
+        ``precision`` (:class:`FusedChainCF`)."""
         filt = design_filter(rate, self.highpass_cutoff,
                              self.lowpass_cutoff, self.filter_order)
         env = (design_envelope_filter(rate, self.envelope_cutoff)
                if self.envelope_cutoff else None)
         hop = max(int(round((1 - self.overlap_frac) * self.nfft)), 1)
         return FusedChainCF(rate, filt_sos=filt, env_sos=env,
-                            nfft=self.nfft, hop=hop, eps=eps, device=device)
+                            nfft=self.nfft, hop=hop, eps=eps, device=device,
+                            precision=precision)
 
     def sharded(self, mesh, rate, eps=1e-7, minmax_step=None):
         """The matching mesh-sharded pipeline (on the devices of

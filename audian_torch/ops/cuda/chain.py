@@ -48,10 +48,9 @@ from ._build import SMEM_LIMIT, launch, load_library
 from .precision import (BF16X3, BF16X4, HIGHEST, core_mode,
                         stage_precisions)
 
-__all__ = ["ALL_OUTPUTS", "BF16X3", "BF16X4", "ChainKernel", "bf16_rne",
-           "chain", "chain_plain", "core_steps", "fits", "flags_tensor",
-           "light_units",
-           "pair_taps", "pick_tile", "psd_slices", "psd_slices_bf16",
+__all__ = ["ALL_OUTPUTS", "BF16X3", "BF16X4", "ChainKernel", "as_stream",
+           "bf16_rne", "chain", "chain_plain", "core_steps", "fits",
+           "flags_tensor", "light_units", "pair_taps", "pick_tile", "psd_slices", "psd_slices_bf16",
            "smem_bytes", "split_bf16", "split_tf32", "stream_rows",
            "unit_masses", "unit_steps"]
 
@@ -513,6 +512,18 @@ def chain_plain(ck, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
     return _result(y, e, s, stats, power, env_sum, psd_sum)
 
 
+def as_stream(x_ext, device):
+    """``x_ext`` as a tensor: a host array (numpy, as the JAX chain takes)
+    goes to ``device``, int16 as it is and anything else as float32; a
+    tensor stays where it is."""
+    if isinstance(x_ext, torch.Tensor):
+        return x_ext
+    a = np.asarray(x_ext)
+    if a.dtype != np.int16:
+        a = a.astype(np.float32, copy=False)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 def chain(ck, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
     """The single-pass chain of ``ck`` over ``x_ext = [hb | n | ha...]``.
 
@@ -524,11 +535,7 @@ def chain(ck, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
     goes to the design's device first: int16 as it is, anything else as
     float32.
     """
-    if not isinstance(x_ext, torch.Tensor):
-        a = np.asarray(x_ext)
-        if a.dtype != np.int16:
-            a = a.astype(np.float32, copy=False)
-        x_ext = torch.from_numpy(np.ascontiguousarray(a)).to(ck.h.device)
+    x_ext = as_stream(x_ext, ck.h.device)
     if x_ext.device.type == "cpu":
         return chain_plain(ck, x_ext, n, stats, outputs)
     if x_ext.device.type != "cuda":

@@ -40,7 +40,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    NaN and an infinity on the input of IFIR stage B and of the rectified
    envelope leave exactly the plain version's outputs non-finite, at
    HIGHEST and at DEFAULT (the one-pass instance; the others within 1e-2
-   of scale);
+   of scale); ``chain_cf``'s per-stage route as the ``ultrasound-stages``
+   cell runs it (the 384 kHz ``ultrasound`` chain at eps 1e-7, a 16 ch x
+   (hb + 2^22 + ha) int16 chunk): each of its three window products
+   (the int16 band-pass through ``"dequant"``, the rectified envelope,
+   the hop-256 PSD) against ``window_matmul_plain`` on the same inputs
+   within 1e-5 of scale, its outputs against the per-stage methods on the
+   dequantized stream, the statistics the sums of its outputs, and
+   window_matmul's counter (zeroed before the call) and the
+   ``stages.call`` span's ``launches`` both 3;
 3. ``chain`` kernel against its plain version at the headline chunk
    (16 ch x 2^22 int16, ``bioacoustics``, eps 2e-6, stats; the host's
    tile and its shared memory against the kernel's formula), int16
@@ -303,11 +311,12 @@ Phase 4 starts with both TF32 flags on and checks that they are still on
 after it: the port scopes full float32 to its own calls.
 
 The line before the last is a JSON object with one entry per kernel: its
-launches on its main path (phase 4 for chain and window_matmul, phase 8
-for envdet), its largest error, its time and its plain version's, the
-least time the card could take for the same work (``bound_ms``: fp32 at
-67 TFLOP/s or 3.35 TB/s of device memory, whichever is larger) and the
-time of one PyTorch call computing the same function where there is one.
+launches on its main path (phase 4 for chain, phase 2's per-stage route
+of ``chain_cf`` for window_matmul, phase 8 for envdet), its largest
+error, its time and its plain version's, the least time the card could
+take for the same work (``bound_ms``: fp32 at 67 TFLOP/s or 3.35 TB/s of
+device memory, whichever is larger) and the time of one PyTorch call
+computing the same function where there is one.
 The three tensor-core kernels also carry ``bound_tc_ms``: the same
 true-tap operations in three TF32 passes at 495 TFLOP/s, or the bytes at
 3.35 TB/s, whichever is larger, and ``bound_share``, ``bound_tc_ms``
@@ -326,7 +335,9 @@ viewer's envelope keys of phase 14.  Every kernel carries
 ``multidevice_launches``, its launches on phase 15's paths: chain on the
 seq=4 bioacoustics pipeline, window_matmul on the seq=4 ultrasound one,
 envdet on the two sharded detect calls.  Chain, window_matmul and envdet
-carry ``examples_launches``, their launches on phase 19's batch twin.  window_matmul also carries
+carry ``examples_launches``, their launches on phase 19's batch twin.
+window_matmul also carries ``file_launches``, its launches on phase 4's
+per-stage ultrasound chain over the WAV, and
 ``ifir_launches`` and ``ifir_ms``, its launches on phase 16's IFIR
 envelope of one headline chunk and that envelope's time; its ``ms``,
 ``library_ms`` and ``bound_share`` are lone calls, and
@@ -1193,6 +1204,112 @@ def chain_f64(ck, q, n):
     g = torch.flip(ck.g.double(), (0,)).reshape(1, 1, -1)
     e = torch.nn.functional.conv1d(v[:, None, a : a + n + L - 1], g)[:, 0]
     return y[:, ck.lead : ck.lead + n], e.clamp_min(0.0)
+
+
+def stages_route_check(gen, dev, n=1 << 22):
+    """``chain_cf``'s per-stage route as the ``ultrasound-stages`` cell runs
+    it: the 384 kHz ``ultrasound`` chain at its default eps 1e-7 (a design
+    the single-pass kernel refuses) over a 16 ch int16 chunk
+    ``[hb | n | ha]`` carrying a gated 45 kHz call train.  Each of the
+    call's window products (the band-pass over the int16 chunk through
+    ``"dequant"``, the rectified envelope, the hop-256 PSD) is held against
+    ``window_matmul_plain`` on the same inputs, premap and stride within
+    :data:`TOL_WINDOW` of its output's scale; the route's outputs against
+    the per-stage methods on the chunk's dequantized stream (its halos and
+    slicing), the statistics the sums of its outputs.  ``window_matmul``'s
+    counter, zeroed just before the call, reads 3, as does the
+    ``stages.call`` span's ``launches``.  Returns that count."""
+    from audian_torch.models import get_preset
+    from audian_torch.ops import fused
+    from audian_torch.ops.cuda.chain import ALL_OUTPUTS
+    from audian_torch.ops.cuda.window_matmul import (window_matmul,
+                                                     window_matmul_plain)
+    from audian_torch.ops.raw16 import dequant16
+    from audian_torch.utils import trace
+
+    rate = 384000.0
+    fc = get_preset("ultrasound").fused(rate, device=dev)
+    require(fc.chain_kernel is None, "the design takes the per-stage route")
+    hb, ha = fc.hb, fc.ha
+    t = torch.arange(hb + n + ha, dtype=torch.float64) / rate
+    tone = torch.sin(2 * math.pi * 45000.0 * t) * (
+        torch.sin(2 * math.pi * 10.0 * t) > 0)
+    x = 0.5 * tone + 0.05 * torch.randn((C, len(t)), generator=gen,
+                                        dtype=torch.float64)
+    q = torch.clamp(torch.round(x * 32768.0), -32768, 32767).to(
+        torch.int16).to(dev)
+    del t, tone, x
+    calls = []
+    real = fused.window_matmul
+
+    class Recorded:
+        """``window_matmul`` that keeps each call's arguments and output,
+        its counter the real one's."""
+
+        launches = property(lambda self: real.launches)
+
+        def __call__(self, *args, **kw):
+            out = real(*args, **kw)
+            calls.append((args, kw, out))
+            return out
+
+    recorded = Recorded()
+
+    trace.clear()
+    trace.enable(log=False)
+    fused.window_matmul = recorded
+    try:
+        window_matmul.launches = 0
+        y, e, s, st = fc.chain_cf(q, n, stats=True)
+        made = window_matmul.launches
+        torch.cuda.synchronize()
+        spans = trace.events("stages.call")
+        stages = [ev["stage"] for ev in trace.events("stages.stage")]
+    finally:
+        fused.window_matmul = real
+        trace.disable()
+        trace.clear()
+    require(made == 3 and len(calls) == 3,
+            f"the route launches window_matmul 3 times, {made}")
+    require(len(spans) == 1 and spans[0]["launches"] == made,
+            f"stages.call launches {[c.get('launches') for c in spans]}, "
+            f"window_matmul counted {made}")
+    require(stages == ["filtered", "envelope", "spectrogram", "stats"],
+            f"stages.stage spans {stages}")
+    for stage, (args, kw, got) in zip(ALL_OUTPUTS, calls):
+        kw = {k: v for k, v in kw.items() if k != "split"}
+        want = window_matmul_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, scale = max_abs(got, want), float(want.abs().max())
+        xw, w, S, nfr = args[:4]
+        what = (f"route {stage} window_matmul K={w.shape[0]} "
+                f"O={w.shape[1]} S={S} frames={nfr} "
+                f"premap={kw.get('premap')} {tuple(xw.shape)} {xw.dtype}")
+        require(got.shape == want.shape and err <= TOL_WINDOW * scale,
+                f"{what}: {err} (scale {scale})")
+        print(f"  {what}: max_abs_err {err:.3e} (scale {scale:.3e})")
+        del want
+    del calls
+    y_ps = fc.filtered_cf(dequant16(q))
+    want = (y_ps[:, hb : hb + n], fc.envelope_cf(y_ps)[:, hb : hb + n],
+            fc.spectrogram_fc(y_ps[:, hb : hb + n + fc.nfft - fc.hop]))
+    torch.cuda.synchronize()
+    for name, got, w in zip(ALL_OUTPUTS, (y, e, s), want):
+        err, scale = max_abs(got, w), float(w.abs().max())
+        require(got.shape == w.shape and err <= TOL_WINDOW * scale,
+                f"route {name} == per-stage methods: {err} (scale {scale})")
+        print(f"  route {name} {tuple(got.shape)} against the per-stage "
+              f"methods: max_abs_err {err:.3e} (scale {scale:.3e})")
+    for key, v in (("power", (y.double() ** 2).sum(1)),
+                   ("env_sum", e.double().sum(1)),
+                   ("psd_sum", s.double().sum(0))):
+        gap = float(((st[key].double() - v).abs() / v.abs()).max())
+        require(gap <= TOL_STATS_RTOL, f"route {key} {gap}")
+    print(f"  route of {rate:.0f} Hz hop {fc.hop} on 16 ch x {n} int16: "
+          f"hb {hb} ha {ha}; window_matmul launches {made} (counter zeroed "
+          f"before the call; stages.call launches {spans[0]['launches']}), "
+          f"device {spans[0].get('device_ms', float('nan')):.3f} ms")
+    return made
 
 
 def check_chain(ck, x_ext, n, label):
@@ -4634,6 +4751,7 @@ def main():
                   f"as in the plain version; the others max_abs_err "
                   f"{err:.3e} (scale {scale:.3e})")
     del u_pm, q_wm, x3, u_bad, xe_bad
+    route_launches = stages_route_check(gen, dev)
 
     # -- phase 3: chain ------------------------------------------------------
     print("phase 3: chain kernel vs plain at 16 ch x 2^22 int16")
@@ -5289,7 +5407,8 @@ def main():
         {"name": "window_matmul", "route": "cuda",
          "source": "audian_torch/csrc/window_matmul.cu",
          "replaces": "audian_tpu/ops/pallas/window_matmul.py:41",
-         "launches": launches["window_matmul"], "max_abs_err": wm_err,
+         "launches": route_launches,
+         "file_launches": launches["window_matmul"], "max_abs_err": wm_err,
          "ms": wm["ms"], "plain_ms": wm["plain_ms"],
          "bound_ms": wm_bound[0], "bound_by": wm_bound[1],
          "bound_tc_ms": wm_bound_tc, "bound_share": wm_bound_tc / wm["ms"],

@@ -110,19 +110,30 @@ def test_call_matches_jax(chains, signal, outputs):
 
 def test_ultrasound_per_stage(signal):
     """hop 256 / NFFT 512: both packages refuse the single-pass chain and
-    run the per-stage path; outputs agree, and match scipy."""
+    run the per-stage path; outputs agree, and match scipy.  The port's
+    ``chain_cf`` runs the per-stage route over the stream extended by its
+    halos (zeros) and equals the per-stage methods where they see the same
+    samples (the JAX package's ``chain_cf`` raises)."""
     rate = 96000.0
     jc = jax_preset("ultrasound").fused(rate)
     tc = get_preset("ultrasound").fused(rate, device="cpu")
     assert jc.chain_kernel is None and tc.chain_kernel is None
     assert (tc.hop, tc.nfft) == (256, 512)
-    with pytest.raises(ValueError, match="per-stage"):
-        tc.chain_cf(torch.zeros((1, 4096)), 128)
     t = np.arange(signal.shape[1]) / rate
     x = (0.5 * np.sin(2 * np.pi * 30000.0 * t) + signal[0] * 0.2)[None]
     x = x.astype(np.float32)
     want = jc(x)
     got = tc(torch.from_numpy(x))
+    n, d = x.shape[1], tc.env_delay
+    y, e, s = tc.chain_cf(torch.from_numpy(
+        np.pad(x, [(0, 0), (tc.hb, tc.ha)])), n)
+    nf = (n - tc.nfft) // tc.hop + 1
+    np.testing.assert_allclose(y.numpy(), got["filtered"].numpy(), atol=1e-6)
+    np.testing.assert_allclose(e.numpy()[:, : n - d],
+                               got["envelope"].numpy()[:, : n - d],
+                               atol=2e-6)
+    np.testing.assert_allclose(s.numpy()[:nf], got["spectrogram"].numpy(),
+                               rtol=1e-4, atol=1e-9)
     np.testing.assert_allclose(got["filtered"].numpy(),
                                np.asarray(want["filtered"]), atol=1e-6)
     np.testing.assert_allclose(got["envelope"].numpy(),
@@ -164,7 +175,7 @@ def test_chain_gate_follows_shared_memory():
     """A long envelope whose tile still fits one block's shared memory
     takes the single-pass chain (above the 48 KB default: the launcher
     opts in); a longer one falls back to the per-stage methods, which
-    still run."""
+    still run, and ``chain_cf`` to the per-stage route."""
     filt = design_filter(RATE, 1000.0, 8000.0)
     env = design_envelope_filter(RATE, 24.0)
     fit = FusedChainCF(RATE, filt_sos=filt, env_sos=env, eps=1e-7,
@@ -174,8 +185,9 @@ def test_chain_gate_follows_shared_memory():
     big = FusedChainCF(RATE, filt_sos=filt, env_sos=env, eps=1e-10,
                        device="cpu")
     assert big.chain_kernel is None
-    with pytest.raises(ValueError, match="per-stage"):
-        big.chain_cf(torch.zeros((1, 1024)), 128)
+    y, e, s = big.chain_cf(torch.zeros((1, big.hb + 1024 + big.ha)), 1024)
+    assert (y.shape, e.shape, s.shape) == ((1, 1024), (1, 1024),
+                                           (8, 1, 129))
     out = big(torch.zeros((1, 4096)))
     assert out["envelope"].shape == (1, 4096)
 
