@@ -140,12 +140,13 @@ def node_params_from_arrays(node, arrays, device=None):
     """The device parameters of the port's trace-graph ``node`` (what its
     ``compute`` takes) from the JAX node's ``params()`` as numpy values:
     for a :class:`~audian_torch.graph.nodes.SpectrogramNode` the STFT
-    window, for a filter or envelope node a dict holding
+    window (kept on the host, :meth:`~audian_torch.graph.nodes.Node.upload`),
+    for a filter or envelope node a dict holding
     :data:`DESIGN_KEYS` (``None`` for a pass-through or infeasible
     design).  On ``device``, the CUDA card by default."""
     device = resolve_device(device)
     if isinstance(node, SpectrogramNode) or arrays is None:
-        return device_params(arrays, device)
+        return node.upload(arrays, device)
     missing = set(DESIGN_KEYS) - set(arrays)
     if missing:
         raise KeyError(f"missing design arrays: {sorted(missing)}")

@@ -26,7 +26,7 @@ from ..ops.raw16 import dequant16
 from ..utils import resolve_device
 from ..utils import trace as _trace
 from .graph import RAW, TraceGraph
-from .nodes import device_nbytes, device_params
+from .nodes import device_nbytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,7 +108,7 @@ class GraphExecutor:
         cached = self._dev_params.get(name)
         if cached is None or cached[0] is not p:
             with _trace.timed("graph.params", node=name) as span:
-                cached = (p, device_params(p, self.device))
+                cached = (p, node.upload(p, self.device))
                 span["bytes"] = device_nbytes(cached[1])
             self._dev_params[name] = cached
         return cached[1]

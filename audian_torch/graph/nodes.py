@@ -7,7 +7,9 @@ The counterpart of ``audian_tpu/graph/nodes.py``.  Each node splits into
   copied from the JAX package unchanged;
 - *params*: the host design the node computes with (a
   :class:`~audian_torch.ops.design.FilterDesign`, a Hann window), whose
-  device copy :func:`device_params` makes once per design;
+  device copy :meth:`Node.upload` makes once per design (the spectrogram
+  keeps its window on the host: the STFT builds its analysis bank from it
+  there);
 - ``compute(source, lead, n_out, params)``: tensor ops on the source's
   device, through the port's FIR filtering and STFT ops.
 
@@ -28,7 +30,8 @@ import torch
 from ..ops.cuda.fir import upload_taps
 from ..ops.design import FilterDesign, design_envelope_filter, design_filter
 from ..ops.sos import sosfilt_fir, sosfiltfilt_fir
-from ..ops.stft import hann_window, spectrogram, spectrogram_frequencies
+from ..ops.stft import (hann_window, spectrogram_frequencies,
+                        spectrogram_padded)
 from .spec import TraceSpec
 
 
@@ -54,8 +57,9 @@ def device_params(params, device):
 
 
 def device_nbytes(dev_params):
-    """The bytes :func:`device_params` copied to the device."""
-    if dev_params is None:
+    """The bytes :meth:`Node.upload` copied to the device (none for a
+    window kept on the host)."""
+    if dev_params is None or isinstance(dev_params, np.ndarray):
         return 0
     if isinstance(dev_params, FilterDesign):
         return (dev_params.zi0.nbytes + dev_params.fir.h.nbytes
@@ -166,8 +170,13 @@ class Node:
 
     def params(self):
         """Host parameters consumed by :meth:`compute` (through
-        :func:`device_params`)."""
+        :meth:`upload`)."""
         return None
+
+    def upload(self, params, device):
+        """What :meth:`compute` takes of :meth:`params` on ``device``:
+        :func:`device_params`."""
+        return device_params(params, device)
 
     def static_key(self):
         """Hashable summary of every attribute :meth:`compute` depends on
@@ -426,23 +435,20 @@ class SpectrogramNode(Node):
     def params(self):
         return hann_window(self.nfft)
 
+    def upload(self, params, device):
+        """The window stays a float32 host array: the STFT's kernel route
+        builds its analysis bank from it on the host, once a window
+        (:mod:`audian_torch.ops.stft`)."""
+        return None if params is None else np.asarray(params, np.float32)
+
     def static_key(self):
         return ("spectrogram", self.nfft, self.hop)
 
     def compute(self, source, lead, n_out, params):
         # lead is already a multiple-of-hop alignment offset
-        usable = source[lead:]
-        nf = max((usable.shape[0] - self.nfft) // self.hop + 1, 0)
-        nf = min(nf, n_out)
-        nbins = self.nfft // 2 + 1
-        tail = source.new_zeros((n_out - nf,) + tuple(source.shape[1:])
-                                + (nbins,))
-        if nf <= 0:
-            return tail
-        sxx = spectrogram(usable, self.source_spec.rate, self.nfft, self.hop,
-                          window=params)[:nf]
         # tail frames whose STFT window overhangs the chunk are zero
-        return torch.cat([sxx, tail]) if n_out > nf else sxx
+        return spectrogram_padded(source[lead:], self.source_spec.rate,
+                                  self.nfft, self.hop, n_out, window=params)
 
     def estimate_noiselevels(self, power_db_tail, power_db_all):
         """Auto color levels from the noise floor: zmin = 95th percentile

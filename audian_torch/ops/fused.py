@@ -37,7 +37,7 @@ from .cuda.probes import pm_forward, pm_inverse
 from .cuda.window_matmul import BankSplit, window_matmul
 from .raw16 import dequant16
 from .sos import _toeplitz_bank_np
-from .stft import _dft_matrices, hann_window, one_sided_doubling
+from .stft import analysis_bank
 
 __all__ = ["FusedChainCF", "design_arrays", "kernel_arrays"]
 
@@ -111,13 +111,7 @@ def kernel_arrays(rate, h_filt=None, g_env=None, env_delay=0,
         if a["env_mode"] is None:
             a.update(env_mode="dense", env_halo=len(g) - 1)
             a["env_w"] = _toeplitz_bank_np(g.astype(np.float32), block).T
-    nbins = nfft // 2 + 1
-    win = hann_window(nfft, np.float64)
-    W = _dft_matrices(nfft, nbins, np.float64)
-    scale = 1.0 / (rate * float(np.sum(win ** 2)))
-    dbl = one_sided_doubling(nfft)
-    amp = np.sqrt(np.concatenate([dbl * scale, dbl * scale]))
-    a["spec_w"] = ((win[:, None] * W) * amp[None, :]).astype(np.float32)
+    a["spec_w"] = analysis_bank(nfft, rate)
     return a
 
 

@@ -5,18 +5,46 @@ detrending, i.e. ``scipy.signal.spectrogram(x, fs, window='hann',
 nperseg=nfft, noverlap=nfft-hop, detrend=False, scaling='density',
 mode='psd')``, with ``(n - nfft)//hop + 1`` frames.  The window and the
 DFT matrices are built on the host in float64.
+
+:func:`spectrogram` takes one of two routes, chosen from its input:
+
+- the kernel route: a CUDA float32 signal, the matrix-product method, no
+  detrending and a host window (or none).  The window, the DFT, the
+  density scale and the one-sided doubling are folded into one
+  ``(nfft, 2*nbins)`` analysis bank (:func:`analysis_bank`, the batch
+  chain's ``spec_w`` too), kept on the device per NFFT, rate and window
+  with its TF32 split.  A time-first stream is turned channels-first by
+  the phase-major relayout kernel (:func:`.cuda.probes.pm_forward`, its
+  columns as the phases).  The strided-window product
+  (:func:`.cuda.window_matmul.window_matmul`, ``csrc/window_matmul.cu``)
+  reads the frames straight from the channels-first stream, three TF32
+  passes on the tensor cores (HIGHEST, the precision of an fp32 FMA), and
+  the power is ``re*re + im*im`` of its columns.
+- the plain route, every other input: the frames as a strided view, the
+  window multiplied in, then the real DFT as one full-fp32 matrix product
+  (cuBLAS on the card) or ``torch.fft.rfft`` for NFFT above 1024.  It is
+  the kernel route's twin on the CPU.
+
+The route is traced: ``stft`` on the innermost open span reads ``kernel``
+or ``plain`` (:func:`audian_torch.utils.trace.tag`).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
+from ..utils import trace as _trace
+from .cuda.precision import HIGHEST
+from .cuda.probes import MAX_STRIDE, pm_forward
+from .cuda.window_matmul import BankSplit, window_matmul
 from .sos import full_fp32
 
 __all__ = [
+    "analysis_bank",
     "decibel",
     "frame_signal",
     "hann_window",
@@ -25,6 +53,7 @@ __all__ = [
     "one_sided_doubling",
     "spectrogram",
     "spectrogram_frequencies",
+    "spectrogram_padded",
 ]
 
 
@@ -103,17 +132,99 @@ def _dft_tensors(nfft, dtype, device):
             put(one_sided_doubling(nfft)))
 
 
-def spectrogram(x, rate, nfft, hop, window=None, detrend=False,
-                method="auto"):
-    """One-sided PSD spectrogram of ``x`` ((n,) or (n, channels)).
+def analysis_bank(nfft, rate, window=None):
+    """The ``(nfft, 2*nbins)`` float32 analysis bank of a window product:
+    the window times the real and imaginary DFT, each column scaled by
+    ``sqrt(doubling * scale)`` (the density scale and the one-sided
+    doubling), so that ``re*re + im*im`` of a frame's product is its PSD.
+    Built on the host in float64 from ``window`` (a host array; the
+    periodic Hann by default).  The batch chain's ``spec_w`` and the
+    kernel route of :func:`spectrogram` share it."""
+    nfft = int(nfft)
+    nbins = nfft // 2 + 1
+    win = (hann_window(nfft, np.float64) if window is None
+           else np.asarray(window, np.float64))
+    W = _dft_matrices(nfft, nbins, np.float64)
+    scale = 1.0 / (float(rate) * float(np.sum(win ** 2)))
+    dbl = one_sided_doubling(nfft)
+    amp = np.sqrt(np.concatenate([dbl * scale, dbl * scale]))
+    return ((win[:, None] * W) * amp[None, :]).astype(np.float32)
 
-    ``method`` is "matmul" (real DFT as a matrix product), "fft"
-    (``torch.fft.rfft``) or "auto" (matmul for nfft <= 1024, as the JAX
-    package chooses).  Returns ``(nframes, ..., nfft//2 + 1)`` in
-    ``unit**2/Hz``: time first, frequency last.
-    """
-    if not torch.is_floating_point(x):
-        x = x.to(torch.float32)
+
+@functools.lru_cache(maxsize=16)
+def _device_bank(nfft, rate, window, device):
+    """``(analysis bank, its BankSplit)`` on ``device`` for ``window`` (the
+    bytes of its float64 values, or None), made once: a cutoff step
+    uploads and splits nothing, an NFFT step builds one bank an NFFT."""
+    if window is not None:
+        window = np.frombuffer(window, np.float64)
+    bank = torch.from_numpy(analysis_bank(nfft, rate, window)).to(device)
+    return bank, BankSplit()
+
+
+def _method(method, nfft):
+    """``method`` with "auto" resolved: matmul for nfft <= 1024, as the JAX
+    package chooses."""
+    if method == "auto":
+        return "matmul" if nfft <= 1024 else "fft"
+    return method
+
+
+def _takes_kernel(x, nfft, hop, window, detrend, method):
+    """Whether :func:`spectrogram` runs ``x`` on the kernel route (the
+    module docstring; ``method`` resolved), within the kernel's
+    limits: at most 65535 columns, 32-bit offsets into a column."""
+    if not (x.is_cuda and x.dtype == torch.float32 and method == "matmul"
+            and detrend != "constant"
+            and not isinstance(window, torch.Tensor)):
+        return False
+    n = x.shape[0]
+    cols = math.prod(x.shape[1:])
+    return (cols <= 65535 and n < 2**31
+            and (num_frames(n, nfft, hop) + 64) * hop + nfft < 2**31)
+
+
+def _channels_first(x):
+    """The ``(n, cols)`` stream as the ``(cols, n)`` rows the window
+    product reads (contiguous on the card): a view where it lies so
+    already; from a contiguous time-first stream by the
+    phase-major relayout kernel (:func:`.cuda.probes.pm_forward` with the
+    columns as phases, ``out[c, i] = x[i, c]``); else a torch copy."""
+    n, cols = x.shape
+    if x.T.is_contiguous():
+        return x.T
+    if x.is_contiguous() and cols <= MAX_STRIDE:
+        return pm_forward(x.reshape(1, n * cols), cols)
+    return x.T.contiguous()
+
+
+def _kernel_spectrogram(x, rate, nfft, hop, window, n_out=None):
+    """The kernel route: the first ``min(nframes, n_out)`` frames' PSD by
+    one window product over the channels-first stream, then zero frames up
+    to ``n_out`` (``nframes`` frames where it is None).  On a CPU tensor
+    the window product runs its plain version."""
+    n, rest = x.shape[0], tuple(x.shape[1:])
+    nf = num_frames(n, nfft, hop)
+    if n_out is None:
+        n_out = nf
+    nf = min(nf, n_out)
+    nbins = nfft // 2 + 1
+    key = (None if window is None
+           else np.asarray(window, np.float64).tobytes())
+    bank, split = _device_bank(int(nfft), float(rate), key, x.device)
+    xc = _channels_first(x.reshape(n, math.prod(rest)))
+    s = window_matmul(xc, bank, hop, nf, out_layout="fco", split=split,
+                      precision=HIGHEST)                   # (nf, cols, 2nb)
+    psd = s.new_empty((n_out, xc.shape[0], nbins))
+    head = psd[:nf]
+    torch.mul(s[..., :nbins], s[..., :nbins], out=head)
+    head.addcmul_(s[..., nbins:], s[..., nbins:])
+    psd[nf:].zero_()
+    return psd.reshape((n_out,) + rest + (nbins,))
+
+
+def _plain_spectrogram(x, rate, nfft, hop, window, detrend, method):
+    """The plain route (the module docstring)."""
     dtype = x.dtype
     if window is None:
         window = hann_window(nfft, np.float64)
@@ -126,8 +237,6 @@ def spectrogram(x, rate, nfft, hop, window=None, detrend=False,
     wshape = (1, nfft) + (1,) * (frames.ndim - 2)
     frames = frames * window.reshape(wshape)
     nbins = nfft // 2 + 1
-    if method == "auto":
-        method = "matmul" if nfft <= 1024 else "fft"
     ft = torch.movedim(frames, 1, -1)                 # (nf, ..., nfft)
     if method == "matmul":
         with full_fp32():
@@ -140,6 +249,58 @@ def spectrogram(x, rate, nfft, hop, window=None, detrend=False,
     scale = 1.0 / (rate * torch.sum(window * window))
     factors = _dft_tensors(nfft, dtype, x.device)[1] * scale
     return psd * factors
+
+
+def _routed(x, rate, nfft, hop, window, detrend, method, n_out):
+    """:func:`spectrogram` by the route ``x`` takes, the route traced;
+    with ``n_out`` as :func:`spectrogram_padded`."""
+    if not torch.is_floating_point(x):
+        x = x.to(torch.float32)
+    method = _method(method, nfft)
+    if _takes_kernel(x, nfft, hop, window, detrend, method):
+        _trace.tag("stft", "kernel")
+        return _kernel_spectrogram(x, rate, nfft, hop, window, n_out)
+    _trace.tag("stft", "plain")
+    sxx = _plain_spectrogram(x, rate, nfft, hop, window, detrend, method)
+    if n_out is None:
+        return sxx
+    sxx = sxx[:n_out]
+    nf = sxx.shape[0]
+    if n_out == nf:
+        return sxx
+    return torch.cat([sxx, sxx.new_zeros((n_out - nf,) + sxx.shape[1:])])
+
+
+def spectrogram(x, rate, nfft, hop, window=None, detrend=False,
+                method="auto"):
+    """One-sided PSD spectrogram of ``x`` ((n,) or (n, channels), or more
+    axes after time).
+
+    ``method`` is "matmul" (real DFT as a matrix product), "fft"
+    (``torch.fft.rfft``) or "auto" (matmul for nfft <= 1024, as the JAX
+    package chooses).  ``window`` is a host array or a tensor (the
+    periodic Hann by default); ``detrend`` False or "constant".  Returns
+    ``(nframes, ..., nfft//2 + 1)`` in ``unit**2/Hz``: time first,
+    frequency last.
+
+    A CUDA float32 ``x`` with the matmul method, no detrending and a host
+    window (or none) takes the kernel route: one strided-window product
+    over the analysis bank on the tensor cores in three TF32 passes
+    (HIGHEST, the precision of an fp32 FMA), counted in
+    ``window_matmul.launches``.  Every other input takes the plain route
+    (the module docstring).  The route is tagged ``stft`` on the
+    innermost open span.
+    """
+    return _routed(x, rate, nfft, hop, window, detrend, method, None)
+
+
+def spectrogram_padded(x, rate, nfft, hop, n_out, window=None):
+    """The first ``min(nframes, n_out)`` frames of :func:`spectrogram`
+    (no detrending, the "auto" method), then zero frames up to ``n_out``:
+    a frame whose window overhangs ``x`` is zero, not a frame of the
+    zero-extended signal.  The kernel route writes its power into the
+    ``n_out`` frames where they lie; the plain route appends the zeros."""
+    return _routed(x, rate, nfft, hop, window, False, "auto", int(n_out))
 
 
 def decibel(power, ref_power=1.0, min_power=1e-20):

@@ -306,6 +306,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     float64, each FIR call launched (3, 4 and 2).  Phases 10 and 11 hold
     the graph's main path to the kernel: 3 launches a step of the cutoff
     scrub and 3 in a full-window recompute.
+21. the graph's spectrogram on ``window_matmul`` (the kernel route of
+    ``ops/stft.py``: one window product over the analysis bank, three
+    TF32 passes): ``SpectrogramNode.compute`` on a 60 s x 16 ch float32
+    window at NFFT 64, 256 and 1024 (hop NFFT/2, one overhanging tail
+    frame, zero), the ``stft`` tag ``kernel`` and one launch, against the
+    plain twin (the framed copy and cuBLAS's fp32 product) over bins
+    within 60 dB of the peak and scipy float64 on 2 s of channel 0
+    (0.013 dB); CUDA-event ms of the node, of its stream's relayout and
+    its window product alone, and of the plain twin, beside the
+    product's 3xTF32 bound.  Phases 10
+    and 11 hold the graph's main path to it: window_matmul once a step of
+    the cutoff scrub and once in a full-window recompute, and a traced
+    cutoff step's spectrogram span reads ``stft=kernel``.
 
 Phase 4 starts with both TF32 flags on and checks that they are still on
 after it: the port scopes full float32 to its own calls.
@@ -372,6 +385,10 @@ The FIR kernel's entry (phase 20) carries, for each design, its ``taps``,
 shares, and the plain twin's ``plain_ms``; its ``launches`` on the main
 path (the cutoff scrub and the recompute of phases 10-11, also split as
 ``interactive_launches``) and ``phase20_launches``.
+window_matmul's entry carries ``graph_stft`` (phase 21): for each NFFT the
+node's, the window product's and the plain twin's ``ms``, the errors, the
+product's ``bound_tc_ms`` and share, and the main path's launches and
+traced route (phases 10-11).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -1828,11 +1845,16 @@ def interactive_checks(d, path, refresh, dev, view):
     """Phase 10's checks on the window left by the page session at
     ``view``: delta == full, scipy float64 on a 2 s slice of channel 0,
     exact min/max tiles, the raw window against the file, and the plan
-    cache and the FIR kernel's launches under a cutoff scrub.  Returns the
-    scrub's host seconds and its FIR launches."""
+    cache and the FIR kernel's and window_matmul's launches under a cutoff
+    scrub (the spectrogram's product once a step), and one traced step's
+    ``stft`` route on the spectrogram node's span.  Returns the scrub's
+    host seconds, its FIR launches and its STFT record (window_matmul's
+    launches in the scrub, the traced step's route and launches)."""
     from audian_torch.data.wavio import read_frames_raw16, wav_info
     from audian_torch.ops.cuda.fir import fir
+    from audian_torch.ops.cuda.window_matmul import window_matmul
     from audian_torch.ops.minmax import reduceat_like
+    from audian_torch.utils import trace
     from audian_torch.view.render import TraceTiler
 
     t0, t1 = view
@@ -1877,7 +1899,7 @@ def interactive_checks(d, path, refresh, dev, view):
     # three FIR calls (the filter, the envelope's two passes) on the kernel
     size = d.executor.cache_size
     scrub = []
-    fir.launches = 0
+    fir.launches = window_matmul.launches = 0
     for cutoff in IA_CUTOFFS:
         torch.cuda.synchronize()
         a = time.perf_counter()
@@ -1890,9 +1912,33 @@ def interactive_checks(d, path, refresh, dev, view):
     require(fir.launches == 3 * len(IA_CUTOFFS),
             f"cutoff scrub: fir launched {fir.launches} times, not "
             f"{3 * len(IA_CUTOFFS)}")
+    require(window_matmul.launches == len(IA_CUTOFFS),
+            f"cutoff scrub: window_matmul launched {window_matmul.launches} "
+            f"times, not {len(IA_CUTOFFS)} (the spectrogram once a step)")
+    stft = {"scrub": window_matmul.launches}
+    # one traced cutoff step: the spectrogram node's span names its route
+    window_matmul.launches = 0
+    trace.clear()
+    trace.enable(log=False)
+    try:
+        d["filtered"].update(lowpass_cutoff=IA_CUTOFFS[0])
+        refresh(d, t0, t1)
+        torch.cuda.synchronize()
+        spans = [e for e in trace.events("graph.node")
+                 if e["node"] == "spectrogram"]
+    finally:
+        trace.disable()
+        trace.clear()
+    stft["step"] = {"stft": ",".join(e.get("stft", "") for e in spans),
+                    "launches": window_matmul.launches}
+    require(stft["step"] == {"stft": "kernel", "launches": 1},
+            f"a traced cutoff step's spectrogram: {stft['step']}")
     print(f"  cutoff scrub {IA_CUTOFFS}: executor.cache_size stays {size}; "
-          f"fir launched {fir.launches} times (3 a step)")
-    return scrub, fir.launches
+          f"fir launched {fir.launches} times (3 a step), window_matmul "
+          f"{stft['scrub']} (1 a step); a traced step's spectrogram span: "
+          f"stft={stft['step']['stft']}, window_matmul launched "
+          f"{stft['step']['launches']}")
+    return scrub, fir.launches, stft
 
 
 def node_split(d, reps=3):
@@ -2009,9 +2055,12 @@ def pcts(lat):
 def interactive_phases(card, dev, tmp):
     """Phases 10 and 11: the interactive data path on the card.  The
     recording and its 8-channel copy are written to ``tmp``; returns their
-    paths (phase 12 opens them again) and the FIR kernel's launches in the
-    cutoff scrub and a full-window recompute."""
+    paths (phase 12 opens them again), the FIR kernel's launches in the
+    cutoff scrub and a full-window recompute, and the STFT's record
+    (:func:`interactive_checks`; window_matmul's launches in the
+    recompute)."""
     from audian_torch.ops.cuda.fir import fir
+    from audian_torch.ops.cuda.window_matmul import window_matmul
     from audian_torch.view.render import window_extrema
 
     print(f"phase 10: the interactive path, a {IA_SECONDS} s x {C} ch x "
@@ -2038,8 +2087,8 @@ def interactive_phases(card, dev, tmp):
     require(deltas >= 1, "a page took the delta path")
     print(f"  {len(lat)} pages, {deltas} with a moved raw window on "
           f"the delta path; executor plans {d.executor.cache_size}")
-    scrub, scrub_fir = interactive_checks(d, path, refresh, dev,
-                                          (last, last + IA_VIEW))
+    scrub, scrub_fir, ia_stft = interactive_checks(d, path, refresh, dev,
+                                                   (last, last + IA_VIEW))
     jumps = [timed_move(d, refresh, t0) for t0 in IA_JUMPS]
     for name in IA_NAMES:
         buf = d[name].buffer
@@ -2069,12 +2118,15 @@ def interactive_phases(card, dev, tmp):
     d.update_times(100.0, 100.0 + IA_VIEW)
     flop, plan = recompute_flop(d)
     dev_raw, off = d._dev_raw, d._dev_raw_off
-    fir.launches = 0
+    fir.launches = window_matmul.launches = 0
     d.executor.run(dev_raw, off, targets=IA_NAMES)
     torch.cuda.synchronize()
     require(fir.launches == 3, f"the full-window recompute launched fir "
             f"{fir.launches} times, not 3")
+    require(window_matmul.launches == 1, f"the full-window recompute "
+            f"launched window_matmul {window_matmul.launches} times, not 1")
     recompute_fir = fir.launches
+    ia_stft["recompute"] = window_matmul.launches
     full_ms = median_ms(lambda: d.executor.run(dev_raw, off,
                                                targets=IA_NAMES))
     split_ms, prof_ms, kernels = node_split(d)
@@ -2134,7 +2186,8 @@ def interactive_phases(card, dev, tmp):
     p50_8, p95_8 = pcts(lat8)
     print(f"  scroll at 8 ch ({len(lat8)} pages): p50 {p50_8:.3f} ms  "
           f"p95 {p95_8:.3f} ms  max {1e3 * max(lat8):.3f} ms  [{card}]")
-    return path, path8, {"scrub": scrub_fir, "recompute": recompute_fir}
+    return (path, path8, {"scrub": scrub_fir, "recompute": recompute_fir},
+            ia_stft)
 
 # -- phase 12: the headless browser -----------------------------------------
 
@@ -4534,6 +4587,106 @@ def fir_phase(card, dev, ia_fir):
     return entry_out
 
 
+# -- phase 21: the graph's spectrogram on window_matmul -----------------------
+
+STFT_SECONDS = 60        # the scrub's window
+STFT_NFFTS = (64, 256, 1024)
+STFT_HELD = 2 * 96000    # samples of channel 0 held against scipy float64
+
+
+def stft_phase(card, dev, ia_stft):
+    """Phase 21: ``SpectrogramNode.compute`` on the kernel route of
+    ``ops/stft.py`` (one ``window_matmul`` over the analysis bank) on a
+    60 s x 16 ch float32 window at each of :data:`STFT_NFFTS`, hop NFFT/2
+    and one overhanging tail frame: the ``stft`` tag and the launch, the
+    tail zero, against the plain twin over bins within 60 dB of the peak
+    and scipy float64 on 2 s of channel 0; CUDA-event ms of the node, of
+    its time-first stream's relayout and its window product alone, and of
+    the plain twin (the framed copy and cuBLAS's fp32 product, and the
+    tail's cat), beside the product's
+    3xTF32 bound.  Returns window_matmul's ``graph_stft`` entry, with the
+    main path's record ``ia_stft`` (phases 10-11)."""
+    from audian_torch.graph import SpectrogramNode, TraceSpec
+    from audian_torch.ops import stft
+    from audian_torch.ops.cuda.window_matmul import window_matmul
+    from audian_torch.ops.raw16 import dequant16
+    from audian_torch.utils import trace
+
+    x = dequant16(torch.from_numpy(interactive_recording(
+        STFT_SECONDS, C, dev)).to(dev))
+    n = x.shape[0]
+    print(f"phase 21: the graph's spectrogram on window_matmul, {C} ch x {n} "
+          f"frames float32")
+    out = {"main_path": ia_stft, "nfft": {}}
+    for nfft in STFT_NFFTS:
+        node = SpectrogramNode(nfft=nfft, overlap_frac=0.5)
+        node.open(TraceSpec(rate=RATE, channels=C, frames=n))
+        hop, nbins = node.hop, nfft // 2 + 1
+        window = node.upload(node.params(), dev)
+        nf = stft.num_frames(n, nfft, hop)
+        n_out = nf + 1
+        l0 = window_matmul.launches
+        trace.clear()
+        trace.enable(log=False)
+        try:
+            with trace.timed("graph.node", node="spectrogram"):
+                got = node.compute(x, 0, n_out, window)
+            torch.cuda.synchronize()
+            tag = ",".join(e.get("stft", "") for e in trace.events())
+        finally:
+            trace.disable()
+            trace.clear()
+        launches = window_matmul.launches - l0
+        require(tag == "kernel" and launches == 1,
+                f"spectrogram NFFT {nfft}: stft={tag}, {launches} launches")
+        require(got.shape == (n_out, C, nbins) and not got[nf:].any(),
+                f"spectrogram NFFT {nfft}: shape {tuple(got.shape)}, the "
+                f"tail frame zero")
+
+        def plain():
+            s = stft._plain_spectrogram(x, RATE, nfft, hop, window, False,
+                                        "matmul")
+            return torch.cat([s, s.new_zeros((1,) + s.shape[1:])])
+
+        err = psd_db_err(got[:nf], plain()[:nf])
+        _, _, ss = sps.spectrogram(x[:STFT_HELD, 0].double().cpu().numpy(),
+                                   fs=RATE, window="hann", nperseg=nfft,
+                                   noverlap=nfft - hop, detrend=False,
+                                   scaling="density", mode="psd")
+        want = torch.from_numpy(ss.T)
+        err64 = psd_db_err(got[:want.shape[0], 0].cpu(), want)
+        require(err <= TOL_PSD_DB and err64 <= TOL_PSD_DB,
+                f"spectrogram NFFT {nfft}: {err} dB vs plain, {err64} dB vs "
+                f"float64")
+        del got
+        bank, split = stft._device_bank(
+            nfft, RATE, np.asarray(window, np.float64).tobytes(), x.device)
+        xc = x.T.contiguous()
+        node_ms = median_ms(lambda: node.compute(x, 0, n_out, window), dev)
+        relayout_ms = median_ms(lambda: stft._channels_first(x), dev)
+        wm_ms = median_ms(lambda: window_matmul(xc, bank, hop, nf,
+                                                split=split), dev)
+        plain_ms = median_ms(plain, dev, reps=3)
+        del xc
+        flop = 2.0 * nf * C * nfft * 2 * nbins
+        nbytes = 4.0 * (n * C + nf * C * 2 * nbins)
+        bound_tc_ms = 1e3 * max(3 * flop / PEAK_TF32, nbytes / PEAK_BYTES)
+        print(f"  NFFT {nfft} hop {hop} ({nf} frames): stft={tag}, "
+              f"{launches} launch; vs plain {err:.3e} dB, vs float64 "
+              f"{err64:.3e} dB; node {node_ms:.4f} ms (relayout "
+              f"{relayout_ms:.4f}, window product {wm_ms:.4f}, 3xTF32 bound "
+              f"{bound_tc_ms:.4f}, {100 * bound_tc_ms / wm_ms:.1f} %), "
+              f"plain twin {plain_ms:.4f} ms  [{card}]")
+        out["nfft"][nfft] = {
+            "hop": hop, "frames": nf, "stft": tag, "launches": launches,
+            "psd_db_err_plain": err, "psd_db_err_f64": err64,
+            "ms": node_ms, "relayout_ms": relayout_ms,
+            "window_matmul_ms": wm_ms, "plain_ms": plain_ms,
+            "bound_tc_ms": bound_tc_ms, "bound_share": bound_tc_ms / wm_ms}
+    print(f"  main path (phases 10-11): window_matmul {ia_stft}")
+    return out
+
+
 def main():
     # -- phase 0: the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -5353,7 +5506,7 @@ def main():
 
     # -- phases 10-14: the interactive path, the browser, FLAC, frontends --
     with tempfile.TemporaryDirectory() as tmp:
-        path, path8, ia_fir = interactive_phases(card, dev, tmp)
+        path, path8, ia_fir, ia_stft = interactive_phases(card, dev, tmp)
         browser_phase(card, dev, tmp, path, path8)
         flac_launches = flac_phase(card, dev, tmp, path8, det_codes, bio)
         del det_codes
@@ -5377,6 +5530,9 @@ def main():
 
     # -- phase 20: the graph's FIR kernel ------------------------------------
     fir_entry = fir_phase(card, dev, ia_fir)
+
+    # -- phase 21: the graph's spectrogram on window_matmul ------------------
+    stft_entry = stft_phase(card, dev, ia_stft)
 
     wm_bound = bound(wm_flop, wm_bytes)
     wm_bound_tc = bound_tc(wm_flop, wm_bytes)
@@ -5422,6 +5578,7 @@ def main():
          "multidevice_launches": md_launches["window_matmul"],
          "examples_launches": ex_launches["window_matmul"],
          "ifir_launches": ifir_launches, "ifir_ms": ifir_ms,
+         "graph_stft": stft_entry,
          "precision": dict(rungs["window_matmul"], HIGHEST={
              "ms": wm["ms"], "ms_back_to_back": wm["ms_back_to_back"],
              "max_abs_err": wm_err, "bound_tc_ms": wm_bound_tc})},
