@@ -24,9 +24,8 @@ import numpy as np
 import scipy.signal as sps
 import torch
 
-from ..ops.cuda.envdet import EnvDetKernel
+from ..ops.cuda.envdet import envelope_form
 from ..ops.design import FilterDesign
-from ..ops.envdet import EnvDet
 from ..ops.raw16 import dequant16
 from ..ops.sos import sosfiltfilt_fir
 from ..utils import resolve_device
@@ -73,23 +72,13 @@ def _make_envdet(fdesign, edesign, step, halo, device):
     chunk_frames)`` with ``chunk_frames`` snapped to the decimation grid
     (interior chunk starts then sit ON the grid, so the single-pass
     kernel's static-offset contract holds), or ``None`` when neither form
-    covers the kernels (the caller stays on the unfused driver).  Prefers
-    the single-pass kernel (:class:`EnvDetKernel`); the two-stage
-    :class:`EnvDet` takes the geometries it refuses."""
+    covers the kernels (the caller stays on the unfused path).  The form
+    is :func:`audian_torch.ops.cuda.envdet.envelope_form`'s."""
     chunk = _CHUNK - (_CHUNK % step)
     if chunk <= 0:
         return None
-    nout = chunk // step
-    try:
-        ed = EnvDetKernel(fdesign, edesign, step, nout, hb=halo,
-                          device=device)
-    except ValueError:
-        try:
-            ed = EnvDet(fdesign, edesign, step, nout, hb=halo,
-                        device=device)
-        except ValueError:
-            return None
-    if ed.window_need(halo) > _CHUNK + 2 * halo:
+    ed = envelope_form(fdesign, edesign, step, chunk // step, halo, device)
+    if ed is None or ed.window_need(halo) > _CHUNK + 2 * halo:
         return None
     return ed, chunk
 

@@ -3,12 +3,14 @@
 The counterpart of ``audian_tpu/graph/executor.py``.  The JAX package
 traces the active chain of one chunk geometry into one ``jax.jit``
 program.  Here the same plan runs eagerly: each node's ``compute`` is a
-handful of torch ops on the card (the FIR convolutions through cuDNN, the
-STFT as a matmul), launched in graph order.  The plans are still cached
-by chunk geometry and node structure, so :attr:`GraphExecutor.cache_size`
-keeps its meaning (one entry per geometry; a parameter change adds none),
-and the device copies of the node parameters are cached by the identity
-of the host design, so a scroll uploads no coefficients.
+handful of launches on the card (the FIR filters on the causal FIR
+kernel, ``csrc/fir.cu``; the STFT as one window product over the
+analysis bank, ``csrc/window_matmul.cu``, its power in torch), launched
+in graph order.  The plans are still cached by chunk geometry and node
+structure, so :attr:`GraphExecutor.cache_size` keeps its meaning (one
+entry per geometry; a parameter change adds none), and the device copies
+of the node parameters are cached by the identity of the host design, so
+a scroll uploads no coefficients.
 
 Eager rather than CUDA graphs: a graph would need static input addresses
 and one capture per chunk geometry and design length, and the scroll path

@@ -28,9 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...utils import round_up
 from ...utils import trace as _trace
-from ..envdet import EnvDetDesign, _float_window
+from ..envdet import EnvDet, EnvDetDesign, _float_window
 from ..raw16 import dequant16
 from ..sos import _fir_valid_cf, full_fp32
 from ._build import SMEM_LIMIT, launch, load_library
@@ -42,8 +41,9 @@ from .precision import check as check_precision
 #: the 1 KB the runtime reserves for each block)
 SMEM_PAIR = 233472 - 2 * 1024
 
-__all__ = ["EnvDetKernel", "envdet", "envdet_plain", "geometry",
-           "phase_rows", "phase_taps", "pick_tile", "smem_bytes"]
+__all__ = ["EnvDetKernel", "envdet", "envdet_plain", "envelope_form",
+           "geometry", "phase_rows", "phase_taps", "pick_tile",
+           "smem_bytes"]
 
 #: decimated outputs per kernel block, at most and at least (``TILE_MAX``
 #: and ``TILE_MIN`` in csrc/envdet.cu); tiles are multiples of 64
@@ -162,6 +162,19 @@ class EnvDetKernel(EnvDetDesign):
                 f"two-stage EnvDet for unaligned windows")
         with _trace.timed("envdet.call", frames=len(xw)):
             return envdet(self, xw)
+
+
+def envelope_form(fdesign, edesign, step, nout, hb, device):
+    """The decimating envelope of a window geometry: the single-pass
+    :class:`EnvDetKernel`, the two-stage
+    :class:`audian_torch.ops.envdet.EnvDet` where the kernel refuses the
+    geometry, or ``None`` where neither covers it."""
+    for form in (EnvDetKernel, EnvDet):
+        try:
+            return form(fdesign, edesign, step, nout, hb=hb, device=device)
+        except ValueError:
+            pass
+    return None
 
 
 def _check_window(xw):

@@ -6,12 +6,13 @@ call over halo-extended chunks: where the single-pass kernel
 (:mod:`.cuda.chain`) takes the design (a filter and an envelope design,
 ``hop == 128``, ``nfft % 128 == 0`` and a tile that fits one block) it
 runs the whole chain in one kernel pass per chunk; for every other
-design it runs the per-stage route on the same chunk.  The per-stage
-methods (:meth:`~FusedChainCF.filtered_cf`,
-:meth:`~FusedChainCF.envelope_cf`, :meth:`~FusedChainCF.spectrogram_fc`)
-run every design as strided-window matrix products
-(:mod:`.cuda.window_matmul`) over Toeplitz banks and the windowed DFT on
-whole streams.
+design it runs the per-stage route (:meth:`~FusedChainCF._stages_cf`)
+on the same chunk.  The per-stage methods
+(:meth:`~FusedChainCF.filtered_cf`, :meth:`~FusedChainCF.envelope_cf`,
+:meth:`~FusedChainCF.spectrogram_fc`) run every design as strided-window
+matrix products (:mod:`.cuda.window_matmul`) over Toeplitz banks and the
+windowed DFT on whole streams.  The spectrogram of both is one function,
+:func:`.stft.bank_psd`, which the graph's spectrogram calls too.
 With ``ifir=True`` a long envelope kernel runs as an interpolated FIR:
 two window products, a short image suppressor at the full rate and the
 model filter on the phase-major stream (:func:`.design.ifir_factor`).
@@ -37,7 +38,7 @@ from .cuda.probes import pm_forward, pm_inverse
 from .cuda.window_matmul import BankSplit, window_matmul
 from .raw16 import dequant16
 from .sos import _toeplitz_bank_np
-from .stft import analysis_bank
+from .stft import analysis_bank, bank_psd
 
 __all__ = ["FusedChainCF", "design_arrays", "kernel_arrays"]
 
@@ -318,11 +319,8 @@ class FusedChainCF(nn.Module):
         n = y_cf.shape[1]
         if nframes is None:
             nframes = max((n - self.nfft) // self.hop + 1, 0)
-        s = window_matmul(y_cf.contiguous(), self.spec_w, self.hop, nframes,
-                          out_layout="fco", split=self._splits["spec_w"],
-                          precision=self.precision)
-        re, im = s[..., : self.nbins], s[..., self.nbins:]
-        return re * re + im * im
+        return bank_psd(y_cf.contiguous(), self.spec_w, self.hop, nframes,
+                        self._splits["spec_w"], self.precision)
 
     def chain_cf(self, x_ext, n, stats=False, outputs=ALL_OUTPUTS):
         """The whole chain over an extended stream ``[hb | n | ha...]``
@@ -352,10 +350,11 @@ class FusedChainCF(nn.Module):
         ``_lead`` samples before the chunk to ``ha`` past it.  The envelope
         runs on that stream: dense, one product with the rectifier as its
         premap whose outputs start ``_env_off`` samples before the chunk;
-        "ifir", its two stages over the envelope's span.  The PSD takes
-        the stream's frames at ``hop`` and drops the ``_lead / hop``
-        before the chunk.  The statistics are reductions on the device.
-        Filtered and envelope are views into the route's longer streams.
+        "ifir", its two stages over the envelope's span.  The PSD
+        (:func:`.stft.bank_psd`) takes the stream's frames at ``hop`` and
+        drops the ``_lead / hop`` before the chunk.  The statistics are
+        reductions on the device.  Filtered and envelope are views into
+        the route's longer streams.
         Every window product runs at ``precision``; a masked envelope or
         PSD launches nothing.  The ``stages.call`` span counts the window
         products in ``launches``."""
@@ -397,14 +396,9 @@ class FusedChainCF(nn.Module):
             if want_s:
                 with _trace.timed("stages.stage", device=dev,
                                   stage="spectrogram"):
-                    q = lead // hop
-                    z = window_matmul(y_ext, self.spec_w, hop, q + n // hop,
-                                      out_layout="fco",
-                                      split=self._splits["spec_w"],
-                                      precision=self.precision)[q:]
-                    s = z[..., :nb] * z[..., :nb]
-                    s.addcmul_(z[..., nb:], z[..., nb:])
-                    del z
+                    s = bank_psd(y_ext, self.spec_w, hop, n // hop,
+                                 self._splits["spec_w"], self.precision,
+                                 skip=lead // hop)
             st = None
             if stats:
                 with _trace.timed("stages.stage", device=dev, stage="stats"):

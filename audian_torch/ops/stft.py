@@ -19,7 +19,8 @@ DFT matrices are built on the host in float64.
   (:func:`.cuda.window_matmul.window_matmul`, ``csrc/window_matmul.cu``)
   reads the frames straight from the channels-first stream, three TF32
   passes on the tensor cores (HIGHEST, the precision of an fp32 FMA), and
-  the power is ``re*re + im*im`` of its columns.
+  the power is ``re*re + im*im`` of its columns (:func:`bank_psd`, which
+  the batch chain's spectrogram stages call too).
 - the plain route, every other input: the frames as a strided view, the
   window multiplied in, then the real DFT as one full-fp32 matrix product
   (cuBLAS on the card) or ``torch.fft.rfft`` for NFFT above 1024.  It is
@@ -45,6 +46,7 @@ from .sos import full_fp32
 
 __all__ = [
     "analysis_bank",
+    "bank_psd",
     "decibel",
     "frame_signal",
     "hann_window",
@@ -151,6 +153,22 @@ def analysis_bank(nfft, rate, window=None):
     return ((win[:, None] * W) * amp[None, :]).astype(np.float32)
 
 
+def bank_psd(x_cf, bank, hop, nframes, split, precision, skip=0, out=None):
+    """The PSD of the frames at ``hop`` of a channels-first stream ``x_cf``
+    over an analysis bank (:func:`analysis_bank`): one strided-window
+    product over ``skip + nframes`` frames
+    (:func:`.cuda.window_matmul.window_matmul`, with the bank's
+    ``BankSplit`` ``split`` at the rung ``precision``), its first ``skip``
+    frames dropped, then ``re*re + im*im`` of its columns in two passes,
+    ``torch.mul`` into ``out`` and ``addcmul_``.  Returns the
+    ``(nframes, C, nbins)`` power, written into ``out`` where given."""
+    nb = bank.shape[1] // 2
+    s = window_matmul(x_cf, bank, hop, skip + nframes, out_layout="fco",
+                      split=split, precision=precision)[skip:]
+    re, im = s[..., :nb], s[..., nb:]
+    return torch.mul(re, re, out=out).addcmul_(im, im)
+
+
 @functools.lru_cache(maxsize=16)
 def _device_bank(nfft, rate, window, device):
     """``(analysis bank, its BankSplit)`` on ``device`` for ``window`` (the
@@ -213,12 +231,8 @@ def _kernel_spectrogram(x, rate, nfft, hop, window, n_out=None):
            else np.asarray(window, np.float64).tobytes())
     bank, split = _device_bank(int(nfft), float(rate), key, x.device)
     xc = _channels_first(x.reshape(n, math.prod(rest)))
-    s = window_matmul(xc, bank, hop, nf, out_layout="fco", split=split,
-                      precision=HIGHEST)                   # (nf, cols, 2nb)
-    psd = s.new_empty((n_out, xc.shape[0], nbins))
-    head = psd[:nf]
-    torch.mul(s[..., :nbins], s[..., :nbins], out=head)
-    head.addcmul_(s[..., nbins:], s[..., nbins:])
+    psd = xc.new_empty((n_out, xc.shape[0], nbins))
+    bank_psd(xc, bank, hop, nf, split, HIGHEST, out=psd[:nf])
     psd[nf:].zero_()
     return psd.reshape((n_out,) + rest + (nbins,))
 

@@ -33,8 +33,7 @@ import threading
 
 import numpy as np
 
-from ..ops.cuda.envdet import EnvDetKernel
-from ..ops.envdet import EnvDet
+from ..ops.cuda.envdet import envelope_form
 from .shard import halo_window
 
 __all__ = ["sharded_band_env"]
@@ -60,9 +59,9 @@ def _bucket_blocks(nblocks):
 
 def _envdet(device, L, halo, step, fdesign, edesign):
     """The shard's decimating envelope over ``[halo | L | halo]`` with
-    ``L / step`` outputs from ``halo``: the kernel, or ``EnvDet`` where
-    the kernel refuses the geometry (as ``events._make_envdet`` picks);
-    None when neither covers it."""
+    ``L / step`` outputs from ``halo``, in the form
+    :func:`audian_torch.ops.cuda.envdet.envelope_form` picks; None when
+    neither form covers it."""
     key = (str(device), L, halo, step, fdesign.fir.length, fdesign.padlen,
            edesign.fir.length, edesign.padlen, fdesign.sos.tobytes(),
            edesign.sos.tobytes())
@@ -70,15 +69,9 @@ def _envdet(device, L, halo, step, fdesign, edesign):
         ed = _ENVDETS.get(key)
     if ed is not None:
         return ed
-    try:
-        ed = EnvDetKernel(fdesign, edesign, step, L // step, hb=halo,
-                          device=device)
-    except ValueError:
-        try:
-            ed = EnvDet(fdesign, edesign, step, L // step, hb=halo,
-                        device=device)
-        except ValueError:
-            return None
+    ed = envelope_form(fdesign, edesign, step, L // step, halo, device)
+    if ed is None:
+        return None
     with _ENVDETS_LOCK:
         while len(_ENVDETS) > 32:
             # evict the OLDEST entry (insertion order), never the whole

@@ -5,13 +5,17 @@ whole recording is sharded over the mesh's ``seq`` axis, channels over
 ``ch``; each shard takes its window extended by its neighbours' halos
 (uploaded in one piece from the recording, :func:`.shard.halo_window`)
 and runs the band-pass -> rectified envelope / PSD spectrogram chain on
-its own device.  Where the JAX
-package runs XLA ops inside ``shard_map``, each shard here runs the port's
-chain on its device (:class:`audian_torch.ops.fused.FusedChainCF`): the
-single-pass chain kernel when the design passes its gate and the
-pipeline's halos cover the kernel's, else the per-stage window matmuls.
-A shard goes through the chain in chunks of at most 2^22 frames (plus
-halos), so the kernels' temporaries stay bounded at any recording length.
+its own device.  Where the JAX package runs XLA ops inside
+``shard_map``, each shard here runs the port's batch call on its device,
+:meth:`audian_torch.ops.fused.FusedChainCF.chain_cf`, which picks the
+route: the single-pass chain kernel where the design passes its gate,
+else the per-stage window matmuls.  A shard goes through it in chunks of
+at most 2^22 frames, so the kernels' temporaries stay bounded at any
+recording length.  The shard's window carries the halos that chain reads
+(``hb`` before, ``ha`` after), read from the recording whether they are
+wider or narrower than the pipeline's own, so the outputs stay the same
+function of it; the pipeline's ``hb``, ``ha`` and ``align`` follow the
+JAX pipeline's and set its padding and its one-neighbour limit.
 
 Numerical contract (the JAX pipeline's): interior frames match
 whole-recording execution within the FIR truncation tolerance.  At the
@@ -116,12 +120,6 @@ class ShardedPipeline:
             self._chains[device] = fc
         return fc
 
-    def takes_chain_kernel(self, fc):
-        """Whether the shards run the single-pass chain kernel: the design
-        passes its gate and the pipeline's halos cover the kernel's."""
-        ck = fc.chain_kernel
-        return ck is not None and self.hb >= ck.hb and self.ha >= ck.ha
-
     def padded_length(self, n):
         """Global length after padding: a multiple of seq * align."""
         return _round_up(n, self.mesh.shape["seq"] * self.align)
@@ -129,38 +127,22 @@ class ShardedPipeline:
     # -- execution ------------------------------------------------------------
 
     def _local(self, fc, win, k):
-        """The chain over one chunk window ``win = [hb | k | ha]``
+        """The chain over one chunk window ``win = [fc.hb | k | fc.ha]``
         (time-first, on the shard's device): a dict of the chunk's
         outputs, time-first."""
-        hb = self.hb
         x_cf = win.T.contiguous()
         if x_cf.dtype not in (torch.int16, torch.float32):
             x_cf = x_cf.float()
-        out = {}
-        if self.takes_chain_kernel(fc):
-            outputs = ("filtered", "envelope") + (
-                ("spectrogram",) if self.with_spec else ())
-            # the kernel's own halos are within the window's
-            xk = x_cf[:, hb - fc.chain_kernel.hb:].contiguous()
-            y, e, s = fc.chain_cf(xk, k, outputs=outputs)
-            out["filtered"], out["envelope"] = y.T, e.T
-            if s is not None:
-                out["spectrogram"] = s
-        else:
-            if x_cf.dtype == torch.int16:
-                x_cf = dequant16(x_cf)
-            y_ext = fc.filtered_cf(x_cf)
-            out["filtered"] = y_ext[:, hb : hb + k].T
-            if self.has_env:
-                d = fc.env_delay
-                e = fc.envelope_cf(y_ext[:, hb - d : hb + k + d])
-                out["envelope"] = e[:, d : d + k].T
-            if self.with_spec:
-                seg = y_ext[:, hb : hb + k + self.nfft - self.hop]
-                out["spectrogram"] = fc.spectrogram_fc(
-                    seg.contiguous(), nframes=k // self.hop)
+        outputs = (("filtered",) + (("envelope",) if self.has_env else ())
+                   + (("spectrogram",) if self.with_spec else ()))
+        y, e, s = fc.chain_cf(x_cf, k, outputs=outputs)
+        out = {"filtered": y.T}
+        if e is not None:
+            out["envelope"] = e.T
+        if s is not None:
+            out["spectrogram"] = s
         if self.minmax_step:
-            raw = win[hb : hb + k]
+            raw = win[fc.hb : fc.hb + k]
             if raw.dtype == torch.int16:
                 raw = dequant16(raw)
             out["minmax"] = minmax_interleaved(raw, self.minmax_step)
@@ -168,11 +150,12 @@ class ShardedPipeline:
 
     def shard_window(self, x, r0, L, c0, cw, device):
         """Shard ``[r0, r0 + L)`` of channels ``[c0, c0 + cw)`` on
-        ``device`` with its halos, ``[hb | L | ha]``: zero before the
-        recording, past its end and past its channels (the global zero
-        padding, which also makes the halos of a single ``seq`` shard)."""
-        return halo_window(x, r0 - self.hb, self.hb + L + self.ha, device,
-                           c0, cw)
+        ``device`` with the halos its chain reads, ``[fc.hb | L | fc.ha]``
+        (``fc = self.chain(device)``): zero before the recording, past its
+        end and past its channels (the global zero padding, which also
+        makes the halos of a single ``seq`` shard)."""
+        fc = self.chain(device)
+        return halo_window(x, r0 - fc.hb, fc.hb + L + fc.ha, device, c0, cw)
 
     def __call__(self, x):
         """Run the sharded chain over a whole recording ``(n, channels)``
@@ -239,8 +222,7 @@ class ShardedPipeline:
                 fc = self.chain(dev)
                 for s in range(0, L, self.chunk):
                     k = min(self.chunk, L - s)
-                    part = self._local(
-                        fc, ext[s : s + self.hb + k + self.ha], k)
+                    part = self._local(fc, ext[s : s + fc.hb + k + fc.ha], k)
                     for key, val in part.items():
                         r0 = first_row(key, i * L + s)
                         out[key][r0 : r0 + val.shape[0], c0:c1].copy_(

@@ -1237,7 +1237,7 @@ def stages_route_check(gen, dev, n=1 << 22):
     counter, zeroed just before the call, reads 3, as does the
     ``stages.call`` span's ``launches``.  Returns that count."""
     from audian_torch.models import get_preset
-    from audian_torch.ops import fused
+    from audian_torch.ops import fused, stft
     from audian_torch.ops.cuda.chain import ALL_OUTPUTS
     from audian_torch.ops.cuda.window_matmul import (window_matmul,
                                                      window_matmul_plain)
@@ -1274,7 +1274,7 @@ def stages_route_check(gen, dev, n=1 << 22):
 
     trace.clear()
     trace.enable(log=False)
-    fused.window_matmul = recorded
+    fused.window_matmul = stft.window_matmul = recorded
     try:
         window_matmul.launches = 0
         y, e, s, st = fc.chain_cf(q, n, stats=True)
@@ -1283,7 +1283,7 @@ def stages_route_check(gen, dev, n=1 << 22):
         spans = trace.events("stages.call")
         stages = [ev["stage"] for ev in trace.events("stages.stage")]
     finally:
-        fused.window_matmul = real
+        fused.window_matmul = stft.window_matmul = real
         trace.disable()
         trace.clear()
     require(made == 3 and len(calls) == 3,
@@ -3409,9 +3409,10 @@ def slice_of_pipeline_vs_scipy(out, pcm, edge, label):
 def shard_kernel_calls(pipe, x, dev):
     """The kernel calls of one chunk of a sharded pipeline, all channels:
     the first chunk of shard 1 (across the first shard edge), its window
-    built by the pipeline's own ``shard_window`` and run through the
-    pipeline's shard-local step.  Returns ``[(name, args, kwargs)]``."""
-    from audian_torch.ops import fused
+    with the chain's halos built by the pipeline's own ``shard_window``
+    and run through the pipeline's shard-local step, which calls
+    ``chain_cf``.  Returns ``[(name, args, kwargs)]``."""
+    from audian_torch.ops import fused, stft
     from audian_torch.ops.cuda.chain import ChainKernel
 
     n, c = x.shape
@@ -3421,19 +3422,27 @@ def shard_kernel_calls(pipe, x, dev):
     calls = []
     real_wm, real_ck = fused.window_matmul, ChainKernel.__call__
 
-    def wm(*args, **kw):
-        calls.append(("window_matmul", args, kw))
-        return real_wm(*args, **kw)
+    class Recorded:
+        """``window_matmul`` that keeps each call, its counter the real
+        one's (the per-stage route reads it)."""
+
+        launches = property(lambda self: real_wm.launches)
+
+        def __call__(self, *args, **kw):
+            calls.append(("window_matmul", args, kw))
+            return real_wm(*args, **kw)
 
     def ck(self, *args, **kw):
         calls.append(("chain", (self,) + args, kw))
         return real_ck(self, *args, **kw)
 
-    fused.window_matmul, ChainKernel.__call__ = wm, ck
+    fused.window_matmul = stft.window_matmul = Recorded()
+    ChainKernel.__call__ = ck
     try:
         pipe._local(pipe.chain(dev), win, k)
     finally:
-        fused.window_matmul, ChainKernel.__call__ = real_wm, real_ck
+        fused.window_matmul = stft.window_matmul = real_wm
+        ChainKernel.__call__ = real_ck
     torch.cuda.synchronize()
     return calls
 
@@ -3521,7 +3530,7 @@ def multidevice_phase(card, dev, tmp, path, song):
     bio = get_preset("bioacoustics")
     p1 = bio.sharded(mesh1, RATE, minmax_step=MD_MINMAX)
     p4 = bio.sharded(mesh4, RATE, minmax_step=MD_MINMAX)
-    require(p4.takes_chain_kernel(p4.chain(dev)),
+    require(p4.chain(dev).chain_kernel is not None,
             "the bioacoustics shards take the chain kernel")
     out1, s1, l1 = timed_pipeline(p1, pcm, counters)
     out4, s4, l4 = timed_pipeline(p4, pcm, counters)
@@ -3582,7 +3591,7 @@ def multidevice_phase(card, dev, tmp, path, song):
     us = get_preset("ultrasound")
     u1 = us.sharded(mesh1, RATE, minmax_step=MD_MINMAX)
     u4 = us.sharded(mesh4, RATE, minmax_step=MD_MINMAX)
-    require(not u4.takes_chain_kernel(u4.chain(dev)),
+    require(u4.chain(dev).chain_kernel is None,
             "ultrasound takes the per-stage path")
     uo1, us1, _ = timed_pipeline(u1, pcm, counters)
     uo4, us4, lu = timed_pipeline(u4, pcm, counters)

@@ -19,8 +19,8 @@ stages, its Pallas ``EnvDetKernel`` (interpret mode on the CPU) for whole
 windows, at 1e-5 of the output scale.  The MMA's and the FMA loop's own
 summation orders are not emulated; chip_smoke.py holds the kernel to the
 same budget on the card.  The shared-memory formula, the tile choice, the
-gate that leaves long designs to ``EnvDet``, and the wrapper's window
-rules are checked here too.
+gate that leaves long designs to ``EnvDet``, the choice between the two
+forms, and the wrapper's window rules are checked here too.
 """
 
 import numpy as np
@@ -39,8 +39,9 @@ from audian_torch.ops.cuda import envdet as envdet_mod
 from audian_torch.ops.cuda._build import SMEM_LIMIT
 from audian_torch.ops.cuda.chain import TAP_PAD
 from audian_torch.ops.cuda.envdet import (TILE_MAX, TILE_MIN, EnvDetKernel,
-                                          envdet, geometry, phase_rows,
-                                          phase_taps, pick_tile, smem_bytes)
+                                          envdet, envelope_form, geometry,
+                                          phase_rows, phase_taps, pick_tile,
+                                          smem_bytes)
 from audian_torch.ops.design import FilterDesign
 from audian_torch.ops.envdet import EnvDet, _decimating_bank
 from test_torch_tf32x3 import conv_tc, split, steps
@@ -357,6 +358,26 @@ def test_gate_on_both_sides():
             assert smem_bytes(ed.lb, ed.ll, step, TILE_MIN) > SMEM_LIMIT
             with pytest.raises(ValueError, match="shared memory"):
                 EnvDetKernel(fd, edes, step, 5000, halo, device="cpu")
+
+
+@pytest.mark.parametrize("cutoff,hb,form", [(500.0, HB, EnvDetKernel),
+                                            (60.0, None, EnvDet),
+                                            (500.0, 64, None)])
+def test_envelope_form(cutoff, hb, form):
+    """``envelope_form`` takes the single-pass kernel where it covers the
+    geometry, the two-stage EnvDet where the kernel refuses it (a 60 Hz
+    envelope at the detector's halo), and None where neither covers it
+    (a headroom shorter than the envelope's look-back)."""
+    fd, edes = (FilterDesign.from_sos(s)
+                for s in _sos(96000.0, (1000.0, 10000.0), cutoff))
+    hb = events.detect_halo(fd, edes) if hb is None else hb
+    step = int(round(96000.0 / (10 * cutoff)))
+    ed = envelope_form(fd, edes, step, 100, hb, torch.device("cpu"))
+    if form is None:
+        assert ed is None
+    else:
+        assert type(ed) is form and (ed.step, ed.nout, ed.hb) == (step, 100,
+                                                                  hb)
 
 
 # -- the wrapper's window rules -----------------------------------------------

@@ -165,8 +165,8 @@ def test_sharded_pipeline_equals_jax(signal, designs, seq, ch):
                                       device="cpu")
     assert (tp.hb, tp.ha, tp.align) == (jp.hb, jp.ha, jp.align)
     assert tp.padded_length(len(signal)) == jp.padded_length(len(signal))
-    # this design passes the chain kernel's gate and its halos
-    assert tp.takes_chain_kernel(tp.chain(torch.device("cpu")))
+    # this design passes the chain kernel's gate
+    assert tp.chain(torch.device("cpu")).chain_kernel is not None
     x = signal if seq % 2 else np.clip(np.round(signal * 32768), -32768,
                                        32767).astype(np.int16)
     assert_outputs_equal(tp(x), jp(x))
@@ -177,15 +177,53 @@ def test_sharded_pipeline_equals_jax(signal, designs, seq, ch):
                                                 (256, None, False, 32)])
 def test_sharded_pipeline_per_stage_equals_jax(signal, designs, nfft, hop,
                                                spec, step):
-    """Geometries the chain kernel refuses (hop != 128), and halos on a
-    32-frame grid that fall short of the kernel's, run per stage."""
+    """Geometries the chain kernel refuses (hop != 128) run per stage.
+    Halos on a 32-frame grid that fall short of the kernel's (hop 128, no
+    spectrogram) take the kernel all the same: the shards read the
+    chain's own halos from the recording."""
     filt, env = designs
     jp = JPipeline(jmesh(4, 2), RATE, filt=filt, env=env, nfft=nfft,
                    hop=hop, spectrogram=spec, minmax_step=step)
     tp = sharded_pipeline_from_arrays(pipeline_arrays(jp), (4, 2),
                                       device="cpu")
-    assert not tp.takes_chain_kernel(tp.chain(torch.device("cpu")))
+    fc = tp.chain(torch.device("cpu"))
+    assert (fc.chain_kernel is not None) == (tp.hop == 128)
+    if fc.chain_kernel is not None:
+        assert tp.hb < fc.hb or tp.ha < fc.ha
     assert_outputs_equal(tp(signal), jp(signal))
+
+
+@pytest.mark.parametrize("hop", [32, 128])
+def test_shard_chunks_run_through_chain_cf(signal, designs, hop,
+                                           monkeypatch):
+    """Every chunk of every shard is one ``chain_cf`` call over the
+    chain's own halos, on the per-stage route (hop 32) as on the kernel's
+    (hop 128)."""
+    from audian_torch.ops.fused import FusedChainCF
+    from audian_torch.parallel import pipeline as tpipe
+
+    filt, env = designs
+    jp = JPipeline(jmesh(2, 2), RATE, filt=filt, env=env, nfft=256,
+                   hop=hop, minmax_step=64)
+    monkeypatch.setattr(tpipe, "CHUNK", 4096)
+    tp = sharded_pipeline_from_arrays(pipeline_arrays(jp), (2, 2),
+                                      device="cpu")
+    fc = tp.chain(torch.device("cpu"))
+    assert (fc.chain_kernel is None) == (hop == 32)
+    real, calls = FusedChainCF.chain_cf, []
+
+    def chain_cf(self, x_ext, n, *args, **kwargs):
+        calls.append((x_ext.shape[1], n))
+        return real(self, x_ext, n, *args, **kwargs)
+
+    monkeypatch.setattr(FusedChainCF, "chain_cf", chain_cf)
+    got = tp(signal)
+    L = tp.padded_length(len(signal)) // 2
+    chunks = [min(tp.chunk, L - s) for s in range(0, L, tp.chunk)]
+    assert len(chunks) > 1
+    # two seq shards in each of two channel groups
+    assert calls == [(fc.hb + k + fc.ha, k) for k in chunks] * 4
+    assert_outputs_equal(got, jp(signal))
 
 
 def test_sharded_pipeline_without_designs_and_short_clips(signal, designs):

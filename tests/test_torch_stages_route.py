@@ -22,6 +22,7 @@ from audian_tpu.models import get_preset as jax_preset
 
 from audian_torch.models import get_preset
 from audian_torch.ops import fused as fused_mod
+from audian_torch.ops import stft as stft_mod
 from audian_torch.ops.cuda.chain import ALL_OUTPUTS, chain
 from audian_torch.ops.cuda.precision import BF16X3, DEFAULT, HIGHEST
 from audian_torch.ops.design import design_envelope_filter, design_filter
@@ -183,9 +184,9 @@ def test_statistics_are_the_sums_of_the_outputs(us, recording):
 
 
 def counting(monkeypatch):
-    """Route every window product of the chain through a wrapper that
-    keeps each call's bank and precision and counts it as the card's
-    launches are counted."""
+    """Route every window product of the chain (the PSD's through
+    ``stft.bank_psd``) through a wrapper that keeps each call's bank and
+    precision and counts it as the card's launches are counted."""
     real = fused_mod.window_matmul
     calls = []
 
@@ -195,7 +196,8 @@ def counting(monkeypatch):
         return real(x, w, stride, nframes, *args, **kwargs)
 
     wm.launches = 0
-    monkeypatch.setattr(fused_mod, "window_matmul", wm)
+    for mod in (fused_mod, stft_mod):
+        monkeypatch.setattr(mod, "window_matmul", wm)
     return calls
 
 

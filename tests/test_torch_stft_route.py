@@ -3,11 +3,14 @@ kernel route's analysis bank and layout, run through ``window_matmul`` on
 CPU tensors (its plain version), against the plain route and the JAX
 package's spectrogram; which inputs take which route, and the ``stft`` tag
 on the graph node's span; the bank shared with the batch chain's
-``spec_w``; the graph node's zero tail frames on both routes.  The kernel
+``spec_w``; the three callers of ``bank_psd``, which agree; the graph
+node's zero tail frames on both routes.  The kernel
 itself runs only on the card (``chip_smoke.py``).
 
 Tolerances: float32 against the plain route and the JAX package, 1e-4
-relative to each element and 1e-6 of the largest power."""
+relative to each element and 1e-6 of the largest power; the callers of
+``bank_psd`` against each other 1e-6 relative and 1e-7 of the largest
+power."""
 
 import types
 
@@ -24,7 +27,8 @@ from audian_torch.graph.nodes import FilterNode, device_nbytes
 from audian_torch.models import get_preset
 from audian_torch.ops import stft
 from audian_torch.ops.cuda.window_matmul import window_matmul
-from audian_torch.ops.fused import design_arrays
+from audian_torch.ops.design import design_envelope_filter
+from audian_torch.ops.fused import FusedChainCF, design_arrays
 from audian_torch.utils import trace
 
 RATE = 48000.0
@@ -220,6 +224,33 @@ def test_device_bank_is_made_once(monkeypatch):
     assert stft._device_bank(128, RATE, None, cpu)[1] is split
     np.testing.assert_array_equal(bank.numpy(), real(128, RATE))
     stft._device_bank.cache_clear()
+
+
+@pytest.mark.parametrize("nfft,hop", [(64, 32), (256, 128), (512, 256)])
+def test_psd_sites_agree(nfft, hop):
+    """The three callers of ``stft.bank_psd`` give one PSD of one stream
+    over one bank: the kernel route on the time-first stream,
+    ``FusedChainCF.spectrogram_fc`` on the channels-first one, and
+    ``chain_cf``'s per-stage route, whose envelope look-back makes its
+    product skip the frames before the chunk.  Each is held against the
+    plain route too."""
+    fc = FusedChainCF(RATE, env_sos=design_envelope_filter(RATE, 500.0),
+                      nfft=nfft, hop=hop, device="cpu")
+    assert fc.chain_kernel is None and fc._lead // hop > 0
+    n = 40 * hop
+    x = torch.from_numpy(signal((fc.hb + n + fc.ha, 3)).T.copy())
+    _, _, staged = fc.chain_cf(x, n, outputs=("spectrogram",))
+    seg = x[:, fc.hb : fc.hb + n + nfft - hop]
+    sites = {"kernel": stft._kernel_spectrogram(seg.T.contiguous(), RATE,
+                                                 nfft, hop, None),
+             "spectrogram_fc": fc.spectrogram_fc(seg), "stages": staged}
+    plain = stft.spectrogram(seg.T, RATE, nfft, hop)
+    for name, got in sites.items():
+        assert got.shape == (n // hop, 3, nfft // 2 + 1), name
+        close(got, plain)
+        np.testing.assert_allclose(got, sites["kernel"], rtol=1e-6,
+                                   atol=1e-7 * float(plain.max()),
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("route", ["plain", "kernel"])
