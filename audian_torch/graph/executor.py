@@ -174,7 +174,7 @@ class GraphExecutor:
                 g = plan[name]
                 src = bufs[node.source_name.lower()][1][g.rel_s0 : g.rel_s1]
                 with _trace.timed("graph.node", device=self.device,
-                                  node=name):
+                                  node=name, taps=node.taps):
                     bufs[name] = (g.o0, node.compute(src, g.lead, g.n_out,
                                                      params[name]))
         if pull:

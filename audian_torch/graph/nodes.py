@@ -14,9 +14,12 @@ The counterpart of ``audian_tpu/graph/nodes.py``.  Each node splits into
   device, through the port's FIR filtering and STFT ops.
 
 Halos are declared in seconds.  The filter's and the envelope's follow the
-impulse-response decay of their current design; the spectrogram's is its
-window overhang.  There is no host (scipy) twin of ``compute``: the JAX
-package keeps one for its device-loss mode, which the port does not have.
+impulse-response decay of their current design, which
+:meth:`FilterDesign.from_sos` truncates at its eps and rounds up to a power
+of two (a cutoff change can shrink it as well as grow it); the
+spectrogram's is its window overhang.  There is no host (scipy) twin of
+``compute``: the JAX package keeps one for its device-loss mode, which the
+port does not have.
 """
 
 from __future__ import annotations
@@ -183,6 +186,13 @@ class Node:
         beyond its params: part of the executor's plan key."""
         return (type(self).__name__,)
 
+    @property
+    def taps(self):
+        """The FIR length :meth:`compute` runs, ``None`` where it runs no
+        FIR: a field of the node's ``graph.node`` span."""
+        design = getattr(self, "design", None)
+        return design.fir.length if isinstance(design, FilterDesign) else None
+
     def compute(self, source, lead, n_out, params):
         """Map ``source`` (a tensor ``(ns, channels, ...)``, including
         ``lead`` warm-up frames) to ``n_out`` output frames."""
@@ -192,18 +202,6 @@ class Node:
         """Host-side parameter update (filter redesign etc.).  Returns True
         when downstream recomputation is needed."""
         return False
-
-
-def _sticky_design(sos, kernel_len):
-    """``(design, new budget)``: the FIR length only ever grows, starting
-    at four times the first design's natural decay length, so scrubbing a
-    cutoff keeps the taps' length and the coefficients equal to the JAX
-    package's, which keeps the same budget to reuse its compiled
-    program."""
-    d = FilterDesign.from_sos(sos, pad_to=kernel_len or None)
-    if kernel_len == 0:
-        d = FilterDesign.from_sos(sos, pad_to=4 * d.fir.length)
-    return d, max(kernel_len, d.fir.length)
 
 
 class FilterNode(Node):
@@ -219,7 +217,6 @@ class FilterNode(Node):
         self.lowpass_cutoff = None
         self.filter_order = 2
         self.design = None
-        self._kernel_len = 0  # sticky FIR length budget (_sticky_design)
 
     @property
     def halo_before(self):
@@ -246,11 +243,7 @@ class FilterNode(Node):
         sos = design_filter(self.source_spec.rate, self.highpass_cutoff,
                             self.lowpass_cutoff, self.filter_order)
         old = self.design
-        if sos is None:
-            self.design = None
-        else:
-            self.design, self._kernel_len = _sticky_design(sos,
-                                                           self._kernel_len)
+        self.design = None if sos is None else FilterDesign.from_sos(sos)
         return (old is None) != (self.design is None)
 
     def update(self, highpass_cutoff=None, lowpass_cutoff=None, order=None):
@@ -303,7 +296,6 @@ class EnvelopeNode(Node):
         self.highpass_cutoff = highpass_cutoff
         self.filter_order = filter_order
         self.design = None
-        self._kernel_len = 0
 
     def open(self, source_spec):
         self.source_spec = source_spec
@@ -316,10 +308,7 @@ class EnvelopeNode(Node):
                                      self.envelope_cutoff,
                                      self.highpass_cutoff,
                                      self.filter_order)
-        if sos is None:
-            self.design = None
-            return
-        self.design, self._kernel_len = _sticky_design(sos, self._kernel_len)
+        self.design = None if sos is None else FilterDesign.from_sos(sos)
 
     def update(self, envelope_cutoff=None, highpass_cutoff=None, order=None):
         if envelope_cutoff is not None:

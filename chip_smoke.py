@@ -294,10 +294,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     and on the CPU (host clock);
 20. the graph's causal FIR kernel (``csrc/fir.cu``, on the convolution
     core; ``phase 1`` also holds ``fir_kernel`` to no spill, no serialized
-    ``wgmma`` and HGMMA) at the scrub's two designs (the 2-40 kHz
-    band-pass, 1024 taps; the 500 Hz envelope, 4096 taps, on the rectified
-    stream) and a 50 Hz high-pass of 32768 taps (eight launches) on 16 ch
-    x 5.77 M frames: against the plain twin (cuDNN's fp32 ``conv1d``) and
+    ``wgmma`` and HGMMA) at the scrub's two designs extended past their
+    decay (the 2-40 kHz band-pass to 1024 taps; the 500 Hz envelope to
+    4096, on the rectified stream), a 50 Hz high-pass of 32768 taps (eight
+    launches) and the band-pass the scrub runs (256 taps) on 16 ch x
+    5.77 M frames: against the plain twin (cuDNN's fp32 ``conv1d``) and
     float64 slices at the start, middle and ragged end (1e-5 of scale),
     DEFAULT within 1e-2; short, ragged and column-sliced streams; 8 calls
     back to back and a lone call beside the 3xTF32 bound of every tap and
@@ -1847,12 +1848,14 @@ def interactive_checks(d, path, refresh, dev, view):
     exact min/max tiles, the raw window against the file, and the plan
     cache and the FIR kernel's and window_matmul's launches under a cutoff
     scrub (the spectrogram's product once a step), and one traced step's
-    ``stft`` route on the spectrogram node's span.  Returns the scrub's
+    ``stft`` route on the spectrogram node's span and the ``taps`` on the
+    FIR nodes' (each design's own decay length).  Returns the scrub's
     host seconds, its FIR launches and its STFT record (window_matmul's
-    launches in the scrub, the traced step's route and launches)."""
+    launches in the scrub, the traced step's route, launches and taps)."""
     from audian_torch.data.wavio import read_frames_raw16, wav_info
     from audian_torch.ops.cuda.fir import fir
     from audian_torch.ops.cuda.window_matmul import window_matmul
+    from audian_torch.ops.design import FilterDesign
     from audian_torch.ops.minmax import reduceat_like
     from audian_torch.utils import trace
     from audian_torch.view.render import TraceTiler
@@ -1916,7 +1919,8 @@ def interactive_checks(d, path, refresh, dev, view):
             f"cutoff scrub: window_matmul launched {window_matmul.launches} "
             f"times, not {len(IA_CUTOFFS)} (the spectrogram once a step)")
     stft = {"scrub": window_matmul.launches}
-    # one traced cutoff step: the spectrogram node's span names its route
+    # one traced cutoff step: the spectrogram node's span names its route,
+    # each FIR node's the taps it ran, its design's own decay length
     window_matmul.launches = 0
     trace.clear()
     trace.enable(log=False)
@@ -1924,20 +1928,27 @@ def interactive_checks(d, path, refresh, dev, view):
         d["filtered"].update(lowpass_cutoff=IA_CUTOFFS[0])
         refresh(d, t0, t1)
         torch.cuda.synchronize()
-        spans = [e for e in trace.events("graph.node")
-                 if e["node"] == "spectrogram"]
+        nodes = trace.events("graph.node")
     finally:
         trace.disable()
         trace.clear()
+    spans = [e for e in nodes if e["node"] == "spectrogram"]
     stft["step"] = {"stft": ",".join(e.get("stft", "") for e in spans),
                     "launches": window_matmul.launches}
     require(stft["step"] == {"stft": "kernel", "launches": 1},
             f"a traced cutoff step's spectrogram: {stft['step']}")
+    taps = {e["node"]: e["taps"] for e in nodes
+            if e["node"] in ("filtered", "envelope")}
+    own = {name: FilterDesign.from_sos(d[name]._node.design.sos).fir.length
+           for name in ("filtered", "envelope")}
+    require(taps == own, f"a traced cutoff step's FIR taps {taps}, the "
+            f"designs' own lengths {own}")
+    stft["taps"] = taps
     print(f"  cutoff scrub {IA_CUTOFFS}: executor.cache_size stays {size}; "
           f"fir launched {fir.launches} times (3 a step), window_matmul "
           f"{stft['scrub']} (1 a step); a traced step's spectrogram span: "
           f"stft={stft['step']['stft']}, window_matmul launched "
-          f"{stft['step']['launches']}")
+          f"{stft['step']['launches']}; its FIR spans' taps {taps}")
     return scrub, fir.launches, stft
 
 
@@ -4429,9 +4440,10 @@ def fir_f64(src, h, c, start, length):
 
 def fir_phase(card, dev, ia_fir):
     """Phase 20: ``csrc/fir.cu`` (``audian_torch.ops.cuda.fir``) at the
-    scrub's two designs, the 2-40 kHz band-pass (1024 taps) and the 500 Hz
-    envelope (4096 taps, on the rectified stream), and at a 50 Hz
-    high-pass of 32768 taps (eight launches of 4096), on 16 ch x 5.77 M
+    scrub's two designs extended past their decay, the 2-40 kHz band-pass
+    to 1024 taps and the 500 Hz envelope to 4096 (on the rectified
+    stream), at a 50 Hz high-pass of 32768 taps (eight launches of 4096)
+    and at the band-pass the scrub runs (256 taps), on 16 ch x 5.77 M
     frames: against the plain twin (cuDNN's fp32 ``conv1d``,
     ``_fir_valid_cf``) and float64 slices at the stream's start, middle and
     ragged end; DEFAULT (one pass) within 1e-2 of scale; short and ragged
@@ -4445,7 +4457,6 @@ def fir_phase(card, dev, ia_fir):
     and 11: the cutoff scrub and a full-window recompute)."""
     from audian_torch.analysis import events
     from audian_torch.entry import entry
-    from audian_torch.graph.nodes import _sticky_design
     from audian_torch.ops import sos as sosmod
     from audian_torch.ops.cuda import fir as firmod
     from audian_torch.ops.design import (FilterDesign,
@@ -4458,13 +4469,17 @@ def fir_phase(card, dev, ia_fir):
     fir = firmod.fir
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x = 0.3 * torch.randn((FIR_FRAMES, C), generator=gen, device=dev)
+    band = design_filter(RATE, 2000.0, 40000.0, 2)
+    # the kernel at 1024, 4096 and 32768 taps (designs extended exactly
+    # past their decay, one launch, one and eight), then the scrub's own
+    # 256-tap band-pass
     designs = (
-        ("filter", _sticky_design(design_filter(RATE, 2000.0, 40000.0, 2),
-                                  0)[0].fir.h, x),
-        ("envelope", _sticky_design(design_envelope_filter(RATE, 500.0),
-                                    0)[0].fir.h, (math.pi / 2) * x.abs()),
-        ("long", _sticky_design(design_filter(RATE, 50.0, None, 2),
-                                0)[0].fir.h, x))
+        ("filter", FilterDesign.from_sos(band, pad_to=1024).fir.h, x),
+        ("envelope", FilterDesign.from_sos(design_envelope_filter(
+            RATE, 500.0), pad_to=4096).fir.h, (math.pi / 2) * x.abs()),
+        ("long", FilterDesign.from_sos(design_filter(RATE, 50.0, None, 2),
+                                       pad_to=32768).fir.h, x),
+        ("scrub_filter", FilterDesign.from_sos(band).fir.h, x))
     entry_out = {"name": "fir", "route": "cuda",
                  "source": "audian_torch/csrc/fir.cu",
                  "replaces": "none (cuDNN's conv1d under sosfilt_fir)",
@@ -4520,7 +4535,7 @@ def fir_phase(card, dev, ia_fir):
             "plain_ms": plain_ms}
     # short and ragged streams, a column slice whose rows lie 16 words apart,
     # with one launch and with eight
-    for name, h, _ in designs[1:]:
+    for name, h, _ in designs[1:3]:
         T = len(h)
         for n, c in FIR_EDGES:
             for label, src in (("contiguous", x[:n, :c].contiguous()),

@@ -5,6 +5,9 @@ parameter updates, the scroll fast path against a full recompute,
 ``content_epoch``, ``get_region``, the sliding-window helpers at partial
 overlaps, and the raw window against the file.
 
+The JAX package's FIR nodes design at the port's lengths
+(``fir_lengths.at_port_lengths``), so both plan the same windows.
+
 Tolerances: filtered and envelope windows within 1e-5 absolute of the JAX
 package's, the PSD within 1e-4 relative (atol 1e-12); the delta-stitched
 windows within 1e-6 of a full recompute (the same float32 arithmetic over
@@ -25,6 +28,8 @@ from audian_torch import graph as tgraph
 from audian_torch.data import AudioLoader, Data, wavio
 from audian_torch.data import data as data_mod
 from audian_torch.stream import BlockPrefetcher
+
+from fir_lengths import at_port_lengths
 
 RATE = 48000.0
 SECONDS = 8.0
@@ -60,11 +65,13 @@ def wav(tmp_path_factory):
 
 
 def traces(pkg):
-    """default_traces() with the test's envelope cutoff."""
-    return [pkg.FilterNode("filtered", "data"),
-            pkg.EnvelopeNode("envelope", "filtered",
-                             envelope_cutoff=ENV_CUTOFF),
-            pkg.SpectrogramNode("spectrogram", "filtered")]
+    """default_traces() with the test's envelope cutoff, the JAX package's
+    FIR nodes at the port's lengths."""
+    nodes = [pkg.FilterNode("filtered", "data"),
+             pkg.EnvelopeNode("envelope", "filtered",
+                              envelope_cutoff=ENV_CUTOFF),
+             pkg.SpectrogramNode("spectrogram", "filtered")]
+    return at_port_lengths(*nodes) if pkg is jgraph else nodes
 
 
 def open_data(cls, pkg, path, buffer_time=2.0, back_time=0.5, **kw):

@@ -13,31 +13,37 @@ import scipy.signal
 import torch
 import torch.nn.functional as F
 
-from audian_torch.graph.nodes import _sticky_design
 from audian_torch.ops import sos
 from audian_torch.ops.cuda import fir as firmod
 from audian_torch.ops.cuda._build import SMEM_LIMIT
 from audian_torch.ops.cuda.chain import (TAP_PAD, _split_taps, core_steps,
                                          split_tf32, stream_rows)
-from audian_torch.ops.design import design_envelope_filter, design_filter
+from audian_torch.ops.design import (FilterDesign, design_envelope_filter,
+                                     design_filter)
 from audian_torch.utils import trace
 
 RATE = 96000.0
 
 
+#: (design, taps): each extended past its own decay length to the taps
+#: the kernel is tested at
 GRAPH_DESIGNS = {
-    "filter": lambda: design_filter(RATE, 2000.0, 40000.0, 2),
-    "envelope": lambda: design_envelope_filter(RATE, 500.0, 0.0, 2),
-    "envelope200": lambda: design_envelope_filter(RATE, 200.0, 0.0, 2),
-    "long": lambda: design_filter(RATE, 50.0, None, 2),
+    "filter": (lambda: design_filter(RATE, 2000.0, 40000.0, 2), 1024),
+    "envelope": (lambda: design_envelope_filter(RATE, 500.0, 0.0, 2), 4096),
+    "envelope200": (lambda: design_envelope_filter(RATE, 200.0, 0.0, 2),
+                    8192),
+    "long": (lambda: design_filter(RATE, 50.0, None, 2), 32768),
 }
 
 
 def graph_design(kind):
-    """The graph's sticky designs: the scrub's 2-40 kHz band-pass (1024
-    taps) and 500 Hz envelope (4096 taps), a 200 Hz envelope (8192 taps,
-    two launches) and a 50 Hz high-pass (32768 taps, eight)."""
-    return _sticky_design(GRAPH_DESIGNS[kind](), 0)[0].fir.h
+    """Long designs for the kernel: the scrub's 2-40 kHz band-pass at 1024
+    taps and its 500 Hz envelope at 4096 (one launch each), a 200 Hz
+    envelope at 8192 (two launches) and a 50 Hz high-pass at 32768
+    (eight).  ``pad_to`` extends each exactly: its leading taps are the
+    design's own."""
+    sos, taps = GRAPH_DESIGNS[kind]
+    return FilterDesign.from_sos(sos(), pad_to=taps).fir.h
 
 
 def test_operand_holds_each_slice_split_on_the_host():
@@ -266,8 +272,8 @@ def test_cpu_stream_runs_the_plain_twin_and_counts_no_launch(monkeypatch):
 
     monkeypatch.setattr(sos, "_fir_valid_cf", spy)
     launches = firmod.fir.launches
-    kernels = _sticky_design(design_filter(RATE, 2000.0, 40000.0, 2),
-                             0)[0].fir
+    kernels = FilterDesign.from_sos(design_filter(RATE, 2000.0, 40000.0, 2),
+                                    pad_to=1024).fir
     x = torch.randn(3000, 4)
     y = sos.sosfilt_fir(kernels, x)
     assert calls == [(4, 3000 + 1023)]

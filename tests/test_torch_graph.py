@@ -3,6 +3,13 @@
 coefficients (carried across with ``convert.node_params_from_arrays``),
 whole and chunked runs, and the plan cache under a cutoff scrub.
 
+The port designs each FIR node at its own decay length
+(``FilterDesign.from_sos``); the JAX package keeps a grow-only budget of
+four times it, whose taps the port's lead bit for bit.  Where a test
+holds the port to the JAX package, the JAX nodes design at the port's
+lengths (``fir_lengths.at_port_lengths``), so both plan the same
+geometry.
+
 Tolerances: filtered and envelope within 1e-5 absolute of the JAX
 package's float64 output (the scipy contract of both packages), the PSD
 within 1e-4 relative; chunked against whole on the port within 2e-6 (the
@@ -20,8 +27,11 @@ from audian_tpu import graph as jgraph
 from audian_torch import graph as tgraph
 from audian_torch.convert import node_params_from_arrays
 
+from fir_lengths import at_port_lengths
+
 RATE = 48000.0
 NAMES = ("filtered", "envelope", "spectrogram")
+FIR_NODES = ("filtered", "envelope")
 TOL = 1e-5
 TOL_PSD_RTOL = 1e-4
 TOL_CHUNKED = 2e-6
@@ -37,10 +47,15 @@ def recording():
     return np.stack([x, 0.5 * x], axis=1).astype(np.float32)
 
 
-def open_graph(pkg, frames, channels=2):
-    g = pkg.TraceGraph([pkg.FilterNode("filtered", "data"),
-                        pkg.EnvelopeNode("envelope", "filtered"),
-                        pkg.SpectrogramNode("spectrogram", "filtered")])
+def open_graph(pkg, frames, channels=2, port_lengths=True):
+    """The test's graph of ``pkg``; the JAX package's FIR nodes at the
+    port's lengths unless ``port_lengths`` is false."""
+    nodes = [pkg.FilterNode("filtered", "data"),
+             pkg.EnvelopeNode("envelope", "filtered"),
+             pkg.SpectrogramNode("spectrogram", "filtered")]
+    if pkg is jgraph and port_lengths:
+        at_port_lengths(*nodes)
+    g = pkg.TraceGraph(nodes)
     g.open(pkg.TraceSpec(rate=RATE, channels=channels, frames=frames))
     g["filtered"].update(highpass_cutoff=2000.0, lowpass_cutoff=10000.0)
     g.refold()
@@ -84,17 +99,59 @@ def test_plans_match_jax(recording, offset, frames):
 
 
 def test_sticky_designs_equal_jax(recording):
-    jg, tg = open_graph(jgraph, len(recording)), open_graph(tgraph,
-                                                            len(recording))
+    """Across a scrub, each FIR node's design is ``from_sos`` of its
+    filter: the JAX package's sticky design's leading taps bit for bit
+    (impulse and state responses), with equal ``zi0`` and ``padlen``; the
+    halo follows its length."""
+    jg = open_graph(jgraph, len(recording), port_lengths=False)
+    tg = open_graph(tgraph, len(recording))
     for cutoff in (8000.0, 3000.0, 12000.0):
         jg["filtered"].update(lowpass_cutoff=cutoff)
         tg["filtered"].update(lowpass_cutoff=cutoff)
-        for name in ("filtered", "envelope"):
+        for name in FIR_NODES:
             jd, td = jg[name].design, tg[name].design
-            np.testing.assert_array_equal(td.fir.h, jd.fir.h)
+            T = td.fir.length
+            assert T == type(td).from_sos(td.sos).fir.length
+            assert T <= jd.fir.length
+            np.testing.assert_array_equal(td.fir.h, jd.fir.h[:T])
+            np.testing.assert_array_equal(td.fir.state_out,
+                                          jd.fir.state_out[:T])
             np.testing.assert_array_equal(td.zi0, jd.zi0)
             assert td.padlen == jd.padlen
-        assert tg["filtered"].halo_before == jg["filtered"].halo_before
+            assert tg[name].taps == T
+        assert tg["filtered"].halo_before == \
+            tg["filtered"].design.fir.length / RATE
+        env = tg["envelope"]
+        assert env.halo_before == env.halo_after == \
+            (env.design.fir.length + env.design.padlen) / RATE
+    assert tg["spectrogram"].taps is None
+
+
+def test_highpass_scrub_grows_and_shrinks_the_design(recording):
+    """A high-pass scrub moves the filter's length both ways (the JAX
+    budget only grows); the halos follow, and the filtered and envelope
+    traces stay within 1e-5 of scipy's float64 ``sosfilt`` /
+    ``sosfiltfilt`` at each length."""
+    tg = open_graph(tgraph, len(recording))
+    ex = tgraph.GraphExecutor(tg, device="cpu")
+    x = recording.astype(np.float64)
+    lengths = []
+    for highpass in (2000.0, 100.0, 2000.0):
+        tg["filtered"].update(highpass_cutoff=highpass)
+        tg.refold()
+        fd, ed = tg["filtered"].design, tg["envelope"].design
+        lengths.append(fd.fir.length)
+        assert tg["filtered"].halo_frames() == (fd.fir.length, 0)
+        got = ex.run(recording, 0, pull=True)
+        y = sps.sosfilt(fd.sos, x, axis=0)
+        off, arr = got["filtered"]
+        np.testing.assert_allclose(arr, y[off:off + len(arr)], atol=TOL)
+        e = sps.sosfiltfilt(ed.sos, (np.pi / 2) * np.abs(y), axis=0,
+                            padlen=ed.padlen)
+        off, arr = got["envelope"]
+        np.testing.assert_allclose(arr, np.maximum(e, 0)[off:off + len(arr)],
+                                   atol=TOL)
+    assert lengths[0] < lengths[1] and lengths[2] == lengths[0]
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -31,8 +31,12 @@ from audian_tpu.view.render import TraceTiler as JTraceTiler
 from audian_torch import graph as tgraph
 from audian_torch.analysis import events as tev
 from audian_torch.data import Data
+from audian_torch.ops.design import (FilterDesign, design_envelope_filter,
+                                     design_filter)
 from audian_torch.utils import trace as ttrace
 from audian_torch.view.render import SpecTiler, TraceTiler
+
+from fir_lengths import at_port_lengths
 
 RATE = 48000.0
 MOVES = (0.0, 0.5, 1.0, 4.0, 3.5)
@@ -60,10 +64,11 @@ def tracing():
 def session(path, D, pkg, tiler_kw):
     d = D(path, buffer_time=2.0, back_time=0.5,
           **({} if D is JData else {"device": "cpu"}))
-    for node in (pkg.FilterNode("filtered", "data"),
-                 pkg.EnvelopeNode("envelope", "filtered",
-                                  envelope_cutoff=1500.0),
-                 pkg.SpectrogramNode("spectrogram", "filtered")):
+    nodes = (pkg.FilterNode("filtered", "data"),
+             pkg.EnvelopeNode("envelope", "filtered", envelope_cutoff=1500.0),
+             pkg.SpectrogramNode("spectrogram", "filtered"))
+    # the JAX FIR nodes at the port's lengths: the same windows and runs
+    for node in at_port_lengths(*nodes) if pkg is jgraph else nodes:
         d.add_trace(node)
     d.open()
     d["filtered"].update(highpass_cutoff=2000.0, lowpass_cutoff=10000.0)
@@ -137,7 +142,8 @@ def test_data_session_traces_as_jax(wav, tracing):
 def test_cutoff_step_nests_under_data_update(wav, tracing):
     """A cutoff step in a shown window: ``data.update`` is the root, the
     filter's new design is copied under it, and the run under it holds
-    one span per node."""
+    one span per node, each FIR node's with the taps it ran: its design's
+    own decay length."""
     d = Data(wav, buffer_time=2.0, back_time=0.5, device="cpu")
     for node in (tgraph.FilterNode("filtered", "data"),
                  tgraph.EnvelopeNode("envelope", "filtered",
@@ -160,6 +166,12 @@ def test_cutoff_step_nests_under_data_update(wav, tracing):
     assert params["parent"] == run["parent"] == root["id"]
     assert len(nodes) == run["nodes"] == 3
     assert {ids[e["parent"]]["id"] for e in nodes} == {run["id"]}
+    assert {e["node"]: e["taps"] for e in nodes} == {
+        "filtered": FilterDesign.from_sos(
+            design_filter(RATE, 0.0, 9000.0, 2)).fir.length,
+        "envelope": FilterDesign.from_sos(
+            design_envelope_filter(RATE, 1500.0)).fir.length,
+        "spectrogram": None}
     for inner, outer in [(params, root), (run, root)] + [
             (e, run) for e in nodes]:
         assert outer["t0_ns"] <= inner["t0_ns"] <= inner["t1_ns"] \
